@@ -1,0 +1,127 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, and loaded
+with ``ctypes``. Nothing is prebuilt: the libraries go into
+``build/torch_kernels/`` beside the package (git-ignored), named by a
+digest of the source and the flags, so an edited source builds anew.
+One ``nvcc`` runs per source, all started together.
+
+Every C entry point takes device pointers and the CUDA stream as
+``void*`` and returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code. Nothing here runs when the
+module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+__all__ = ["LAUNCHES", "build_all", "check", "library", "reset_launches", "stream_ptr"]
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures per library: {function: argtypes}; every function returns int
+_SIGNATURES = {
+    "correlation": {"corr_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "warp": {
+        "warp_image_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "warp_features_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    },
+}
+
+# Kernel launches since the last reset_launches(), by kernel name. Each
+# wrapper adds one where it launches its kernel, and nowhere else.
+LAUNCHES: Dict[str, int] = {"corr_fwd": 0, "warp_image_fwd": 0, "warp_features_fwd": 0}
+
+# ptxas report (registers, spills) of each library built by this process
+BUILD_LOGS: Dict[str, str] = {}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else shutil.which("nvcc")
+    if not cand or not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return cand
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _compile(name: str) -> Path:
+    out = _lib_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    BUILD_LOGS[name] = proc.stderr
+    os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
+    return out
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source in parallel (one nvcc each); returns the paths."""
+    with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
+        paths = dict(zip(_SIGNATURES, pool.map(_compile, _SIGNATURES)))
+    for name in paths:
+        library(name)
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``lib<name>``, built first if needed."""
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_compile(name)))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,277 @@
+"""The PyTorch port's ops against the JAX package on the CPU: correlation,
+both warps in both semantics, conv, resize/pad/crop, the kernel
+wrappers' CPU behaviour and the port's isolation from JAX.
+
+Inputs are made with numpy from a seed and handed to both packages; the
+port's op-level functions take NCHW, so the tests transpose."""
+
+import ctypes
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from real_time_self_adaptive_deep_stereo_torch import ops as tops
+from real_time_self_adaptive_deep_stereo_torch.ops import conv as tconv
+from real_time_self_adaptive_deep_stereo_tpu.ops import conv as jconv
+from real_time_self_adaptive_deep_stereo_tpu.ops.correlation import (
+    correlation_jnp,
+    correlation_pallas,
+)
+from real_time_self_adaptive_deep_stereo_tpu.ops import resize as jresize
+from real_time_self_adaptive_deep_stereo_tpu.ops import warp as jwarp
+from real_time_self_adaptive_deep_stereo_tpu.ops import warp_pallas as jpallas
+
+PORT_DIR = pathlib.Path(__file__).resolve().parent.parent / "real_time_self_adaptive_deep_stereo_torch"
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _t(x_nhwc):
+    """numpy NHWC -> torch NCHW."""
+    return torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2)))
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+# ---------------------------------------------------------------- correlation
+
+
+@pytest.mark.parametrize("max_disp,stride", [(2, 1), (3, 2), (4, 1)])
+def test_correlation_torch_matches_jnp(max_disp, stride):
+    r = _rng(1)
+    x = r.normal(size=(2, 5, 23, 12)).astype(np.float32)
+    y = r.normal(size=(2, 5, 23, 12)).astype(np.float32)
+    want = np.asarray(correlation_jnp(jnp.asarray(x), jnp.asarray(y), max_disp, stride))
+    got = _nhwc(tops.correlation(_t(x), _t(y), max_disp, stride, mode="torch"))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_correlation_kernel_wrapper_matches_pallas_interpret():
+    r = _rng(2)
+    x = r.normal(size=(1, 8, 40, 16)).astype(np.float32)
+    y = r.normal(size=(1, 8, 40, 16)).astype(np.float32)
+    want = np.asarray(correlation_pallas(jnp.asarray(x), jnp.asarray(y), 2, True))
+    # on CPU tensors the kernel wrapper runs the kernel's plain version
+    got = _nhwc(tops.correlation(_t(x), _t(y), 2, mode="cuda"))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    # 'auto' on the CPU is the plain version
+    got_auto = _nhwc(tops.correlation(_t(x), _t(y), 2))
+    np.testing.assert_allclose(got_auto, want, rtol=1e-5, atol=1e-6)
+
+
+# ----------------------------------------------------------------------- warp
+
+
+def _img_case(seed, w=200):
+    r = _rng(seed)
+    img = r.normal(size=(2, 6, w, 3)).astype(np.float32)
+    # crosses below 0 and above max_disp=32
+    disp = (r.random((2, 6, w, 1)) * 44 - 6).astype(np.float32)
+    return img, disp
+
+
+def _feat_case(seed, w=140):
+    r = _rng(seed)
+    feats = r.normal(size=(1, 5, w, 6)).astype(np.float32)
+    # crosses below -max_neg=20 and above max_pos=4
+    dx = (r.random((1, 5, w, 1)) * -30 + 8).astype(np.float32)
+    return feats, dx
+
+
+def test_warp_image_clamped_matches_shift_and_mxu():
+    img, disp = _img_case(3)
+    assert disp.min() < 0 and disp.max() > 32
+    got = _nhwc(tops.warp_image_clamped(_t(img), _t(disp), 32))
+    want_shift = np.asarray(jwarp.warp_image_shift(jnp.asarray(img), jnp.asarray(disp), 32))
+    want_mxu = np.asarray(jpallas.warp_image_mxu(jnp.asarray(img), jnp.asarray(disp), 32, True))
+    np.testing.assert_allclose(got, want_shift, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, want_mxu, rtol=1e-6, atol=1e-6)
+    # the kernel wrapper on CPU tensors is the same plain version
+    wrapped = _nhwc(tops.warp_image_cuda(_t(img), _t(disp), 32))
+    np.testing.assert_array_equal(wrapped, got)
+
+
+def test_warp_features_clamped_matches_shift_and_mxu():
+    feats, dx = _feat_case(4)
+    assert dx.min() < -20 and dx.max() > 4 and feats.shape[2] % 128
+    got = _nhwc(tops.warp_features_clamped(_t(feats), _t(dx), 20, 4))
+    want_shift = np.asarray(
+        jwarp.warp_features_horizontal_shift(jnp.asarray(feats), jnp.asarray(dx), 20, 4)
+    )
+    want_mxu = np.asarray(
+        jpallas.warp_features_mxu(jnp.asarray(feats), jnp.asarray(dx), 20, 4, True)
+    )
+    np.testing.assert_allclose(got, want_shift, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, want_mxu, rtol=1e-6, atol=1e-6)
+    wrapped = _nhwc(tops.warp_features_cuda(_t(feats), _t(dx), 20, 4))
+    np.testing.assert_array_equal(wrapped, got)
+
+
+def test_gather_warps_match_jax():
+    img, disp = _img_case(5, w=50)
+    want = np.asarray(jwarp.warp_image(jnp.asarray(img), jnp.asarray(disp)))
+    np.testing.assert_allclose(_nhwc(tops.warp_image(_t(img), _t(disp))), want, rtol=1e-6, atol=1e-6)
+    feats, dx = _feat_case(6, w=50)
+    want = np.asarray(jwarp.warp_features_horizontal(jnp.asarray(feats), jnp.asarray(dx)))
+    got = _nhwc(tops.warp_features_horizontal(_t(feats), _t(dx)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_warp_modes_resolve_and_dispatch():
+    cpu = torch.device("cpu")
+    assert tops.resolve_warp_mode("auto", cpu) == "gather"
+    assert tops.resolve_warp_mode("auto", torch.device("cuda")) == "cuda"
+    with pytest.raises(ValueError):
+        tops.resolve_warp_mode("onehot", cpu)
+    img, disp = _img_case(7, w=60)
+    ti, td = _t(img), _t(disp)
+    np.testing.assert_array_equal(
+        tops.warp_image_by_mode(ti, td, "auto", 32).numpy(), tops.warp_image(ti, td).numpy()
+    )
+    np.testing.assert_array_equal(
+        tops.warp_image_by_mode(ti, td, "clamped", 32).numpy(),
+        tops.warp_image_clamped(ti, td, 32).numpy(),
+    )
+
+
+def test_kernel_wrappers_reject_non_fp32():
+    x = torch.zeros(1, 4, 3, 8, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        tops.correlation_cuda(x, x, 2)
+    with pytest.raises(TypeError):
+        tops.warp_image_cuda(x, torch.zeros(1, 1, 3, 8), 8)
+    with pytest.raises(TypeError):
+        tops.warp_features_cuda(x, torch.zeros(1, 1, 3, 8), 8, 4)
+
+
+# ----------------------------------------------------------------------- conv
+
+
+@pytest.mark.parametrize("stride,hw", [(1, (9, 14)), (2, (16, 22)), (2, (9, 15))])
+def test_conv2d_matches_jax(stride, hw):
+    r = _rng(8)
+    x = r.normal(size=(2, *hw, 5)).astype(np.float32)
+    w = r.normal(size=(3, 3, 5, 7)).astype(np.float32)
+    b = r.normal(size=(7,)).astype(np.float32)
+    want = np.asarray(
+        jconv.conv2d({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x), strides=stride)
+    )
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    got = _nhwc(tconv.conv2d(_t(x), wt, torch.from_numpy(b), stride=stride))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_dilated_conv2d_matches_jax():
+    r = _rng(9)
+    x = r.normal(size=(1, 20, 36, 4)).astype(np.float32)
+    for rate in (1, 2, 4, 8, 16):
+        w = r.normal(size=(3, 3, 4, 6)).astype(np.float32)
+        b = r.normal(size=(6,)).astype(np.float32)
+        want = np.asarray(
+            jconv.dilated_conv2d({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x), rate=rate)
+        )
+        wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+        got = _nhwc(tconv.dilated_conv2d(_t(x), wt, torch.from_numpy(b), rate=rate))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=f"rate {rate}")
+
+
+def test_leaky_relu_and_init_conv():
+    x = torch.tensor([-2.0, -0.5, 0.0, 3.0])
+    np.testing.assert_allclose(tconv.leaky_relu(0.2)(x).numpy(), [-0.4, -0.1, 0.0, 3.0], rtol=1e-6)
+    g = torch.Generator().manual_seed(0)
+    w, b = tconv.init_conv(g, (16, 8, 3, 3))
+    limit = np.sqrt(6.0 / (9 * 8 + 9 * 16))
+    assert w.shape == (16, 8, 3, 3) and float(w.abs().max()) <= limit
+    assert float(w.abs().max()) > 0.9 * limit and torch.count_nonzero(b) == 0
+
+
+# --------------------------------------------------------------------- resize
+
+
+@pytest.mark.parametrize(
+    "in_hw,out_hw", [((6, 10), (96, 160)), ((64, 64), (32, 32)), ((5, 7), (10, 14)), ((8, 8), (8, 8))]
+)
+def test_resize_bilinear_matches_jax(in_hw, out_hw):
+    x = _rng(10).normal(size=(2, *in_hw, 3)).astype(np.float32)
+    want = np.asarray(jresize.resize_bilinear(jnp.asarray(x), *out_hw))
+    got = _nhwc(tops.resize_bilinear(_t(x), *out_hw))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("target", [(4, 6), (12, 20), (4, 20), (12, 6)])
+def test_crop_or_pad_matches_jax(target):
+    x = _rng(11).normal(size=(2, 8, 10, 1)).astype(np.float32)
+    want = np.asarray(jresize.crop_or_pad(jnp.asarray(x), *target))
+    np.testing.assert_array_equal(_nhwc(tops.crop_or_pad(_t(x), *target)), want)
+
+
+def test_pad_image_matches_jax():
+    x = _rng(12).normal(size=(1, 100, 250, 3)).astype(np.float32)
+    want = np.asarray(jresize.pad_image(jnp.asarray(x), 64))
+    got = _nhwc(tops.pad_image(_t(x), 64))
+    assert got.shape == (1, 128, 256, 3)
+    np.testing.assert_array_equal(got, want)
+    assert tops.padded_shape(320, 1216) == jresize.padded_shape(320, 1216) == (320, 1216)
+
+
+def test_kernel_c_signatures_match_ctypes():
+    """Each C entry point of csrc/*.cu takes exactly the ctypes argtypes the
+    loader declares: a mismatch would pass garbage to the kernel on the card,
+    where no compiler checks the call."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    def ctype(param):
+        if "*" in param or "cudaStream_t" in param:
+            return ctypes.c_void_p
+        return {"int": ctypes.c_int, "float": ctypes.c_float}[param.split()[0]]
+
+    declared = 0
+    for lib, fns in cuda_lib._SIGNATURES.items():
+        src = (cuda_lib.CSRC_DIR / f"{lib}.cu").read_text()
+        for fn, argtypes in fns.items():
+            m = re.search(rf"^int {fn}\(([^)]*)\)", src, re.M)
+            assert m, f"{lib}.cu has no entry point {fn}"
+            params = [p.strip() for p in m.group(1).split(",")]
+            assert [ctype(p) for p in params] == argtypes, fn
+            declared += 1
+    assert set(cuda_lib.LAUNCHES) == {fn for fns in cuda_lib._SIGNATURES.values() for fn in fns}
+    assert declared == 3
+
+
+# ------------------------------------------------------------------ isolation
+
+
+def test_port_imports_no_jax():
+    """Importing every port module leaves JAX and the JAX package out."""
+    mods = sorted(
+        "real_time_self_adaptive_deep_stereo_torch."
+        + ".".join(p.relative_to(PORT_DIR).with_suffix("").parts)
+        for p in PORT_DIR.rglob("*.py")
+        if p.name != "__init__.py"
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
+        "'real_time_self_adaptive_deep_stereo_tpu'))]\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=PORT_DIR.parent, timeout=120
+    )
+    stmt = re.compile(
+        r"^\s*(from|import)\s+(jax|real_time_self_adaptive_deep_stereo_tpu)\b", re.M
+    )
+    for p in PORT_DIR.rglob("*.py"):
+        assert not stmt.search(p.read_text()), p
