@@ -1,6 +1,6 @@
-// 1-D stereo correlation cost volume, forward, for sm_90a.
+// 1-D stereo correlation cost volume, forward and backward, for sm_90a.
 //
-// Replaces the Pallas TPU kernel `_corr_fwd_kernel`
+// corr_fwd replaces the Pallas TPU kernel `_corr_fwd_kernel`
 // (real_time_self_adaptive_deep_stereo_tpu/ops/correlation.py), launched
 // by `correlation_pallas` / `_corr_pallas_fwd_impl`. It computes, in NCHW,
 //
@@ -20,6 +20,25 @@
 // once, coalesced. At MADNet's coarse scales the calls hold too few
 // pixels to approach the card's bandwidth (95 threads at scale 6): there
 // the latency of the loads down the channel loop sets the time.
+//
+// corr_bwd is the backward of the same function. The JAX package has no
+// TPU kernel for it: `_corr_pallas_bwd`, the backward of the
+// `custom_vjp` around the Pallas kernel, is plain jnp. It computes
+//
+//   dx[b, c, h, w] = (1/C) * sum_k g[b, k, h, w]         * y[b, c, h, w + k - R]
+//   dy[b, c, h, v] = (1/C) * sum_k g[b, k, h, v + R - k] * x[b, c, h, v + R - k]
+//
+// with every column outside [0, W-1] contributing zero. Both are gathers
+// (dy reads the outputs whose shift k pointed at column v), so there are
+// no atomics and two runs agree bit for bit. It is bound by memory: it
+// reads x, y and g once and writes dx and dy, (4C + 2R + 1) * 4 bytes a
+// pixel for 4C(2R+1) flops. One thread per element (b, c, h, w), with the
+// pixels of a plane flattened so that the 19-column planes of the coarse
+// scales still fill their warps; consecutive threads read consecutive
+// addresses of x, y and g, and the 2R+1 shifted reads of neighbours share
+// cache lines. Each product and sum is rounded on its own, in the plain
+// version's order, so that the two agree to the last bit where no column
+// is out of range and within a rounding elsewhere.
 
 #include <cuda_runtime.h>
 
@@ -76,6 +95,52 @@ __global__ void corr_fwd_kernel(const float* __restrict__ x,
 }
 
 template <int R>
+__global__ void corr_bwd_kernel(const float* __restrict__ x,
+                                const float* __restrict__ y,
+                                const float* __restrict__ g,
+                                float* __restrict__ dx, float* __restrict__ dy,
+                                int C, int H, int W, float inv_c) {
+  constexpr int K = 2 * R + 1;
+  const int plane = H * W;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;  // pixel h * W + w
+  const int c = blockIdx.y;
+  const int b = blockIdx.z;
+  if (p >= plane) return;
+
+  const int w = p % W;
+  const int row = p - w;
+  const size_t chan = (static_cast<size_t>(b) * C + c) * plane;
+  const float* xr = x + chan + row;
+  const float* yr = y + chan + row;
+  const float* gr = g + static_cast<size_t>(b) * K * plane + row;
+
+  float ax = 0.f, ay = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int wy = w + k - R;  // the y column that output w reads at shift k
+    if (wy >= 0 && wy < W) {
+      const float t = __fmul_rn(__ldg(gr + k * plane + w), __ldg(yr + wy));
+      ax = __fadd_rn(ax, __fmul_rn(t, inv_c));
+    }
+    const int wx = w + R - k;  // the output whose shift k reads y column w
+    if (wx >= 0 && wx < W) {
+      const float t = __fmul_rn(__ldg(gr + k * plane + wx), __ldg(xr + wx));
+      ay = __fadd_rn(ay, __fmul_rn(t, inv_c));
+    }
+  }
+  dx[chan + p] = ax;
+  dy[chan + p] = ay;
+}
+
+template <int R>
+void launch_bwd(const float* x, const float* y, const float* g, float* dx,
+                float* dy, int B, int C, int H, int W, cudaStream_t stream) {
+  const dim3 grid((H * W + kThreads - 1) / kThreads, C, B);
+  corr_bwd_kernel<R><<<grid, kThreads, 0, stream>>>(x, y, g, dx, dy, C, H, W,
+                                                    1.0f / C);
+}
+
+template <int R>
 void launch(const float* x, const float* y, float* out, int B, int C, int H,
             int W, cudaStream_t stream) {
   const dim3 grid((W + kThreads - 1) / kThreads, H, B);
@@ -96,6 +161,21 @@ int corr_fwd(const float* x, const float* y, float* out, int B, int C, int H,
     case 2: launch<2>(x, y, out, B, C, H, W, stream); break;
     case 3: launch<3>(x, y, out, B, C, H, W, stream); break;
     case 4: launch<4>(x, y, out, B, C, H, W, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, y: [B, C, H, W] fp32 contiguous; g: [B, 2*radius+1, H, W], the gradient
+// of corr_fwd's output; dx, dy like x. C may be at most 65535.
+int corr_bwd(const float* x, const float* y, const float* g, float* dx,
+             float* dy, int B, int C, int H, int W, int radius,
+             cudaStream_t stream) {
+  switch (radius) {
+    case 1: launch_bwd<1>(x, y, g, dx, dy, B, C, H, W, stream); break;
+    case 2: launch_bwd<2>(x, y, g, dx, dy, B, C, H, W, stream); break;
+    case 3: launch_bwd<3>(x, y, g, dx, dy, B, C, H, W, stream); break;
+    case 4: launch_bwd<4>(x, y, g, dx, dy, B, C, H, W, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -7,29 +7,36 @@ along W. Port of ``real_time_self_adaptive_deep_stereo_tpu/ops/correlation.py``:
 
 * :func:`correlation_torch` is the plain version, a copy of
   ``correlation_jnp``. The CPU path and the tests use it.
-* :func:`correlation_cuda` is the wrapper of the hand-written kernel
-  ``csrc/correlation.cu`` (``corr_fwd``), which replaces the Pallas
-  kernel ``_corr_fwd_kernel``. On a CPU tensor it runs the plain version;
-  on a CUDA tensor it launches the kernel or raises.
+* :func:`correlation_torch_bwd` is the plain version of the backward, a
+  copy of ``_corr_pallas_bwd``.
+* :func:`correlation_cuda` is the wrapper of the hand-written kernels in
+  ``csrc/correlation.cu``: ``corr_fwd``, which replaces the Pallas kernel
+  ``_corr_fwd_kernel``, and in backward ``corr_bwd``. On a CPU tensor it
+  runs the plain version (autograd differentiates it); on a CUDA tensor
+  it launches the kernels or raises.
 * :func:`correlation` picks one: ``mode='auto'`` is ``cuda`` for CUDA
   tensors at stride 1 and ``torch`` otherwise.
-
-The backward kernel comes with the adaptation slice; until then the
-autograd shell raises in backward.
 """
 
 from __future__ import annotations
 
-from typing import Literal
+from typing import Literal, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
 
-__all__ = ["correlation", "correlation_torch", "correlation_cuda", "MAX_KERNEL_RADIUS"]
+__all__ = [
+    "correlation",
+    "correlation_torch",
+    "correlation_torch_bwd",
+    "correlation_cuda",
+    "correlation_bwd_cuda",
+    "MAX_KERNEL_RADIUS",
+]
 
-MAX_KERNEL_RADIUS = 4  # corr_fwd is instantiated for radius 1..4
+MAX_KERNEL_RADIUS = 4  # corr_fwd and corr_bwd are instantiated for radius 1..4
 
 
 def correlation_torch(
@@ -45,15 +52,42 @@ def correlation_torch(
     return torch.cat(outs, dim=1)
 
 
-def _corr_fwd_launch(x: torch.Tensor, y: torch.Tensor, max_disp: int) -> torch.Tensor:
+def correlation_torch_bwd(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, max_disp: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward at stride 1: ``(dx, dy)`` for the
+    gradient ``g`` ([B, 2*max_disp+1, H, W]) of the cost volume.
+
+        dx[w, c] = sum_k g[w, k] * ypad[w + k, c] / C
+        dy[v, c] = sum_k g[v + max_disp - k, k] * x[v + max_disp - k, c] / C
+    """
+    c, w = x.shape[1], x.shape[3]
+    inv_c = 1.0 / c
+    pad = (max_disp, max_disp)
+    xpad, ypad, gpad = F.pad(x, pad), F.pad(y, pad), F.pad(g, pad)
+    dx = torch.zeros_like(x)
+    dy = torch.zeros_like(y)
+    for k in range(2 * max_disp + 1):
+        dx = dx + g[:, k : k + 1] * ypad[..., k : k + w] * inv_c
+        # reverse shift: output column w feeds y column w + k - max_disp
+        off = 2 * max_disp - k
+        dy = dy + gpad[:, k : k + 1, :, off : off + w] * xpad[..., off : off + w] * inv_c
+    return dx, dy
+
+
+def _check(name: str, x: torch.Tensor, y: torch.Tensor, max_disp: int) -> None:
     if x.device.type != "cuda" or y.device != x.device:
-        raise ValueError(f"corr_fwd needs both inputs on one CUDA device, got {x.device}, {y.device}")
+        raise ValueError(f"{name} needs both inputs on one CUDA device, got {x.device}, {y.device}")
     if x.dim() != 4 or x.shape != y.shape:
-        raise ValueError(f"corr_fwd needs two NCHW tensors of one shape, got {tuple(x.shape)}, {tuple(y.shape)}")
+        raise ValueError(f"{name} needs two NCHW tensors of one shape, got {tuple(x.shape)}, {tuple(y.shape)}")
     if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("corr_fwd needs contiguous inputs")
+        raise ValueError(f"{name} needs contiguous inputs")
     if not 1 <= max_disp <= MAX_KERNEL_RADIUS:
-        raise ValueError(f"corr_fwd supports max_disp 1..{MAX_KERNEL_RADIUS}, got {max_disp}")
+        raise ValueError(f"{name} supports max_disp 1..{MAX_KERNEL_RADIUS}, got {max_disp}")
+
+
+def _corr_fwd_launch(x: torch.Tensor, y: torch.Tensor, max_disp: int) -> torch.Tensor:
+    _check("corr_fwd", x, y, max_disp)
     b, c, h, w = x.shape
     out = torch.empty((b, 2 * max_disp + 1, h, w), device=x.device, dtype=x.dtype)
     lib = cuda_lib.library("correlation")
@@ -66,27 +100,66 @@ def _corr_fwd_launch(x: torch.Tensor, y: torch.Tensor, max_disp: int) -> torch.T
     return out
 
 
+def _corr_bwd_launch(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, max_disp: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check("corr_bwd", x, y, max_disp)
+    b, c, h, w = x.shape
+    if g.device != x.device or g.dtype != x.dtype or tuple(g.shape) != (b, 2 * max_disp + 1, h, w):
+        raise ValueError(
+            f"corr_bwd needs a float32 gradient of shape {(b, 2 * max_disp + 1, h, w)} on "
+            f"{x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}"
+        )
+    if not g.is_contiguous():
+        raise ValueError("corr_bwd needs a contiguous gradient")
+    if c > 65535:
+        raise ValueError(f"corr_bwd supports at most 65535 channels, got {c}")
+    dx, dy = torch.empty_like(x), torch.empty_like(y)
+    lib = cuda_lib.library("correlation")
+    err = lib.corr_bwd(
+        x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        b, c, h, w, max_disp, cuda_lib.stream_ptr(x.device),
+    )
+    cuda_lib.check(lib, err, "corr_bwd")
+    cuda_lib.LAUNCHES["corr_bwd"] += 1
+    return dx, dy
+
+
 class _CorrelationCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, max_disp):
+        ctx.save_for_backward(x, y)
+        ctx.max_disp = max_disp
         return _corr_fwd_launch(x, y, max_disp)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the correlation backward kernel comes with the MAD/FULL adaptation "
-            "slice (ROADMAP.md, TPU kernels to port)"
-        )
+        x, y = ctx.saved_tensors
+        # cuDNN may hand the gradient over in another layout or as an
+        # expanded view; the kernel takes contiguous NCHW
+        dx, dy = _corr_bwd_launch(x, y, grad.contiguous(), ctx.max_disp)
+        return dx, dy, None
 
 
 def correlation_cuda(x: torch.Tensor, y: torch.Tensor, max_disp: int) -> torch.Tensor:
-    """Kernel wrapper (stride 1, fp32, NCHW): ``corr_fwd`` on CUDA tensors,
-    the plain version on CPU tensors."""
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"corr_fwd takes float32 only, got {x.dtype}, {y.dtype}")
+    """Kernel wrapper (stride 1, fp32, NCHW): ``corr_fwd``, and ``corr_bwd``
+    in backward, on CUDA tensors; the plain version on CPU tensors."""
+    cuda_lib.check_float32("corr_fwd", x, y)
     if x.device.type == "cpu" and y.device.type == "cpu":
         return correlation_torch(x, y, max_disp)
     return _CorrelationCUDA.apply(x, y, max_disp)
+
+
+def correlation_bwd_cuda(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, max_disp: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Wrapper of the backward kernel alone: ``(dx, dy)`` from ``corr_bwd``
+    on CUDA tensors, from the plain version on CPU tensors. The backward
+    of :func:`correlation_cuda` launches the same kernel."""
+    cuda_lib.check_float32("corr_bwd", x, y, g)
+    if x.device.type == "cpu" and y.device.type == "cpu" and g.device.type == "cpu":
+        return correlation_torch_bwd(x, y, g, max_disp)
+    return _corr_bwd_launch(x, y, g, max_disp)
 
 
 def correlation(

@@ -27,7 +27,9 @@ from typing import Dict
 
 import torch
 
-__all__ = ["LAUNCHES", "build_all", "check", "library", "reset_launches", "stream_ptr"]
+__all__ = [
+    "LAUNCHES", "build_all", "check", "check_float32", "library", "reset_launches", "stream_ptr",
+]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -40,16 +42,21 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures per library: {function: argtypes}; every function returns int
 _SIGNATURES = {
-    "correlation": {"corr_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "correlation": {
+        "corr_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "corr_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
     "warp": {
         "warp_image_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
         "warp_features_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+        "warp_image_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+        "warp_features_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     },
 }
 
 # Kernel launches since the last reset_launches(), by kernel name. Each
 # wrapper adds one where it launches its kernel, and nowhere else.
-LAUNCHES: Dict[str, int] = {"corr_fwd": 0, "warp_image_fwd": 0, "warp_features_fwd": 0}
+LAUNCHES: Dict[str, int] = {fn: 0 for fns in _SIGNATURES.values() for fn in fns}
 
 # ptxas report (registers, spills) of each library built by this process
 BUILD_LOGS: Dict[str, str] = {}
@@ -125,3 +132,9 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def check_float32(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is float32, the one type the kernels take."""
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{what} takes float32 only, got {[t.dtype for t in tensors]}")

@@ -19,13 +19,20 @@ Each exists in two forms that differ for out-of-range offsets:
   ``warp_features_horizontal_shift`` and of the Pallas kernels, and
   equal clip-then-gather. :func:`warp_image_clamped` and
   :func:`warp_features_clamped` are the plain versions of the CUDA
-  kernels in :mod:`.warp_kernels`.
+  kernels in :mod:`.warp_kernels`, and autograd through them, as
+  :func:`warp_image_clamped_bwd` and :func:`warp_features_clamped_bwd`,
+  is the plain version of the backward kernels. ``torch.clamp`` passes
+  the gradient at an offset exactly on a clip bound, as the Pallas
+  kernels' inclusive masks do (``jnp.clip`` in the JAX shift forms halves
+  it there).
 
 A fresh random-weight MADNet produces disparities beyond the windows, so
 every comparison pins the mode.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -34,6 +41,8 @@ __all__ = [
     "warp_features_horizontal",
     "warp_image_clamped",
     "warp_features_clamped",
+    "warp_image_clamped_bwd",
+    "warp_features_clamped_bwd",
     "resolve_warp_mode",
     "WARP_MODES",
 ]
@@ -98,3 +107,27 @@ def warp_features_clamped(
     """Plain version of the feature-warp kernel: ``dx`` clipped to
     ``[-max_neg, max_pos]``, then :func:`warp_features_horizontal`."""
     return warp_features_horizontal(feats, torch.clamp(dx, -float(max_neg), float(max_pos)))
+
+
+def _vjp(fn, src: torch.Tensor, off: torch.Tensor, g: torch.Tensor):
+    src = src.detach().requires_grad_()
+    off = off.detach().requires_grad_()
+    with torch.enable_grad():
+        out = fn(src, off)
+    return torch.autograd.grad(out, (src, off), g)
+
+
+def warp_image_clamped_bwd(
+    img: torch.Tensor, disp: torch.Tensor, g: torch.Tensor, max_disp: int = 192
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the image-warp backward kernel: ``(dimg, ddisp)``
+    for the gradient ``g`` of :func:`warp_image_clamped`'s output."""
+    return _vjp(lambda i, d: warp_image_clamped(i, d, max_disp), img, disp, g)
+
+
+def warp_features_clamped_bwd(
+    feats: torch.Tensor, dx: torch.Tensor, g: torch.Tensor, max_neg: int = 64, max_pos: int = 4
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the feature-warp backward kernel: ``(dfeats, ddx)``
+    for the gradient ``g`` of :func:`warp_features_clamped`'s output."""
+    return _vjp(lambda f, d: warp_features_clamped(f, d, max_neg, max_pos), feats, dx, g)

@@ -3,16 +3,20 @@
 Counterpart of ``real_time_self_adaptive_deep_stereo_tpu/ops/warp_pallas.py``:
 
 * :func:`warp_image_cuda` launches ``warp_image_fwd``, which replaces the
-  Pallas kernel ``_img_fwd_kernel`` (``warp_image_pallas``).
+  Pallas kernel ``_img_fwd_kernel`` (``warp_image_pallas``), and in
+  backward ``warp_image_bwd``, which replaces ``_img_bwd_kernel``.
 * :func:`warp_features_cuda` launches ``warp_features_fwd``, which
-  replaces ``_feat_fwd_kernel`` (``warp_features_pallas``).
+  replaces ``_feat_fwd_kernel`` (``warp_features_pallas``), and in
+  backward ``warp_features_bwd``, which replaces ``_feat_bwd_kernel``.
 
 Both compute the clamped-window semantics of :mod:`.warp`; their plain
-versions are :func:`warp_image_clamped` and :func:`warp_features_clamped`,
-re-exported here. A wrapper runs the plain version on a CPU tensor and
-launches its kernel, or raises, on a CUDA tensor. The backward kernels
-come with the adaptation slice; until then the autograd shells raise in
-backward.
+versions are :func:`warp_image_clamped` and :func:`warp_features_clamped`
+(backward: :func:`warp_image_clamped_bwd`, :func:`warp_features_clamped_bwd`),
+re-exported here. A wrapper runs the plain version on a CPU tensor, where
+autograd differentiates it, and launches its kernels, or raises, on a
+CUDA tensor. A backward kernel computes only the gradients that autograd
+asks for: on the main path the right image needs none, and with MADNet's
+bulkhead the feature warp's offset needs none.
 
 :func:`warp_image_by_mode` and :func:`warp_features_by_mode` dispatch on
 the warp modes of :func:`.warp.resolve_warp_mode` for the model and loss.
@@ -26,16 +30,22 @@ from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
 from real_time_self_adaptive_deep_stereo_torch.ops.warp import (
     resolve_warp_mode,
     warp_features_clamped,
+    warp_features_clamped_bwd,
     warp_features_horizontal,
     warp_image,
     warp_image_clamped,
+    warp_image_clamped_bwd,
 )
 
 __all__ = [
     "warp_image_cuda",
     "warp_features_cuda",
+    "warp_image_bwd_cuda",
+    "warp_features_bwd_cuda",
     "warp_image_clamped",
     "warp_features_clamped",
+    "warp_image_clamped_bwd",
+    "warp_features_clamped_bwd",
     "warp_image_by_mode",
     "warp_features_by_mode",
 ]
@@ -53,9 +63,8 @@ def _check(name: str, src: torch.Tensor, off: torch.Tensor) -> None:
         raise ValueError(f"{name} needs contiguous inputs")
 
 
-def _check_dtype(name: str, src: torch.Tensor, off: torch.Tensor) -> None:
-    if src.dtype != torch.float32 or off.dtype != torch.float32:
-        raise TypeError(f"{name} takes float32 only, got {src.dtype}, {off.dtype}")
+def _all_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
 
 
 def _launch(fn_name: str, src: torch.Tensor, off: torch.Tensor, *bounds: float) -> torch.Tensor:
@@ -72,40 +81,107 @@ def _launch(fn_name: str, src: torch.Tensor, off: torch.Tensor, *bounds: float) 
     return out
 
 
-def _no_backward(what: str):
-    raise NotImplementedError(
-        f"the {what} backward kernel comes with the MAD/FULL adaptation slice "
-        "(ROADMAP.md, TPU kernels to port)"
+def _launch_bwd(
+    fn_name: str,
+    src: torch.Tensor,
+    off: torch.Tensor,
+    grad: torch.Tensor,
+    need_src: bool,
+    need_off: bool,
+    *bounds: float,
+):
+    """``(dsrc, doff)``; a gradient that is not needed is ``None`` and its
+    kernel is not launched."""
+    _check(fn_name, src, off)
+    if grad.device != src.device or grad.dtype != src.dtype or grad.shape != src.shape:
+        raise ValueError(
+            f"{fn_name} needs a float32 gradient of shape {tuple(src.shape)} on {src.device}, "
+            f"got {grad.dtype} {tuple(grad.shape)} on {grad.device}"
+        )
+    if not grad.is_contiguous():
+        raise ValueError(f"{fn_name} needs a contiguous gradient")
+    b, c, h, w = src.shape
+    if h > 65535 or b * -(-c // 4) > 65535:
+        raise ValueError(f"{fn_name}: shape {tuple(src.shape)} exceeds the launch grid")
+    dsrc = torch.empty_like(src) if need_src else None
+    doff = torch.empty_like(off) if need_off else None
+    if not (need_src or need_off):
+        return dsrc, doff
+    lib = cuda_lib.library("warp")
+    err = getattr(lib, fn_name)(
+        src.data_ptr(), off.data_ptr(), grad.data_ptr(),
+        None if dsrc is None else dsrc.data_ptr(),
+        None if doff is None else doff.data_ptr(),
+        b, c, h, w, *bounds, int(need_src), int(need_off),
+        cuda_lib.stream_ptr(src.device),
     )
+    cuda_lib.check(lib, err, fn_name)
+    cuda_lib.LAUNCHES[fn_name] += 1
+    return dsrc, doff
 
 
 class _WarpImageCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, img, disp, max_disp):
-        return _launch("warp_image_fwd", img, disp, float(max_disp))
+        ctx.save_for_backward(img, disp)
+        ctx.max_disp = float(max_disp)
+        return _launch("warp_image_fwd", img, disp, ctx.max_disp)
 
     @staticmethod
     def backward(ctx, grad):
-        _no_backward("image warp")
+        img, disp = ctx.saved_tensors
+        # the gradient may arrive in another layout or as an expanded
+        # view; the kernel takes contiguous NCHW
+        dimg, ddisp = _launch_bwd(
+            "warp_image_bwd", img, disp, grad.contiguous(),
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.max_disp,
+        )
+        return dimg, ddisp, None
 
 
 class _WarpFeaturesCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, dx, max_neg, max_pos):
-        return _launch("warp_features_fwd", feats, dx, float(max_neg), float(max_pos))
+        ctx.save_for_backward(feats, dx)
+        ctx.bounds = (float(max_neg), float(max_pos))
+        return _launch("warp_features_fwd", feats, dx, *ctx.bounds)
 
     @staticmethod
     def backward(ctx, grad):
-        _no_backward("feature warp")
+        feats, dx = ctx.saved_tensors
+        dfeats, ddx = _launch_bwd(
+            "warp_features_bwd", feats, dx, grad.contiguous(),
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1], *ctx.bounds,
+        )
+        return dfeats, ddx, None, None
 
 
 def warp_image_cuda(img: torch.Tensor, disp: torch.Tensor, max_disp: int = 192) -> torch.Tensor:
     """Clamp-to-edge image warp at ``x - clip(disp, 0, max_disp)``
     (NCHW img, [B,1,H,W] disp, fp32)."""
-    _check_dtype("warp_image_fwd", img, disp)
-    if img.device.type == "cpu" and disp.device.type == "cpu":
+    cuda_lib.check_float32("warp_image_fwd", img, disp)
+    if _all_cpu(img, disp):
         return warp_image_clamped(img, disp, max_disp)
     return _WarpImageCUDA.apply(img, disp, max_disp)
+
+
+def warp_image_bwd_cuda(
+    img: torch.Tensor,
+    disp: torch.Tensor,
+    g: torch.Tensor,
+    max_disp: int = 192,
+    need_img: bool = True,
+    need_disp: bool = True,
+):
+    """Wrapper of the backward kernel alone: ``(dimg, ddisp)`` for the
+    gradient ``g`` of :func:`warp_image_cuda`'s output, from
+    ``warp_image_bwd`` on CUDA tensors and from the plain version on CPU
+    tensors. A gradient that is not needed is ``None``."""
+    cuda_lib.check_float32("warp_image_bwd", img, disp, g)
+    if _all_cpu(img, disp, g):
+        dimg, ddisp = warp_image_clamped_bwd(img, disp, g, max_disp)
+        return (dimg if need_img else None), (ddisp if need_disp else None)
+    return _launch_bwd("warp_image_bwd", img, disp, g, need_img, need_disp, float(max_disp))
 
 
 def warp_features_cuda(
@@ -113,10 +189,31 @@ def warp_features_cuda(
 ) -> torch.Tensor:
     """Feature warp at ``x + clip(dx, -max_neg, max_pos)`` with
     out-of-range corners zeroed (NCHW feats, [B,1,H,W] dx, fp32)."""
-    _check_dtype("warp_features_fwd", feats, dx)
-    if feats.device.type == "cpu" and dx.device.type == "cpu":
+    cuda_lib.check_float32("warp_features_fwd", feats, dx)
+    if _all_cpu(feats, dx):
         return warp_features_clamped(feats, dx, max_neg, max_pos)
     return _WarpFeaturesCUDA.apply(feats, dx, max_neg, max_pos)
+
+
+def warp_features_bwd_cuda(
+    feats: torch.Tensor,
+    dx: torch.Tensor,
+    g: torch.Tensor,
+    max_neg: int = 64,
+    max_pos: int = 4,
+    need_feats: bool = True,
+    need_dx: bool = True,
+):
+    """Wrapper of the backward kernel alone: ``(dfeats, ddx)`` for the
+    gradient ``g`` of :func:`warp_features_cuda`'s output, with the
+    conventions of :func:`warp_image_bwd_cuda`."""
+    cuda_lib.check_float32("warp_features_bwd", feats, dx, g)
+    if _all_cpu(feats, dx, g):
+        dfeats, ddx = warp_features_clamped_bwd(feats, dx, g, max_neg, max_pos)
+        return (dfeats if need_feats else None), (ddx if need_dx else None)
+    return _launch_bwd(
+        "warp_features_bwd", feats, dx, g, need_feats, need_dx, float(max_neg), float(max_pos)
+    )
 
 
 def warp_image_by_mode(

@@ -246,7 +246,7 @@ def test_kernel_c_signatures_match_ctypes():
             assert [ctype(p) for p in params] == argtypes, fn
             declared += 1
     assert set(cuda_lib.LAUNCHES) == {fn for fns in cuda_lib._SIGNATURES.values() for fn in fns}
-    assert declared == 3
+    assert declared == 6
 
 
 # ------------------------------------------------------------------ isolation
