@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--kernels-only]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -10,11 +10,14 @@ Phases, each of which raises on failure (nothing is caught):
    precision, fp32.
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report.
-3. Each of the six kernels at every shape the main paths give it, against
+3. Each of the ten kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
-   windows: the three forward kernels, and the three backward kernels
+   windows: the five forward kernels, and the five backward kernels
    (``dx``, ``dy``; ``dimg``, ``ddisp``; ``dfeats``, ``ddx``), each of
-   which must also give bit-identical outputs in two runs. Prints its
+   which must also give bit-identical outputs in two runs. The tiled
+   one-hot warps (``csrc/warp_tile.cu``) are held against the one-hot
+   products and against the clamped-window kernels, which compute the
+   same function. Prints its
    time (median of CUDA-event-timed replays of a CUDA graph), its bound
    (bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever
    is larger), the plain version's time and, for the warps, the time of
@@ -30,7 +33,7 @@ Phases, each of which raises on failure (nothing is caught):
    the card, and the disparities must agree within 1e-4 of the largest.
 5. MAD adaptation as ``cli/adapt.py`` runs it: MADNet with the bulkhead,
    momentum, lr 1e-4, ``block_config/MadNet_full.json``, the SEQUENTIAL
-   sampler so that every block is trained, 15 frames. Per frame: 5 / 2 / 4
+   sampler so that every block is trained, 10 frames. Per frame: 5 / 2 / 4
    forward launches (the image warp runs in the block loss and in the
    full loss) and, for block i, 1 correlation backward, 1 image-warp
    backward and 1 feature-warp backward (none for block 0); finite loss
@@ -42,9 +45,28 @@ Phases, each of which raises on failure (nothing is caught):
    card: the parameter changes must agree within 1e-4 of the largest.
    Last, one frame with a loss threshold below every loss: the reset
    safeguard must restore the pristine weights.
+6. The fused device session (``adapt/fused.py``: flat arena, controller
+   on the device, one CUDA graph per branch) at 320x1216 with
+   ``warp_mode='mxu'`` in model and loss, on smooth stereo pairs. MAD with
+   the bulkhead, SEQUENTIAL, 20 frames: the first two rounds are checked
+   frame by frame (5 correlation, 2 + 4 tiled forward, 1 correlation
+   backward and 1 + 1 tiled backward launches, none of the latter for
+   block 0, and none of the clamped-window kernels; exactly the sampled
+   block's arena range moves; each graph holds its block's launches), the
+   last two run with ``torch.cuda.set_sync_debug_mode("error")``, so a host
+   sync in the steady state raises. ``finalize()``'s loss, EPE, fetch
+   counter and scores and the adapted weights must agree with the host
+   session over the same frames, weights and warp mode, and with the same
+   fused session run eagerly (``use_graphs=False``); ``step_chunk`` over
+   two chunks of 5 must equal 10 steps, and the ``shared_forward`` session
+   (one graph) must follow the same trajectory. Then 8 frames of PROBABILITY,
+   FULL (5 / 1 + 4 / 5 / 1 + 4 launches a frame) against the host
+   session, NONE with metrics (1 + 4) and NONE without through ``serve``
+   (0 + 4; each served disparity is its own frame's), and the reset on the
+   device under a threshold below every loss.
 
-Prints the card line, the ms/frame of NONE, MAD and FULL, a JSON line of
-the six kernels, and as the last line
+Prints the card line, the ms/frame of the host and the fused sessions by
+mode, a JSON line of the ten kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 with no result, when no CUDA device is available or the port is missing.
 """
@@ -66,7 +88,8 @@ import torch
 
 H, W = 320, 1216  # cli/adapt.py default frame size
 N_FRAMES_NONE = 5
-N_FRAMES_MAD = 15  # three SEQUENTIAL rounds; the first carries cuDNN's set-up of each block's backward
+N_FRAMES_MAD = 10  # two SEQUENTIAL rounds; the first carries cuDNN's set-up of each block's backward
+N_FRAMES_FUSED = 20  # four rounds: two checked frame by frame, two free-running
 N_FRAMES_FULL = 5
 LR = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -79,6 +102,10 @@ CORR_LEVELS = [(192, 64), (128, 32), (96, 16), (64, 8), (32, 4)]  # scales 6..2
 FEAT_LEVELS = CORR_LEVELS[1:]  # the feature warp runs at scales 5..2
 CORR_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 sums over C in another order
 WARP_TOL = dict(rtol=0.0, atol=1e-6)  # same roundings as the plain version
+# tiled kernels against the one-hot product, whose matmul may fuse the
+# second product into the sum (one rounding of w1*b less): an ulp of the
+# largest source value, which for unit-normal sources stays under 5
+ONEHOT_TOL = dict(rtol=0.0, atol=2e-6)
 MODEL_RTOL = 1e-4  # of the largest disparity; the JAX package's figure vs TF1
 # backward kernels: of the largest entry of each gradient. They add in a
 # fixed order; the plain versions (autograd, whose scatter uses atomics on
@@ -97,10 +124,15 @@ REPLACES = {
     "corr_bwd": f"{_JAX_OPS}/correlation.py:117",
     "warp_image_bwd": f"{_JAX_OPS}/warp_pallas.py:99",
     "warp_features_bwd": f"{_JAX_OPS}/warp_pallas.py:271",
+    # one Pallas kernel each way serves both samplings; the port gives each its entry point
+    "warp_tile_image_fwd": f"{_JAX_OPS}/warp_pallas.py:460",
+    "warp_tile_features_fwd": f"{_JAX_OPS}/warp_pallas.py:460",
+    "warp_tile_image_bwd": f"{_JAX_OPS}/warp_pallas.py:495",
+    "warp_tile_features_bwd": f"{_JAX_OPS}/warp_pallas.py:495",
 }
 _CSRC = "real_time_self_adaptive_deep_stereo_torch/csrc"
 SOURCES = {
-    name: f"{_CSRC}/correlation.cu" if name.startswith("corr") else f"{_CSRC}/warp.cu"
+    name: f"{_CSRC}/{'correlation' if name.startswith('corr') else 'warp_tile' if 'tile' in name else 'warp'}.cu"
     for name in REPLACES
 }
 
@@ -252,6 +284,31 @@ def check_kernels(ops):
         main_path=dict(need_img=False),  # the right image takes no gradient
     ))
 
+    # the tiled one-hot image warp: against its plain version (the one-hot
+    # product over the padded row) and against warp_image_fwd / warp_image_bwd,
+    # which compute the same function
+    got = ops.warp_image_mxu(img, disp, MAX_DISP)
+    want = ops.warp_image_onehot(img, disp, MAX_DISP, align=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **ONEHOT_TOL)
+    torch.testing.assert_close(got, ops.warp_image_cuda(img, disp, MAX_DISP), **WARP_TOL)
+    rows["warp_tile_image_fwd"].append(dict(
+        shape=list(img.shape), err=float((got - want).abs().max()), tol=ONEHOT_TOL,
+        lib_err=float((lib() - want).abs().max()),
+        ms=time_ms(lambda: ops.warp_image_mxu(img, disp, MAX_DISP)),
+        call_ms=call_ms(lambda: ops.warp_image_mxu(img, disp, MAX_DISP)),
+        plain_ms=time_ms(lambda: ops.warp_image_onehot(img, disp, MAX_DISP, align=128), inner=2),
+        library_ms=time_ms(lib),
+        bound=bound(4.0 * H * W * (3 + 1 + 3), 3.0 * 3 * H * W),
+    ))
+    rows["warp_tile_image_bwd"].append(check_warp_bwd(
+        "warp_tile_image_bwd", img, disp, 70, grid, "border",
+        lambda s, o, g, **kw: ops.warp_image_mxu_bwd(s, o, g, MAX_DISP, **kw),
+        lambda s, o: ops.warp_image_onehot(s, o, MAX_DISP, align=128),
+        main_path=dict(need_img=False),
+        same_as=lambda s, o, g: ops.warp_image_bwd_cuda(s, o, g, MAX_DISP),
+    ))
+
     for i, (c, f) in enumerate(FEAT_LEVELS):
         shape = (1, c, H // f, W // f)
         neg = -(-MAX_DISP // f)
@@ -280,6 +337,28 @@ def check_kernels(ops):
             main_path=dict(need_dx=False),  # with the bulkhead the offset takes no gradient
         ))
 
+        got = ops.warp_features_mxu(feats, dx, neg, MAX_POS)
+        want = ops.warp_features_onehot(feats, dx, neg, MAX_POS, align=128)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **ONEHOT_TOL)
+        torch.testing.assert_close(got, ops.warp_features_cuda(feats, dx, neg, MAX_POS), **WARP_TOL)
+        rows["warp_tile_features_fwd"].append(dict(
+            shape=list(shape), max_neg=neg, err=float((got - want).abs().max()), tol=ONEHOT_TOL,
+            lib_err=float((lib() - want).abs().max()),
+            ms=time_ms(lambda: ops.warp_features_mxu(feats, dx, neg, MAX_POS)),
+            call_ms=call_ms(lambda: ops.warp_features_mxu(feats, dx, neg, MAX_POS)),
+            plain_ms=time_ms(lambda: ops.warp_features_onehot(feats, dx, neg, MAX_POS, align=128)),
+            library_ms=time_ms(lib),
+            bound=bound(4.0 * n * (2 * c + 1), 3.0 * c * n),
+        ))
+        rows["warp_tile_features_bwd"].append(check_warp_bwd(
+            "warp_tile_features_bwd", feats, dx, 80 + i, grid, "zeros",
+            lambda s, o, g, neg=neg, **kw: ops.warp_features_mxu_bwd(s, o, g, neg, MAX_POS, **kw),
+            lambda s, o, neg=neg: ops.warp_features_onehot(s, o, neg, MAX_POS, align=128),
+            main_path=dict(need_dx=False),
+            same_as=lambda s, o, g, neg=neg: ops.warp_features_bwd_cuda(s, o, g, neg, MAX_POS),
+        ))
+
     for name, rs in rows.items():
         for r in rs:
             r["bound_ms"], r["bound_by"] = r.pop("bound")
@@ -287,9 +366,11 @@ def check_kernels(ops):
     return rows
 
 
-def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, main_path):
+def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, main_path, same_as=None):
     """One warp backward kernel at one shape: both gradients against
-    autograd through the plain version, two runs bit-identical, times."""
+    autograd through the plain version (and against ``same_as``, another
+    kernel of the same function, where given), two runs bit-identical,
+    times."""
     import torch.nn.functional as F
 
     _, c, h, w = src.shape
@@ -304,6 +385,9 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, main_
     errs = [assert_grad_close(a, b, f"{name} {tuple(src.shape)} {nm}")
             for a, b, nm in zip(got, want, ("dsrc", "doff"))]
     assert_same_bits(got, again, f"{name} {tuple(src.shape)}")
+    if same_as is not None:
+        for a, b, nm in zip(got, same_as(src, off, g), ("dsrc", "doff")):
+            assert_grad_close(a, b, f"{name} {tuple(src.shape)} {nm} against the other kernel")
     # the variant the main path runs most: one gradient only
     part = kernel(src, off, g, **main_path)
     for a, b in zip(part, got):
@@ -402,12 +486,15 @@ def make_smooth_frame(seed: int, d: int = 12):
     return {"left": base[:, :, :W].copy(), "right": base[:, :, d:].copy(), "target": target}
 
 
-def make_session(state, mode, plain=False, **session_kw):
+def make_session(state, mode, plain=False, warp="auto", fused=False, **session_kw):
     """A session on the card from the weights ``state``, built through the
     entry points a user calls. MAD gets the bulkhead, as ``cli/adapt.py``
-    builds it. ``plain`` swaps the kernels for their plain versions."""
+    builds it. ``plain`` swaps the kernels for their plain versions;
+    ``warp`` is the warp mode of model and loss; ``fused`` gives the
+    device-resident session instead of the host one."""
     from real_time_self_adaptive_deep_stereo_torch.adapt import (
         AdaptationEngine,
+        FusedOnlineSession,
         OnlineAdaptationSession,
         default_block_config_path,
         load_block_config,
@@ -415,13 +502,14 @@ def make_session(state, mode, plain=False, **session_kw):
     )
     from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
 
-    modes = dict(corr_mode="torch", warp_mode="clamped") if plain else {}
-    model = get_stereo_net("MADNet", bulkhead=(mode == "MAD"), **modes)  # device cuda
+    warp = "clamped" if plain else warp
+    modes = dict(corr_mode="torch") if plain else {}
+    model = get_stereo_net("MADNet", bulkhead=(mode == "MAD"), warp_mode=warp, **modes)  # device cuda
     model.load_state_dict(state)
     blocks = make_blocks(load_block_config(default_block_config_path("MADNet")), model)
-    engine = AdaptationEngine(
-        model, blocks, lr=LR, optimizer="momentum", warp_mode="clamped" if plain else "auto"
-    )
+    engine = AdaptationEngine(model, blocks, lr=LR, optimizer="momentum", warp_mode=warp)
+    if fused:
+        return FusedOnlineSession(engine, mode=mode, max_steps=64, **session_kw)
     return OnlineAdaptationSession(engine, mode=mode, **session_kw)
 
 
@@ -632,6 +720,359 @@ def check_reset(state):
     log("reset safeguard: weights restored, optimizer state kept")
 
 
+# ------------------------------------------------------------------ phase 6
+TILE_FWD_MAD = {"corr_fwd": 5, "warp_tile_image_fwd": 2, "warp_tile_features_fwd": 4}
+# host and fused sessions, and replayed and eager fused sessions, run the
+# same ops in the same order; cuDNN's backward is not run-to-run
+# deterministic, so two runs of one path differ by 1e-6 of the loss after
+# a step, and the difference is carried along the trajectory
+TRAJ_LOSS_RTOL = 1e-4
+TRAJ_EPE_RTOL = 1e-3
+TRAJ_SCORE_ATOL = 1e-6  # a score is uf (0.01) times a difference of such losses
+
+
+def smooth_frames(n: int, seed: int):
+    return [make_smooth_frame(seed + i, d=8 + 2 * i) for i in range(n)]
+
+
+def mad_tile_launches(k: int):
+    return {**TILE_FWD_MAD, "corr_bwd": 1, "warp_tile_image_bwd": 1,
+            "warp_tile_features_bwd": 0 if k == 0 else 1}
+
+
+def step_counted(session, frame, want, what):
+    """One fused step whose launch counts must be exactly ``want``."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    before = dict(cuda_lib.LAUNCHES)
+    session.step(frame)
+    added = {k: cuda_lib.LAUNCHES[k] - before[k] for k in cuda_lib.LAUNCHES}
+    want = {**dict.fromkeys(cuda_lib.LAUNCHES, 0), **want}
+    if added != want:
+        raise AssertionError(f"{what}: launches {added}, want {want}")
+
+
+def assert_trajectory(got, want, what, frames=None):
+    """``finalize()`` of a fused session against another's, or against the
+    per-frame results of a host session."""
+    n = len(want["loss"]) if frames is None else frames
+    worst = {}
+    for key, rtol in (("loss", TRAJ_LOSS_RTOL), ("epe", TRAJ_EPE_RTOL)):
+        a, b = np.asarray(got[key][:n], np.float64), np.asarray(want[key][:n], np.float64)
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"{what}: {key} {a} against {b}")
+        worst[key] = float(np.max(np.abs(a - b) / np.abs(b)))
+        if not worst[key] <= rtol:
+            raise AssertionError(f"{what}: {key} differs by {worst[key]:.3g} > {rtol}: {a} against {b}")
+    log(f"{what}: over {n} frames loss within {worst['loss']:.3g}, epe within {worst['epe']:.3g} (relative)")
+
+
+def host_stats(session):
+    st = session.stats
+    return {"loss": st.loss, "epe": st.epe, "fetch_counter": st.fetch_counter, "scores": session.scores}
+
+
+def assert_controller(got, want, what):
+    got = {**got, "fetch_counter": [int(c) for c in got["fetch_counter"]]}
+    if got["fetch_counter"] != [int(c) for c in want["fetch_counter"]]:
+        raise AssertionError(f"{what}: fetch counter {got['fetch_counter']} against {want['fetch_counter']}")
+    err = float(np.max(np.abs(np.asarray(got["scores"], np.float64) - np.asarray(want["scores"], np.float64))))
+    log(f"{what}: fetch counter {got['fetch_counter']}, scores within {err:.3g}")
+    if not err <= TRAJ_SCORE_ATOL:
+        raise AssertionError(f"{what}: scores {got['scores']} against {want['scores']}")
+
+
+def timed_host(session, frames, warm):
+    """ms/frame of a host session (each step ends in its host sync)."""
+    ms = []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.step(f)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms[warm:])
+
+
+def device_activities(session, frame) -> int:
+    """Kernels and copies the device runs for one step of ``session``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        session.step(frame)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def run_fused(state, profile_dir):
+    """Phase 6: the fused device session at 320x1216 with the tiled one-hot
+    warps in model and loss. Returns (launches by path, ms/frame by path)."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    launches, frame_ms = {}, {}
+    frames = smooth_frames(N_FRAMES_FUSED, 100)
+    mad_kw = dict(sample_mode="SEQUENTIAL", ssim_th=1e9, seed=0)
+
+    # --- MAD, SEQUENTIAL: two rounds checked frame by frame, then two rounds
+    # free-running with every host sync turned into an error
+    session = make_session(state, "MAD", warp="mxu", fused=True, **mad_kw)
+    if not session.use_graphs:
+        raise AssertionError("the fused session must replay graphs on the card")
+    n_blocks = len(session.engine.blocks)
+    checked = 2 * n_blocks
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    first_ms = []
+    for i, f in enumerate(frames[:checked]):
+        k = i % n_blocks
+        before = session.arena.flat.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_counted(session, f, mad_tile_launches(k), f"fused MAD frame {i}")
+        torch.cuda.synchronize()
+        first_ms.append((time.perf_counter() - t0) * 1e3)
+        moved = (session.arena.flat != before).nonzero().flatten()
+        start, end = session.arena.block_ranges[k]
+        if moved.numel() == 0 or int(moved.min()) < start or int(moved.max()) >= end:
+            raise AssertionError(f"fused MAD frame {i}: block {k} owns [{start}, {end}) but the "
+                                 f"arena moved in [{int(moved.min()) if moved.numel() else None}, "
+                                 f"{int(moved.max()) if moved.numel() else None}]")
+    # one graph per block, each holding exactly that block's launches
+    want_graphs = {("mad", (k,)): {n: c for n, c in mad_tile_launches(k).items() if c}
+                   for k in range(n_blocks)}
+    if session.graph_launches != want_graphs:
+        raise AssertionError(f"fused MAD: graphs hold {session.graph_launches}, want {want_graphs}")
+    log(f"fused MAD first round (eager step + capture) ms/frame {first_ms[:n_blocks]}")
+    log(f"fused MAD second round (replay, fenced by a sync) ms/frame {first_ms[n_blocks:]}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for f in frames[checked:]:
+            session.step(f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / (N_FRAMES_FUSED - checked)
+    torch.cuda.synchronize()
+    frame_ms["FUSED_MAD"] = (time.perf_counter() - t0) * 1e3 / (N_FRAMES_FUSED - checked)
+    log(f"fused MAD steady: {frame_ms['FUSED_MAD']:.3f} ms/frame over {N_FRAMES_FUSED - checked} frames "
+        f"with no host sync (the host took {enqueue_ms:.3f} ms/frame to enqueue them); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    launches["FUSED_MAD"] = dict(cuda_lib.LAUNCHES)
+    want_total = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+    for i in range(N_FRAMES_FUSED):
+        for name, c in mad_tile_launches(i % n_blocks).items():
+            want_total[name] += c
+    if launches["FUSED_MAD"] != want_total:
+        raise AssertionError(f"fused MAD: launches {launches['FUSED_MAD']}, want {want_total}")
+    fused = session.finalize()
+    fused_flat = session.arena.flat.clone()
+    fused_disp = session.last_disp.clone()
+    if fused["steps"] != N_FRAMES_FUSED or int(fused["reset_count"]) != 0:
+        raise AssertionError(f"fused MAD: {fused['steps']} steps, {fused['reset_count']} resets")
+
+    # the host session over the same frames and weights with the same warps
+    host = make_session(state, "MAD", warp="mxu", **mad_kw)
+    frame_ms["HOST_MAD_MXU"] = timed_host(host, frames, warm=n_blocks)
+    assert_trajectory(fused, host_stats(host), "fused MAD against the host session")
+    assert_controller(fused, host_stats(host), "fused MAD against the host session")
+    host_flat = torch.cat([dict(host.engine.model.named_parameters())[name].detach().flatten()
+                           for name, *_ in session.arena.entries])
+    moved = float((fused_flat - session.arena.flat0).abs().max())
+    err = float((fused_flat - host_flat).abs().max())
+    log(f"fused MAD against the host session: weights moved by up to {moved:.3g}, differ by {err:.3g}")
+    if not (moved > 0 and err <= 1e-2 * moved):
+        raise AssertionError("fused MAD: adapted weights differ from the host session's")
+
+    # replay against eager: the same session class without graphs
+    eager = make_session(state, "MAD", warp="mxu", fused=True, use_graphs=False, **mad_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames:
+        eager.step(f)
+    torch.cuda.synchronize()
+    frame_ms["FUSED_MAD_EAGER"] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    if eager._graphs:
+        raise AssertionError("use_graphs=False captured a graph")
+    assert_trajectory(fused, eager.finalize(), "fused MAD replayed against eager")
+    assert_controller(fused, eager.finalize(), "fused MAD replayed against eager")
+    err = float((fused_flat - eager.arena.flat).abs().max())
+    d_err = float((fused_disp - eager.last_disp).abs().max()) / float(eager.last_disp.abs().max())
+    log(f"fused MAD replayed against eager: weights differ by {err:.3g} of {moved:.3g} moved, "
+        f"last disparity by {d_err:.3g} of its largest")
+    # 20 steps of weights that differ in the seventh digit: measured 1.6e-4
+    if not (err <= 1e-2 * moved and d_err <= TRAJ_EPE_RTOL):
+        raise AssertionError("fused MAD: a replayed trajectory differs from the eager one")
+
+    # the same session on the clamped-window kernels (warp_mode 'cuda'), for
+    # the in-model comparison of the two warp routes: first round captures,
+    # then both run the same steady frames, turn and turn about
+    other = make_session(state, "MAD", warp="cuda", fused=True, **mad_kw)
+    for f in frames[:n_blocks]:
+        other.step(f)
+    by_route = {"mxu": [], "cuda": []}
+    launches["FUSED_MAD_CUDA_WARPS"] = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+    for _ in range(2):
+        for route, sess in (("mxu", session), ("cuda", other)):
+            cuda_lib.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in frames[n_blocks : 3 * n_blocks]:
+                sess.step(f)
+            torch.cuda.synchronize()
+            by_route[route].append((time.perf_counter() - t0) * 1e3 / (2 * n_blocks))
+            if route == "cuda":
+                for k, v in cuda_lib.LAUNCHES.items():
+                    launches["FUSED_MAD_CUDA_WARPS"][k] += v
+    got = launches["FUSED_MAD_CUDA_WARPS"]
+    if any(v for k, v in got.items() if "tile" in k) or not all(
+        got[k] for k in ("warp_image_fwd", "warp_features_fwd", "warp_image_bwd", "warp_features_bwd")
+    ):
+        raise AssertionError(f"fused MAD with warp_mode 'cuda': launches {got}")
+    frame_ms["FUSED_MAD_CUDA_WARPS"] = min(by_route["cuda"])
+    log(f"fused MAD steady ms/frame by warp route, two passes each: {by_route}")
+    del other
+
+    # what each block's graph holds: device activities of one replay
+    per_graph = [device_activities(session, frames[k]) for k in range(n_blocks)]
+    log(f"fused MAD kernels and copies in one replay, by block trained: {per_graph}")
+
+    # the one-graph alternative: shared forward, block loss selected on the
+    # device, full backward, update masked by block ownership
+    shared = make_session(state, "MAD", warp="mxu", fused=True, shared_forward=True, **mad_kw)
+    for f in frames[:checked]:
+        shared.step(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames[checked:]:
+        shared.step(f)
+    torch.cuda.synchronize()
+    frame_ms["FUSED_MAD_SHARED_FORWARD"] = (time.perf_counter() - t0) * 1e3 / (N_FRAMES_FUSED - checked)
+    if set(shared._graphs) != {("shared",)}:
+        raise AssertionError(f"shared_forward captured {set(shared._graphs)}")
+    assert_trajectory(shared.finalize(), fused, "fused MAD shared_forward against per-block graphs")
+    assert_controller(shared.finalize(), fused, "fused MAD shared_forward against per-block graphs")
+    log(f"fused MAD shared_forward: {frame_ms['FUSED_MAD_SHARED_FORWARD']:.3f} ms/frame, "
+        f"{device_activities(shared, frames[0])} kernels and copies in its one graph")
+    del shared
+
+    # step_chunk over K frames equals K steps
+    chunked = make_session(state, "MAD", warp="mxu", fused=True, **mad_kw)
+    for c in range(2):
+        chunk = frames[c * n_blocks : (c + 1) * n_blocks]
+        chunked.step_chunk({k: np.stack([f[k] for f in chunk]) for k in chunk[0]})
+    if tuple(chunked.last_disp.shape) != (n_blocks, 1, H, W, 1):
+        raise AssertionError(f"step_chunk: last_disp {tuple(chunked.last_disp.shape)}")
+    assert_trajectory(chunked.finalize(), fused, "step_chunk against steps", frames=checked)
+    del chunked, eager, host
+
+    # --- MAD, PROBABILITY: the block is read back each frame
+    session = make_session(state, "MAD", warp="mxu", fused=True, sample_mode="PROBABILITY",
+                           ssim_th=1e9, seed=3)
+    cuda_lib.reset_launches()
+    picked = []
+    for i, f in enumerate(frames[:8]):
+        before = dict(cuda_lib.LAUNCHES)
+        session.step(f)
+        (k,) = session._host_blocks
+        added = {n: cuda_lib.LAUNCHES[n] - before[n] for n in cuda_lib.LAUNCHES}
+        if added != {**dict.fromkeys(cuda_lib.LAUNCHES, 0), **mad_tile_launches(k)}:
+            raise AssertionError(f"fused PROBABILITY frame {i}: block {k}, launches {added}")
+        picked.append(k)
+    stats = session.finalize()
+    log(f"fused MAD PROBABILITY: blocks {picked}, fetch counter {stats['fetch_counter'].tolist()}, "
+        f"loss {stats['loss'].tolist()}")
+    if stats["fetch_counter"].tolist() != [picked.count(k) for k in range(n_blocks)] or not np.isfinite(
+        stats["loss"]
+    ).all():
+        raise AssertionError("fused PROBABILITY: the fetch counter does not follow the sampled blocks")
+    launches["FUSED_MAD_PROBABILITY"] = dict(cuda_lib.LAUNCHES)
+    del session
+
+    # --- FULL
+    full_kw = dict(ssim_th=1e9)
+    full_launches = {"corr_fwd": 5, "warp_tile_image_fwd": 1, "warp_tile_features_fwd": 4,
+                     "corr_bwd": 5, "warp_tile_image_bwd": 1, "warp_tile_features_bwd": 4}
+    session = make_session(state, "FULL", warp="mxu", fused=True, **full_kw)
+    cuda_lib.reset_launches()
+    for i, f in enumerate(frames[:2]):
+        step_counted(session, f, full_launches, f"fused FULL frame {i}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames[2:N_FRAMES_FULL + 3]:
+        session.step(f)
+    torch.cuda.synchronize()
+    frame_ms["FUSED_FULL"] = (time.perf_counter() - t0) * 1e3 / (N_FRAMES_FULL + 1)
+    launches["FUSED_FULL"] = dict(cuda_lib.LAUNCHES)
+    if launches["FUSED_FULL"] != {**dict.fromkeys(cuda_lib.LAUNCHES, 0),
+                                  **{k: v * (N_FRAMES_FULL + 3) for k, v in full_launches.items()}}:
+        raise AssertionError(f"fused FULL: launches {launches['FUSED_FULL']}")
+    host = make_session(state, "FULL", warp="mxu", **full_kw)
+    frame_ms["HOST_FULL_MXU"] = timed_host(host, frames[:N_FRAMES_FULL + 3], warm=1)
+    assert_trajectory(session.finalize(), host_stats(host), "fused FULL against the host session")
+    del session, host
+
+    # --- NONE: with metrics (the loss runs), then serving without
+    none_launches = {"corr_fwd": 5, "warp_tile_image_fwd": 1, "warp_tile_features_fwd": 4}
+    session = make_session(state, "NONE", warp="mxu", fused=True)
+    cuda_lib.reset_launches()
+    for i, f in enumerate(frames[:3]):
+        step_counted(session, f, none_launches, f"fused NONE frame {i}")
+    host = make_session(state, "NONE", warp="mxu")
+    for f in frames[:3]:
+        host.step(f)
+    assert_trajectory(session.finalize(), host_stats(host), "fused NONE against the host session")
+    del session, host
+    session = make_session(state, "NONE", warp="mxu", fused=True, compute_metrics=False)
+    serve_frames = [{k: f[k] for k in ("left", "right")} for f in frames[:N_FRAMES_NONE + 3]]
+    cuda_lib.reset_launches()
+    disps = list(session.serve(serve_frames[:2]))  # eager and capture, then a replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disps += list(session.serve(serve_frames[2:]))
+    frame_ms["FUSED_NONE_SERVE"] = (time.perf_counter() - t0) * 1e3 / (len(serve_frames) - 2)
+    launches["FUSED_NONE"] = dict(cuda_lib.LAUNCHES)
+    want = {**dict.fromkeys(cuda_lib.LAUNCHES, 0), "corr_fwd": 5 * len(serve_frames),
+            "warp_tile_features_fwd": 4 * len(serve_frames)}
+    if launches["FUSED_NONE"] != want:
+        raise AssertionError(f"fused NONE serving: launches {launches['FUSED_NONE']}, want {want}")
+    if len(disps) != len(serve_frames) or any(
+        d.shape != (1, H, W, 1) or not np.isfinite(d).all() for d in disps
+    ):
+        raise AssertionError("fused NONE serving: bad disparities")
+    # each served disparity is its own frame's: the host session's, frame by frame
+    host = make_session(state, "NONE", warp="mxu")
+    for i in (0, len(serve_frames) - 1):
+        ref = host.step(frames[i])["disp"].cpu().numpy()
+        err = float(np.abs(disps[i] - ref).max()) / float(np.abs(ref).max())
+        log(f"fused NONE served disparity {i} against the host session: {err:.3g} of the largest")
+        if not err <= MODEL_RTOL:
+            raise AssertionError(f"fused NONE serving: disparity {i} is not frame {i}'s")
+    del session, host
+
+    # --- the reset, on the device: a threshold below every loss
+    session = make_session(state, "MAD", warp="mxu", fused=True, sample_mode="FIXED", fixed_id=2,
+                           ssim_th=-1.0)
+    for f in frames[:3]:  # eager, then two replays
+        session.step(f)
+    stats = session.finalize()
+    if int(stats["reset_count"]) != 3 or not torch.equal(session.arena.flat, session.arena.flat0):
+        raise AssertionError("fused reset: the pristine arena was not restored")
+    if not bool(session.opt["acc"][0].any()):
+        raise AssertionError("fused reset: the steps before it left no optimizer state")
+    log("fused reset safeguard: arena restored on the device, optimizer state kept")
+
+    if profile_dir:
+        for mode, kw in (("MAD", mad_kw), ("FULL", full_kw), ("NONE", {})):
+            session = make_session(state, mode, warp="mxu", fused=True, **kw)
+            for f in frames[:n_blocks]:
+                session.step(f)  # every branch captured
+            torch.cuda.synchronize()
+            profile_frames(session, frames[n_blocks : 2 * n_blocks], Path(profile_dir), f"fused_{mode.lower()}")
+    return launches, frame_ms
+
+
 def profile_frames(session, frames, out: Path, tag: str):
     """Kernel time by name over a few steady frames (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -650,7 +1091,7 @@ def profile_frames(session, frames, out: Path, tag: str):
 
 
 _GROUPS = (  # first match wins
-    ("the port's kernels", r"corr_fwd|corr_bwd|warp_fwd_kernel|warp_bwd_"),
+    ("the port's kernels", r"corr_fwd|corr_bwd|warp_fwd_kernel|warp_bwd_|tile_fwd_kernel|tile_bwd_"),
     ("cuDNN backward (dgrad, wgrad)", r"dgrad|wgrad"),
     ("cuDNN/cuBLAS convolutions and matmuls, incl. FFT and layout transforms",
      r"fprop|convolve|region_transform|fft|DSE::|gemm|gemv|cudnn|flip_filter"),
@@ -701,6 +1142,8 @@ def main() -> int:
     ap.add_argument("--profile", default=None, help="write torch.profiler tables and traces here")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernels' checks (phase 3), without the result lines")
+    ap.add_argument("--fused-only", action="store_true",
+                    help="run the fused-session phase (6) alone, without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -730,6 +1173,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    if args.fused_only:
+        run_fused(params_from_jax(seeded_jax_params(0)), args.profile)
+        log("fused session checked; no result lines (--fused-only)")
+        return 0
     rows = check_kernels(ops)
     if args.kernels_only:
         log("kernels checked; stopping before the sessions (--kernels-only)")
@@ -741,6 +1188,9 @@ def main() -> int:
         launches[mode], frame_ms[mode] = run(state, args.profile)
     check_steps_against_plain(state)
     check_reset(state)
+    fused_launches, fused_ms = run_fused(state, args.profile)
+    launches.update(fused_launches)
+    frame_ms.update(fused_ms)
 
     kernels = []
     for name, rs in rows.items():
@@ -751,8 +1201,10 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            # the flagship path: the MAD session, counters set to 0 before it
-            "launches": launches["MAD"][name],
+            # the flagship paths: the host MAD session (clamped-window warps)
+            # and the fused MAD session (tiled warps), counters set to 0
+            # before each
+            "launches": launches["MAD"][name] + launches["FUSED_MAD"][name],
             "launches_by_path": {mode: launches[mode][name] for mode in launches},
             "max_abs_err": max(r["err"] for r in rs),
             # one call at each main-path shape: the sums over the shapes
@@ -763,6 +1215,9 @@ def main() -> int:
             "library_ms": None if None in lib_ms else sum(lib_ms),
             "shapes": [{k: r[k] for k in shape_keys if k in r} for r in rs],
         })
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        raise AssertionError(f"no main path launched {idle}")
     for mode, ms in frame_ms.items():
         log(f"session {mode} ms/frame {ms!r}")
     log(card)  # name, power limit

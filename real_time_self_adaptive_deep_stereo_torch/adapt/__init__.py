@@ -9,6 +9,14 @@ from real_time_self_adaptive_deep_stereo_torch.adapt.engine import (  # noqa: F4
     d1_metric,
     disparity_metrics,
 )
+from real_time_self_adaptive_deep_stereo_torch.adapt.arena import (  # noqa: F401
+    Arena,
+    ArenaSpec,
+    build_arena,
+)
+from real_time_self_adaptive_deep_stereo_torch.adapt.fused import (  # noqa: F401
+    FusedOnlineSession,
+)
 from real_time_self_adaptive_deep_stereo_torch.adapt.runner import (  # noqa: F401
     OnlineAdaptationSession,
     SessionStats,

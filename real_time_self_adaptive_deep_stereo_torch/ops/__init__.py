@@ -23,15 +23,23 @@ from real_time_self_adaptive_deep_stereo_torch.ops.warp import (  # noqa: F401
     warp_features_clamped,
     warp_features_clamped_bwd,
     warp_features_horizontal,
+    warp_features_onehot,
+    warp_features_onehot_bwd,
     warp_image,
     warp_image_clamped,
     warp_image_clamped_bwd,
+    warp_image_onehot,
+    warp_image_onehot_bwd,
 )
 from real_time_self_adaptive_deep_stereo_torch.ops.warp_kernels import (  # noqa: F401
     warp_features_bwd_cuda,
     warp_features_by_mode,
     warp_features_cuda,
+    warp_features_mxu,
+    warp_features_mxu_bwd,
     warp_image_bwd_cuda,
     warp_image_by_mode,
     warp_image_cuda,
+    warp_image_mxu,
+    warp_image_mxu_bwd,
 )

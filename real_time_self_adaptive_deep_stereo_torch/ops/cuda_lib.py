@@ -9,7 +9,10 @@ One ``nvcc`` runs per source, all started together.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises on a non-zero code. Nothing here runs when the
+:func:`check` raises on a non-zero code. ``LAUNCHES`` counts the wrappers'
+calls, so a call under CUDA-graph capture counts once, at capture: a
+caller that replays graphs records a graph's counts when it captures it
+and adds them itself at every replay (``adapt/fused.py`` does). Nothing here runs when the
 module is imported.
 """
 
@@ -52,7 +55,18 @@ _SIGNATURES = {
         "warp_image_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
         "warp_features_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     },
+    "warp_tile": {
+        "warp_tile_image_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "warp_tile_features_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+        "warp_tile_image_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+        "warp_tile_features_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+    },
 }
+# Libraries with a ``<name>_init()`` entry point (no arguments, returns a
+# CUDA error code), run once when the library is loaded: it sets function
+# attributes such as the dynamic shared-memory limit, which must not
+# happen at a launch, since a launch may be under stream capture.
+_INIT = {"warp_tile": "warp_tile_init"}
 
 # Kernel launches since the last reset_launches(), by kernel name. Each
 # wrapper adds one where it launches its kernel, and nowhere else.
@@ -119,6 +133,10 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
+            if name in _INIT:
+                init = getattr(lib, _INIT[name])
+                init.argtypes, init.restype = [], ctypes.c_int
+                check(lib, init(), _INIT[name])
             _libs[name] = lib
         return _libs[name]
 

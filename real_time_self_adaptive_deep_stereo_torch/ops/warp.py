@@ -26,6 +26,22 @@ Each exists in two forms that differ for out-of-range offsets:
   kernels' inclusive masks do (``jnp.clip`` in the JAX shift forms halves
   it there).
 
+* ``onehot``: the clamped semantics as a product with a sampling matrix,
+  :func:`warp_image_onehot` and :func:`warp_features_onehot`. For each
+  chunk of output columns, ``M[x, v] = w0[x]*[v == i0[x]] + w1[x]*[v == i1[x]]``
+  is built from compares and contracted with the chunk's source window.
+  With ``align=128`` the row is first padded with zero columns to a
+  multiple of 128 and the indices are clamped to the padded width: that is
+  what the tiled kernels of ``csrc/warp_tile.cu`` compute (as the Pallas
+  kernels ``_mxu_fwd_kernel`` / ``_mxu_bwd_kernel`` do), so these are
+  their plain versions, and autograd through them
+  (:func:`warp_image_onehot_bwd`, :func:`warp_features_onehot_bwd`) is the
+  plain version of the tiled backward kernel. Padding changes no output
+  value and one gradient entry: at a disparity of exactly 0 in the last
+  column of an image whose width is no multiple of 128, the second tap
+  reads a zero pad column instead of the edge, so ``ddisp`` there is
+  ``g*v0`` and not 0.
+
 A fresh random-weight MADNet produces disparities beyond the windows, so
 every comparison pins the mode.
 """
@@ -35,6 +51,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "warp_image",
@@ -43,16 +60,23 @@ __all__ = [
     "warp_features_clamped",
     "warp_image_clamped_bwd",
     "warp_features_clamped_bwd",
+    "warp_image_onehot",
+    "warp_features_onehot",
+    "warp_image_onehot_bwd",
+    "warp_features_onehot_bwd",
     "resolve_warp_mode",
     "WARP_MODES",
 ]
 
-WARP_MODES = ("auto", "gather", "clamped", "cuda")
+WARP_MODES = ("auto", "gather", "clamped", "cuda", "onehot", "mxu")
+TILE = 128  # output columns per tile of the tiled kernels (``mxu``)
 
 
 def resolve_warp_mode(mode: str, device: torch.device) -> str:
     """``auto`` is ``gather`` on the CPU (as JAX resolves it off the TPU)
-    and ``cuda``, the clamped-window kernels, on a CUDA device."""
+    and ``cuda``, the clamped-window kernels, on a CUDA device. ``mxu``
+    (the tiled one-hot kernels) and ``onehot`` (their plain versions, on
+    any device) are taken only when named."""
     if mode not in WARP_MODES:
         raise ValueError(f"unknown warp mode {mode!r}; choose from {WARP_MODES}")
     if mode == "auto":
@@ -109,6 +133,79 @@ def warp_features_clamped(
     return warp_features_horizontal(feats, torch.clamp(dx, -float(max_neg), float(max_pos)))
 
 
+def _pad_columns(t: torch.Tensor, align: int) -> torch.Tensor:
+    """Zero columns on the right, up to a multiple of ``align``."""
+    pad = (-t.shape[3]) % align
+    return F.pad(t, (0, pad)) if pad else t
+
+
+def _onehot_contract(srcpad, w0, w1, i0, i1, halo: int, chunk: int) -> torch.Tensor:
+    """``out[b,c,h,x] = sum_v M[b,h,x,v] * srcpad[b,c,h,v]`` chunk by chunk.
+    ``w*`` and ``i*`` are [B,1,H,W]; ``i*`` index ``srcpad``'s columns, and
+    the window of chunk ``[s, s+cw)`` is ``srcpad[..., s : s+cw+halo]``."""
+    w = w0.shape[3]
+    outs = []
+    for start in range(0, w, chunk):
+        cw = min(chunk, w - start)
+        cols = slice(start, start + cw)
+        win = srcpad[..., start : start + cw + halo]
+        vidx = torch.arange(cw + halo, dtype=torch.float32, device=srcpad.device) + start
+        sel0 = (vidx == i0[:, 0, :, cols, None]).to(srcpad.dtype)
+        sel1 = (vidx == i1[:, 0, :, cols, None]).to(srcpad.dtype)
+        m = w0[:, 0, :, cols, None] * sel0 + w1[:, 0, :, cols, None] * sel1
+        outs.append(torch.einsum("bhxv,bchv->bchx", m, win))
+    return torch.cat(outs, dim=3)
+
+
+def warp_image_onehot(
+    img: torch.Tensor, disp: torch.Tensor, max_disp: int = 192, chunk: int = TILE, align: int = 1
+) -> torch.Tensor:
+    """Matrix-product form of :func:`warp_image_clamped` (fp32 out)."""
+    w_out = img.shape[3]
+    img, disp = _pad_columns(img.float(), align), _pad_columns(disp, align)
+    w, s = img.shape[3], int(max_disp)
+    # s edge columns on the left, as the JAX one-hot form has them (the
+    # clamped indices never reach them), and one on the right: at a
+    # disparity of exactly 0 the second tap of a chunk's last column is the
+    # next chunk's first, and its weight of 0 still carries a gradient
+    imgpad = torch.cat([img[..., :1].expand(-1, -1, -1, s), img, img[..., -1:]], dim=3)
+    xs = torch.arange(w, dtype=torch.float32, device=img.device)
+    cx = xs - torch.clamp(disp, 0.0, float(s))
+    x0 = torch.floor(cx)
+    w1 = cx - x0
+    w0 = 1.0 - w1
+    i0 = torch.clamp(x0, 0, w - 1) + s
+    i1 = torch.clamp(x0 + 1, 0, w - 1) + s
+    return _onehot_contract(imgpad, w0, w1, i0, i1, s + 1, chunk)[..., :w_out]
+
+
+def warp_features_onehot(
+    feats: torch.Tensor,
+    dx: torch.Tensor,
+    max_neg: int = 64,
+    max_pos: int = 4,
+    chunk: int = TILE,
+    align: int = 1,
+) -> torch.Tensor:
+    """Matrix-product form of :func:`warp_features_clamped` (fp32 out)."""
+    w_out = feats.shape[3]
+    feats, dx = _pad_columns(feats.float(), align), _pad_columns(dx, align)
+    w = feats.shape[3]
+    npad, ppad = min(int(max_neg), w), min(int(max_pos) + 1, w)
+    fpad = F.pad(feats, (npad, ppad))
+    xs = torch.arange(w, dtype=torch.float32, device=feats.device)
+    cx = xs + torch.clamp(dx, -float(max_neg), float(max_pos))
+    x0 = torch.floor(cx)
+    x1 = x0 + 1
+    in0 = ((x0 >= 0) & (x0 <= w - 1)).float()
+    in1 = ((x1 >= 0) & (x1 <= w - 1)).float()
+    w0 = (x1 - cx) * in0
+    w1 = (cx - x0) * in1
+    i0 = torch.clamp(x0, 0, w - 1) + npad
+    i1 = torch.clamp(x1, 0, w - 1) + npad
+    return _onehot_contract(fpad, w0, w1, i0, i1, npad + ppad, chunk)[..., :w_out]
+
+
 def _vjp(fn, src: torch.Tensor, off: torch.Tensor, g: torch.Tensor):
     src = src.detach().requires_grad_()
     off = off.detach().requires_grad_()
@@ -131,3 +228,26 @@ def warp_features_clamped_bwd(
     """Plain version of the feature-warp backward kernel: ``(dfeats, ddx)``
     for the gradient ``g`` of :func:`warp_features_clamped`'s output."""
     return _vjp(lambda f, d: warp_features_clamped(f, d, max_neg, max_pos), feats, dx, g)
+
+
+def warp_image_onehot_bwd(
+    img: torch.Tensor, disp: torch.Tensor, g: torch.Tensor, max_disp: int = 192, align: int = TILE
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the tiled image-warp backward kernel: ``(dimg,
+    ddisp)`` for the gradient ``g`` of :func:`warp_image_onehot`'s output."""
+    return _vjp(lambda i, d: warp_image_onehot(i, d, max_disp, align=align), img, disp, g)
+
+
+def warp_features_onehot_bwd(
+    feats: torch.Tensor,
+    dx: torch.Tensor,
+    g: torch.Tensor,
+    max_neg: int = 64,
+    max_pos: int = 4,
+    align: int = TILE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the tiled feature-warp backward kernel: ``(dfeats,
+    ddx)`` for the gradient ``g`` of :func:`warp_features_onehot`'s output."""
+    return _vjp(
+        lambda f, d: warp_features_onehot(f, d, max_neg, max_pos, align=align), feats, dx, g
+    )

@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written warp kernels (``csrc/warp.cu``).
+"""Wrappers of the hand-written warp kernels (``csrc/warp.cu``,
+``csrc/warp_tile.cu``).
 
 Counterpart of ``real_time_self_adaptive_deep_stereo_tpu/ops/warp_pallas.py``:
 
@@ -9,8 +10,19 @@ Counterpart of ``real_time_self_adaptive_deep_stereo_tpu/ops/warp_pallas.py``:
   replaces ``_feat_fwd_kernel`` (``warp_features_pallas``), and in
   backward ``warp_features_bwd``, which replaces ``_feat_bwd_kernel``.
 
-Both compute the clamped-window semantics of :mod:`.warp`; their plain
-versions are :func:`warp_image_clamped` and :func:`warp_features_clamped`
+* :func:`warp_image_mxu` and :func:`warp_features_mxu` launch
+  ``warp_tile_image_fwd`` / ``warp_tile_features_fwd``, which replace the
+  Pallas kernel ``_mxu_fwd_kernel`` (``warp_image_mxu``,
+  ``warp_features_mxu``), and in backward ``warp_tile_image_bwd`` /
+  ``warp_tile_features_bwd``, which replace ``_mxu_bwd_kernel``. They
+  compute the same two samplings over 128-column tiles with the row
+  padded to a multiple of 128; their plain versions are
+  :func:`warp_image_onehot` and :func:`warp_features_onehot` with
+  ``align=128`` (backward: :func:`warp_image_onehot_bwd`,
+  :func:`warp_features_onehot_bwd`). The output is fp32.
+
+All compute the clamped-window semantics of :mod:`.warp`; the plain
+versions of the first two are :func:`warp_image_clamped` and :func:`warp_features_clamped`
 (backward: :func:`warp_image_clamped_bwd`, :func:`warp_features_clamped_bwd`),
 re-exported here. A wrapper runs the plain version on a CPU tensor, where
 autograd differentiates it, and launches its kernels, or raises, on a
@@ -28,13 +40,18 @@ import torch
 
 from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
 from real_time_self_adaptive_deep_stereo_torch.ops.warp import (
+    TILE,
     resolve_warp_mode,
     warp_features_clamped,
     warp_features_clamped_bwd,
     warp_features_horizontal,
+    warp_features_onehot,
+    warp_features_onehot_bwd,
     warp_image,
     warp_image_clamped,
     warp_image_clamped_bwd,
+    warp_image_onehot,
+    warp_image_onehot_bwd,
 )
 
 __all__ = [
@@ -46,9 +63,21 @@ __all__ = [
     "warp_features_clamped",
     "warp_image_clamped_bwd",
     "warp_features_clamped_bwd",
+    "warp_image_mxu",
+    "warp_features_mxu",
+    "warp_image_mxu_bwd",
+    "warp_features_mxu_bwd",
+    "warp_image_onehot",
+    "warp_features_onehot",
+    "warp_image_onehot_bwd",
+    "warp_features_onehot_bwd",
     "warp_image_by_mode",
     "warp_features_by_mode",
 ]
+
+# channels per block along the grid's z (or y) axis, per library: forward,
+# backward (csrc/warp.cu: kChunk; csrc/warp_tile.cu: kFwdChunk, kBwdChunk)
+_GRID_CHUNKS = {"warp": (1 << 30, 4), "warp_tile": (16, 8)}
 
 
 def _check(name: str, src: torch.Tensor, off: torch.Tensor) -> None:
@@ -67,11 +96,20 @@ def _all_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _launch(fn_name: str, src: torch.Tensor, off: torch.Tensor, *bounds: float) -> torch.Tensor:
+def _check_grid(fn_name: str, shape, chunk: int) -> None:
+    b, c, h, _ = shape
+    if h > 65535 or b * -(-c // chunk) > 65535:
+        raise ValueError(f"{fn_name}: shape {tuple(shape)} exceeds the launch grid")
+
+
+def _launch(
+    lib_name: str, fn_name: str, src: torch.Tensor, off: torch.Tensor, *bounds: float
+) -> torch.Tensor:
     _check(fn_name, src, off)
     b, c, h, w = src.shape
+    _check_grid(fn_name, src.shape, _GRID_CHUNKS[lib_name][0])
     out = torch.empty_like(src)
-    lib = cuda_lib.library("warp")
+    lib = cuda_lib.library(lib_name)
     err = getattr(lib, fn_name)(
         src.data_ptr(), off.data_ptr(), out.data_ptr(), b, c, h, w, *bounds,
         cuda_lib.stream_ptr(src.device),
@@ -82,6 +120,7 @@ def _launch(fn_name: str, src: torch.Tensor, off: torch.Tensor, *bounds: float) 
 
 
 def _launch_bwd(
+    lib_name: str,
     fn_name: str,
     src: torch.Tensor,
     off: torch.Tensor,
@@ -101,13 +140,12 @@ def _launch_bwd(
     if not grad.is_contiguous():
         raise ValueError(f"{fn_name} needs a contiguous gradient")
     b, c, h, w = src.shape
-    if h > 65535 or b * -(-c // 4) > 65535:
-        raise ValueError(f"{fn_name}: shape {tuple(src.shape)} exceeds the launch grid")
+    _check_grid(fn_name, src.shape, _GRID_CHUNKS[lib_name][1])
     dsrc = torch.empty_like(src) if need_src else None
     doff = torch.empty_like(off) if need_off else None
     if not (need_src or need_off):
         return dsrc, doff
-    lib = cuda_lib.library("warp")
+    lib = cuda_lib.library(lib_name)
     err = getattr(lib, fn_name)(
         src.data_ptr(), off.data_ptr(), grad.data_ptr(),
         None if dsrc is None else dsrc.data_ptr(),
@@ -125,7 +163,7 @@ class _WarpImageCUDA(torch.autograd.Function):
     def forward(ctx, img, disp, max_disp):
         ctx.save_for_backward(img, disp)
         ctx.max_disp = float(max_disp)
-        return _launch("warp_image_fwd", img, disp, ctx.max_disp)
+        return _launch("warp", "warp_image_fwd", img, disp, ctx.max_disp)
 
     @staticmethod
     def backward(ctx, grad):
@@ -133,7 +171,7 @@ class _WarpImageCUDA(torch.autograd.Function):
         # the gradient may arrive in another layout or as an expanded
         # view; the kernel takes contiguous NCHW
         dimg, ddisp = _launch_bwd(
-            "warp_image_bwd", img, disp, grad.contiguous(),
+            "warp", "warp_image_bwd", img, disp, grad.contiguous(),
             ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.max_disp,
         )
         return dimg, ddisp, None
@@ -144,13 +182,13 @@ class _WarpFeaturesCUDA(torch.autograd.Function):
     def forward(ctx, feats, dx, max_neg, max_pos):
         ctx.save_for_backward(feats, dx)
         ctx.bounds = (float(max_neg), float(max_pos))
-        return _launch("warp_features_fwd", feats, dx, *ctx.bounds)
+        return _launch("warp", "warp_features_fwd", feats, dx, *ctx.bounds)
 
     @staticmethod
     def backward(ctx, grad):
         feats, dx = ctx.saved_tensors
         dfeats, ddx = _launch_bwd(
-            "warp_features_bwd", feats, dx, grad.contiguous(),
+            "warp", "warp_features_bwd", feats, dx, grad.contiguous(),
             ctx.needs_input_grad[0], ctx.needs_input_grad[1], *ctx.bounds,
         )
         return dfeats, ddx, None, None
@@ -181,7 +219,9 @@ def warp_image_bwd_cuda(
     if _all_cpu(img, disp, g):
         dimg, ddisp = warp_image_clamped_bwd(img, disp, g, max_disp)
         return (dimg if need_img else None), (ddisp if need_disp else None)
-    return _launch_bwd("warp_image_bwd", img, disp, g, need_img, need_disp, float(max_disp))
+    return _launch_bwd(
+        "warp", "warp_image_bwd", img, disp, g, need_img, need_disp, float(max_disp)
+    )
 
 
 def warp_features_cuda(
@@ -212,7 +252,116 @@ def warp_features_bwd_cuda(
         dfeats, ddx = warp_features_clamped_bwd(feats, dx, g, max_neg, max_pos)
         return (dfeats if need_feats else None), (ddx if need_dx else None)
     return _launch_bwd(
-        "warp_features_bwd", feats, dx, g, need_feats, need_dx, float(max_neg), float(max_pos)
+        "warp", "warp_features_bwd", feats, dx, g, need_feats, need_dx,
+        float(max_neg), float(max_pos),
+    )
+
+
+class _WarpImageTile(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, disp, max_disp):
+        ctx.save_for_backward(img, disp)
+        ctx.max_disp = float(max_disp)
+        return _launch("warp_tile", "warp_tile_image_fwd", img, disp, ctx.max_disp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        img, disp = ctx.saved_tensors
+        dimg, ddisp = _launch_bwd(
+            "warp_tile", "warp_tile_image_bwd", img, disp, grad.contiguous(),
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.max_disp,
+        )
+        return dimg, ddisp, None
+
+
+class _WarpFeaturesTile(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, dx, max_neg, max_pos):
+        ctx.save_for_backward(feats, dx)
+        ctx.bounds = (float(max_neg), float(max_pos))
+        return _launch("warp_tile", "warp_tile_features_fwd", feats, dx, *ctx.bounds)
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, dx = ctx.saved_tensors
+        dfeats, ddx = _launch_bwd(
+            "warp_tile", "warp_tile_features_bwd", feats, dx, grad.contiguous(),
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1], *ctx.bounds,
+        )
+        return dfeats, ddx, None, None
+
+
+def _check_bounds(what: str, *bounds: float) -> None:
+    if any(b < 0 for b in bounds):
+        raise ValueError(f"{what}: the clip bounds must not be negative, got {bounds}")
+
+
+def warp_image_mxu(img: torch.Tensor, disp: torch.Tensor, max_disp: int = 192) -> torch.Tensor:
+    """Tiled one-hot image warp: clamp-to-edge at ``x - clip(disp, 0,
+    max_disp)`` over 128-column tiles of the zero-padded row (NCHW img,
+    [B,1,H,W] disp, fp32 in and out)."""
+    cuda_lib.check_float32("warp_tile_image_fwd", img, disp)
+    _check_bounds("warp_tile_image_fwd", max_disp)
+    if _all_cpu(img, disp):
+        return warp_image_onehot(img, disp, max_disp, align=TILE)
+    return _WarpImageTile.apply(img, disp, max_disp)
+
+
+def warp_image_mxu_bwd(
+    img: torch.Tensor,
+    disp: torch.Tensor,
+    g: torch.Tensor,
+    max_disp: int = 192,
+    need_img: bool = True,
+    need_disp: bool = True,
+):
+    """Wrapper of the tiled backward kernel alone: ``(dimg, ddisp)`` for
+    the gradient ``g`` of :func:`warp_image_mxu`'s output, from
+    ``warp_tile_image_bwd`` on CUDA tensors and from the plain version on
+    CPU tensors. A gradient that is not needed is ``None``."""
+    cuda_lib.check_float32("warp_tile_image_bwd", img, disp, g)
+    _check_bounds("warp_tile_image_bwd", max_disp)
+    if _all_cpu(img, disp, g):
+        dimg, ddisp = warp_image_onehot_bwd(img, disp, g, max_disp, align=TILE)
+        return (dimg if need_img else None), (ddisp if need_disp else None)
+    return _launch_bwd(
+        "warp_tile", "warp_tile_image_bwd", img, disp, g, need_img, need_disp, float(max_disp)
+    )
+
+
+def warp_features_mxu(
+    feats: torch.Tensor, dx: torch.Tensor, max_neg: int = 64, max_pos: int = 4
+) -> torch.Tensor:
+    """Tiled one-hot feature warp at ``x + clip(dx, -max_neg, max_pos)``
+    with out-of-range corners zeroed, over 128-column tiles of the
+    zero-padded row (NCHW feats, [B,1,H,W] dx, fp32 in and out)."""
+    cuda_lib.check_float32("warp_tile_features_fwd", feats, dx)
+    _check_bounds("warp_tile_features_fwd", max_neg, max_pos)
+    if _all_cpu(feats, dx):
+        return warp_features_onehot(feats, dx, max_neg, max_pos, align=TILE)
+    return _WarpFeaturesTile.apply(feats, dx, max_neg, max_pos)
+
+
+def warp_features_mxu_bwd(
+    feats: torch.Tensor,
+    dx: torch.Tensor,
+    g: torch.Tensor,
+    max_neg: int = 64,
+    max_pos: int = 4,
+    need_feats: bool = True,
+    need_dx: bool = True,
+):
+    """Wrapper of the tiled backward kernel alone: ``(dfeats, ddx)`` for
+    the gradient ``g`` of :func:`warp_features_mxu`'s output, with the
+    conventions of :func:`warp_image_mxu_bwd`."""
+    cuda_lib.check_float32("warp_tile_features_bwd", feats, dx, g)
+    _check_bounds("warp_tile_features_bwd", max_neg, max_pos)
+    if _all_cpu(feats, dx, g):
+        dfeats, ddx = warp_features_onehot_bwd(feats, dx, g, max_neg, max_pos, align=TILE)
+        return (dfeats if need_feats else None), (ddx if need_dx else None)
+    return _launch_bwd(
+        "warp_tile", "warp_tile_features_bwd", feats, dx, g, need_feats, need_dx,
+        float(max_neg), float(max_pos),
     )
 
 
@@ -222,6 +371,10 @@ def warp_image_by_mode(
     mode = resolve_warp_mode(mode, img.device)
     if mode == "cuda":
         return warp_image_cuda(img.contiguous(), disp.contiguous(), max_disp)
+    if mode == "mxu":
+        return warp_image_mxu(img.contiguous(), disp.contiguous(), max_disp)
+    if mode == "onehot":
+        return warp_image_onehot(img, disp, max_disp)
     if mode == "clamped":
         return warp_image_clamped(img, disp, max_disp)
     return warp_image(img, disp)
@@ -233,6 +386,10 @@ def warp_features_by_mode(
     mode = resolve_warp_mode(mode, feats.device)
     if mode == "cuda":
         return warp_features_cuda(feats.contiguous(), dx.contiguous(), max_neg, max_pos)
+    if mode == "mxu":
+        return warp_features_mxu(feats.contiguous(), dx.contiguous(), max_neg, max_pos)
+    if mode == "onehot":
+        return warp_features_onehot(feats, dx, max_neg, max_pos)
     if mode == "clamped":
         return warp_features_clamped(feats, dx, max_neg, max_pos)
     return warp_features_horizontal(feats, dx)

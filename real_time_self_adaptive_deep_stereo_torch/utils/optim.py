@@ -16,7 +16,16 @@ reference's TF1 optimizers kept visible:
 The JAX functions return new trees; these update ``params`` and the
 state tensors in place under ``torch.no_grad()`` (the engine owns its
 module's parameters). Collections are lists, tuples or dicts of tensors;
-``params``, the state and ``grads`` share one structure.
+``params``, the state and ``grads`` share one structure. A one-element
+list holding a slice of a flat arena (``adapt/arena.py``) is such a
+collection: the update is then one or two ops over the slice.
+
+Adam's step count may be a Python int (the host session counts its own
+steps) or a 0-dim integer tensor on the parameters' device (the fused
+session, whose steps are replayed as CUDA graphs: a Python number would
+be frozen into the graph as a constant, and every replay would take step
+1). With a tensor the step size is computed on the device, in float32
+either way.
 """
 
 from __future__ import annotations
@@ -68,10 +77,17 @@ def adam_init(params: Tensors) -> Dict:
     return {"m": _zeros_like(params), "v": _zeros_like(params), "t": 0}
 
 
-def adam_lr_t(lr: float, t: int, b1: float = 0.9, b2: float = 0.999) -> float:
+def adam_lr_t(
+    lr: float, t: Union[int, torch.Tensor], b1: float = 0.9, b2: float = 0.999
+) -> Union[float, torch.Tensor]:
     """TF's bias-corrected step size ``lr*sqrt(1-b2^t)/(1-b1^t)`` after
     ``t`` steps, computed in float32 as the JAX package computes it
-    (``1 - b2**t`` cancels, so the working type shows in the result)."""
+    (``1 - b2**t`` cancels, so the working type shows in the result). A
+    Python ``t`` gives a float; a tensor ``t`` gives a 0-dim float32 tensor
+    on its device, with no transfer to the host."""
+    if isinstance(t, torch.Tensor):
+        tf_ = t.to(torch.float32)
+        return lr * torch.sqrt(1.0 - b2**tf_) / (1.0 - b1**tf_)
     tf_ = torch.tensor(float(t), dtype=torch.float32)
     return float(lr * torch.sqrt(1.0 - b2**tf_) / (1.0 - b1**tf_))
 
@@ -83,13 +99,14 @@ def adam_update(
     v: Tensors,
     grads: Tensors,
     lr: float,
-    t: int,
+    t: Union[int, torch.Tensor],
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
 ) -> None:
     """One TF-form Adam step, in place, as step number ``t`` (1 for the
-    first). The caller keeps the count: it is shared by every block."""
+    first; an int or a 0-dim tensor, see :func:`adam_lr_t`). The caller
+    keeps the count: it is shared by every block."""
     lr_t = adam_lr_t(lr, t, b1, b2)
     for p, m_, v_, g in zip(_values(params), _values(m), _values(v), _values(grads)):
         m_.mul_(b1).add_((1 - b1) * g)

@@ -131,8 +131,9 @@ def test_warp_modes_resolve_and_dispatch():
     cpu = torch.device("cpu")
     assert tops.resolve_warp_mode("auto", cpu) == "gather"
     assert tops.resolve_warp_mode("auto", torch.device("cuda")) == "cuda"
+    assert tops.resolve_warp_mode("onehot", cpu) == "onehot"  # a mode of the port since the tiled warps
     with pytest.raises(ValueError):
-        tops.resolve_warp_mode("onehot", cpu)
+        tops.resolve_warp_mode("pallas", cpu)
     img, disp = _img_case(7, w=60)
     ti, td = _t(img), _t(disp)
     np.testing.assert_array_equal(
@@ -246,7 +247,7 @@ def test_kernel_c_signatures_match_ctypes():
             assert [ctype(p) for p in params] == argtypes, fn
             declared += 1
     assert set(cuda_lib.LAUNCHES) == {fn for fns in cuda_lib._SIGNATURES.values() for fn in fns}
-    assert declared == 6
+    assert declared == 10  # correlation 2, warp 4, warp_tile 4
 
 
 # ------------------------------------------------------------------ isolation
@@ -260,6 +261,7 @@ def test_port_imports_no_jax():
         for p in PORT_DIR.rglob("*.py")
         if p.name != "__init__.py"
     )
+    assert {f"real_time_self_adaptive_deep_stereo_torch.adapt.{m}" for m in ("arena", "fused")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -273,5 +275,5 @@ def test_port_imports_no_jax():
     stmt = re.compile(
         r"^\s*(from|import)\s+(jax|real_time_self_adaptive_deep_stereo_tpu)\b", re.M
     )
-    for p in PORT_DIR.rglob("*.py"):
+    for p in [*PORT_DIR.rglob("*.py"), PORT_DIR.parent / "chip_smoke.py"]:
         assert not stmt.search(p.read_text()), p
