@@ -9,7 +9,8 @@ Phases, each of which raises on failure (nothing is caught):
    which must be off: the port runs the JAX package's ``highest``
    precision, fp32.
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
-   started together) and print the build time and the ptxas report.
+   started together) and print the build time and the ptxas report, and
+   apart the registers and spills of the two feature-warp forwards.
 3. Each of the ten kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
    windows: the five forward kernels, and the five backward kernels
@@ -22,7 +23,8 @@ Phases, each of which raises on failure (nothing is caught):
    (bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever
    is larger), the plain version's time and, for the warps, the time of
    ``F.grid_sample`` (forward) or of its backward on the same sampling,
-   as a yardstick that the port never calls.
+   as a yardstick that the port never calls, and per kernel its time
+   summed over its shapes as a ratio to that yardstick's sum.
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -363,6 +365,10 @@ def check_kernels(ops):
         for r in rs:
             r["bound_ms"], r["bound_by"] = r.pop("bound")
             log(f"kernel {name} {r}")
+    for name, rs in rows.items():  # summed over the main-path shapes
+        ms, lib_ms = sum(r["ms"] for r in rs), [r["library_ms"] for r in rs]
+        ratio = "no library call" if None in lib_ms else f"{ms / sum(lib_ms):.3f} of the library's {sum(lib_ms):.5f} ms"
+        log(f"kernel {name}: {ms:.5f} ms over {len(rs)} shape(s), {ratio}")
     return rows
 
 
@@ -1091,7 +1097,7 @@ def profile_frames(session, frames, out: Path, tag: str):
 
 
 _GROUPS = (  # first match wins
-    ("the port's kernels", r"corr_fwd|corr_bwd|warp_fwd_kernel|warp_bwd_|tile_fwd_kernel|tile_bwd_"),
+    ("the port's kernels", r"corr_fwd|corr_bwd|warp_fwd_kernel|feat_gather_fwd|warp_bwd_|tile_fwd_kernel|feat_row_fwd|tile_bwd_"),
     ("cuDNN backward (dgrad, wgrad)", r"dgrad|wgrad"),
     ("cuDNN/cuBLAS convolutions and matmuls, incl. FFT and layout transforms",
      r"fprop|convolve|region_transform|fft|DSE::|gemm|gemv|cudnn|flip_filter"),
@@ -1172,6 +1178,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    for name, kernel in (("warp", "feat_gather_fwd_kernel"), ("warp_tile", "feat_row_fwd_kernel")):
+        usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get(name, ""), kernel) or ["cached build, no report"]
+        log(f"ptxas {kernel} (redesigned feature-warp forward): {'; '.join(usage)}")
 
     if args.fused_only:
         run_fused(params_from_jax(seeded_jax_params(0)), args.profile)

@@ -13,22 +13,40 @@
 // [0, W-1] set to zero (`_feat_weights`). warp_features_bwd replaces
 // `_feat_bwd_kernel`.
 //
-// What bounds them: memory. Each output element is two loads, two
-// multiplies and an add, so the time is the (2C + 1) * 4 bytes per pixel
-// of compulsory traffic (forward; the backward reads the incoming
-// gradient too and writes both gradients). The TPU kernels sweep every
-// shift of a static window because a lane gather is slow there; a GPU
-// thread gathers directly, so in the forward the window costs nothing
-// and the clip only sets the semantics. One thread per output pixel
+// What bounds them. Each output element is two loads, two multiplies and
+// an add, so the compulsory traffic is (2C + 1) * 4 bytes per pixel
+// (forward; the backward reads the incoming gradient too and writes both
+// gradients). The TPU kernels sweep every shift of a static window
+// because a lane gather is slow there; a GPU thread gathers directly, so
+// in the forward the window costs nothing and the clip only sets the
+// semantics. The sampling weights and indices are computed once per
+// pixel (`image_tap`, `feature_tap`, shared by forward and backward so
+// that they cannot disagree) and reused across channels.
+//
+// The image warp (C = 3, 389,120 pixels) has one thread per output pixel
 // (b, h, x), consecutive threads on consecutive x: the offset load and
-// every output store are coalesced, and the two gathered source columns
-// of neighbouring threads lie close together in the same row, so they
-// share cache lines. The sampling weights and indices are computed once
-// per pixel (`image_tap`, `feature_tap`, shared by forward and backward
-// so that they cannot disagree) and reused across the C channels, whose
-// loop is unrolled so that several channels' gathers are in flight at
-// once: MADNet's feature warps hold few pixels and many channels, and
-// there load latency, not bandwidth, sets the time.
+// every store are coalesced, and the gathered columns of neighbouring
+// threads share cache lines.
+//
+// The feature warp runs on MADNet's short, deep rows: [C, H, W] =
+// [128, 10, 38] to [32, 80, 304], 380 to 24,320 pixels. There a thread
+// per pixel that walks every channel leaves most SMs idle (10 blocks at
+// scale 5) and chains dozens of rounds of dependent gathers, and load
+// latency, not bytes, sets the time: the whole call moves 0.4-2 MB, under
+// a microsecond at the card's memory rate. So `feat_gather_fwd_kernel`
+// spreads the channels over the grid. Each channel plane is taken as one
+// run of H*W pixels (contiguous in NCHW); consecutive threads take
+// consecutive pixels, across row ends, so the offset load and the stores
+// stay coalesced even where a row is 38 floats long. A thread computes
+// its pixel's tap once for a group of kFeatChannels channels and issues
+// the group's 2 * kFeatChannels gathers before its first store, so they
+// are in flight together. The grid's x axis holds the channel groups
+// times the pixel blocks, its y axis the batch. kFeatChannels = 4 and
+// kFeatThreads = 128 were picked on the H100 from 1, 2, 4 and 8 channels
+// by 64, 128 and 256 threads (PERF.md, PR 4): one or two channels keep too
+// few gathers in flight at scales 3 and 2, eight need more registers and
+// halve the grid for no gain. At scale 5 every choice sits at the launch
+// floor, about 2.2 us.
 //
 // The backward is two kernels behind one entry point, each skipped when
 // its gradient is not asked for:
@@ -56,12 +74,15 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kChunk = 4;  // channels per thread in the source gradient
+constexpr int kFeatChannels = 4;  // channels per thread, feature forward
+constexpr int kFeatThreads = 128;  // threads per block, feature forward
 
 // w0*a + w1*b with every product and sum rounded on its own, as the plain
 // PyTorch version computes it: no contraction into an FMA, so the kernel
@@ -119,11 +140,11 @@ __device__ __forceinline__ Tap tap_of(float off, int x, int W, float lo,
   return kImage ? image_tap(off, x, W, hi) : feature_tap(off, x, W, lo, hi);
 }
 
-template <bool kImage>
+// Image warp: one thread per output pixel (b, h, x).
 __global__ void warp_fwd_kernel(const float* __restrict__ src,
                                 const float* __restrict__ off,
                                 float* __restrict__ out, int C, int H, int W,
-                                float lo, float hi) {
+                                float max_disp) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -131,8 +152,8 @@ __global__ void warp_fwd_kernel(const float* __restrict__ src,
 
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t row = static_cast<size_t>(h) * W;
-  const Tap t = tap_of<kImage>(
-      __ldg(off + static_cast<size_t>(b) * plane + row + x), x, W, lo, hi);
+  const Tap t = image_tap(
+      __ldg(off + static_cast<size_t>(b) * plane + row + x), x, W, max_disp);
 
   const float* s = src + static_cast<size_t>(b) * C * plane + row;
   float* dst = out + static_cast<size_t>(b) * C * plane + row + x;
@@ -140,6 +161,44 @@ __global__ void warp_fwd_kernel(const float* __restrict__ src,
   for (int c = 0; c < C; ++c) {
     const float* r = s + c * plane;
     dst[c * plane] = lerp2(t.w0, __ldg(r + t.i0), t.w1, __ldg(r + t.i1));
+  }
+}
+
+// Feature warp: one thread per (pixel of the plane, group of kFeatChannels
+// channels). blockIdx.x = group * pix_blocks + block of pixels; blockIdx.y
+// is the batch. A group past C's end keeps its gathers and stores masked.
+__global__ void __launch_bounds__(kFeatThreads)
+    feat_gather_fwd_kernel(const float* __restrict__ src,
+                           const float* __restrict__ off,
+                           float* __restrict__ out, int C, int W,
+                           size_t plane, int pix_blocks, float lo, float hi) {
+  const int g = blockIdx.x / pix_blocks;
+  const size_t p =
+      static_cast<size_t>(blockIdx.x - g * pix_blocks) * kFeatThreads +
+      threadIdx.x;
+  if (p >= plane) return;
+  const int b = blockIdx.y;
+  // the column; a plane under 2^32 pixels (every real one) divides in 32 bits
+  const int x = plane <= UINT_MAX
+                    ? static_cast<int>(static_cast<unsigned>(p) % static_cast<unsigned>(W))
+                    : static_cast<int>(p % W);
+  const Tap t = feature_tap(__ldg(off + static_cast<size_t>(b) * plane + p), x,
+                            W, lo, hi);
+
+  const int c0 = g * kFeatChannels;
+  const size_t first = (static_cast<size_t>(b) * C + c0) * plane;
+  const float* r = src + first + (p - x);  // column 0 of the pixel's row
+  float v0[kFeatChannels], v1[kFeatChannels];
+#pragma unroll
+  for (int j = 0; j < kFeatChannels; ++j) {
+    const bool in = c0 + j < C;
+    v0[j] = in ? __ldg(r + j * plane + t.i0) : 0.f;
+    v1[j] = in ? __ldg(r + j * plane + t.i1) : 0.f;
+  }
+  float* dst = out + first + p;
+#pragma unroll
+  for (int j = 0; j < kFeatChannels; ++j) {
+    if (c0 + j < C) dst[j * plane] = lerp2(t.w0, v0[j], t.w1, v1[j]);
   }
 }
 
@@ -257,8 +316,8 @@ extern "C" {
 int warp_image_fwd(const float* img, const float* disp, float* out, int B,
                    int C, int H, int W, float max_disp, cudaStream_t stream) {
   const dim3 grid((W + kThreads - 1) / kThreads, H, B);
-  warp_fwd_kernel<true><<<grid, kThreads, 0, stream>>>(img, disp, out, C, H, W,
-                                                       0.f, max_disp);
+  warp_fwd_kernel<<<grid, kThreads, 0, stream>>>(img, disp, out, C, H, W,
+                                                 max_disp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,9 +325,16 @@ int warp_image_fwd(const float* img, const float* disp, float* out, int B,
 int warp_features_fwd(const float* feats, const float* dx, float* out, int B,
                       int C, int H, int W, float max_neg, float max_pos,
                       cudaStream_t stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, H, B);
-  warp_fwd_kernel<false><<<grid, kThreads, 0, stream>>>(feats, dx, out, C, H,
-                                                        W, max_neg, max_pos);
+  const size_t plane = static_cast<size_t>(H) * W;
+  const long long pix_blocks = (plane + kFeatThreads - 1) / kFeatThreads;
+  const long long groups =
+      (static_cast<long long>(C) + kFeatChannels - 1) / kFeatChannels;
+  if (pix_blocks * groups > INT_MAX || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(pix_blocks * groups), B);
+  feat_gather_fwd_kernel<<<grid, kFeatThreads, 0, stream>>>(
+      feats, dx, out, C, W, plane, static_cast<int>(pix_blocks), max_neg,
+      max_pos);
   return static_cast<int>(cudaGetLastError());
 }
 

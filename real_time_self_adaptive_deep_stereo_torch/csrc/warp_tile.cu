@@ -25,17 +25,57 @@
 // non-zeros a row; on the TPU the product with it runs on the matrix
 // unit because a lane gather is slow there, and at fp32 `HIGHEST` it is
 // exactly w0*win[rel0] + w1*win[rel1]. On this card a product of zeros
-// is no design: a thread gathers. What carries over is the window. One
-// block owns (batch, row, tile, chunk of channels), stages the tile's
-// window (`back` columns to the left, `ahead` to the right, from the
-// clip bounds) in shared memory with coalesced loads, computes each
-// column's two taps and weights once for all channels, and reads the
-// taps from shared memory, so every source element is read from device
-// memory once per tile that can reach it and never by a scattered load.
+// is no design: a thread gathers. What carries over is staging the source
+// in fast memory, and each kernel stages it in the shape its row asks for.
 //
-// What bounds them: memory. (2C + 1) * 4 bytes per pixel forward, a
-// handful of operations per element; the backward reads the incoming
-// gradient too and writes both gradients.
+// The image warp (`tile_fwd_kernel`, one [3, 1216] row a block row): one
+// block owns (batch, row, tile, chunk of channels), stages the tile's
+// window (`back` columns to the left, `ahead` to the right, from the clip
+// bounds) in shared memory with coalesced loads, computes each column's
+// two taps and weights once for all channels, and reads the taps from
+// shared memory.
+//
+// The feature warp (`feat_row_fwd_kernel`) runs on MADNet's short, deep
+// rows, [C, W] = [128, 38] to [32, 304]. There a 128-column tile leaves
+// most of a block idle and most of its window zero fill, and the time is
+// set by latency, not bytes: a call moves 0.4-2 MB, under a microsecond at
+// the card's memory rate, while a block that stages channel after channel
+// waits for one round of loads after another. So, as the TPU kernel stages
+// each row whole once (`buf_ref`), a block owns one whole row of a chunk
+// of kRowChunk channels, (batch, row, chunk), and stages it once: with
+// `cp.async`, 4 bytes a copy (the rows of a [C, H, 38] map are not 16-byte
+// aligned), so every load of the block is in flight at once without
+// passing through registers, and columns from W up to the padded width
+// are zero-filled by the same instruction. The row's offsets are staged
+// the same way, so one round of load latency serves the whole block. Then
+// the block computes each column's taps once (`tile_tap`) into shared
+// memory, and its threads stride over the chunk's outputs, x fastest, so
+// the stores are coalesced. Threads map to (channel, column) pairs with
+// one division each, so that no element pays for one. The taps are clamped
+// to the padded row, so the staged row [0, min(W + ahead, wp)) holds every
+// column they read.
+//
+// kRowChunk = 4 gives scales 5 and 4 (10 and 20 rows) 320 and 480 blocks,
+// more than the 132 SMs. With kRowThreads = 128 it was picked on the H100
+// from 2, 4, 8 and 16 channels by 128 and 256 threads (PERF.md, PR 4).
+// Staging stays slower than `grid_sample` there, where the gather of
+// csrc/warp.cu is faster: each block pays its stage, a barrier, the taps
+// and a barrier before its first store, about half a microsecond more than
+// the gather at scale 5, where both sit at the launch floor, and about
+// 1.3 us more at scales 3 and 2. Copy groups per channel (stores
+// overlapping the later channels' loads), taps kept in registers, and
+// plain loads instead of `cp.async` did no better.
+//
+// A row whose staging would pass the card's 227 KB is cut into segments
+// of output columns, each with the window its clip bounds reach,
+// [x - back, x + ahead]; only such a row stages a column more than once.
+// A chunk holds at most as many channels as a tile's window did, so every
+// clip window that fits a tile's staging fits a segment too.
+//
+// What bounds them: latency at MADNet's shapes (above); by count, memory:
+// (2C + 1) * 4 bytes per pixel forward, a handful of operations per
+// element; the backward reads the incoming gradient too and writes both
+// gradients.
 //
 // The backward is two kernels behind one entry point, each skipped when
 // its gradient is not asked for:
@@ -65,12 +105,16 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
 #include <cmath>
 
 namespace {
 
 constexpr int kTile = 128;        // output columns per tile
 constexpr int kFwdChunk = 16;     // channels per staged window
+constexpr int kRowChunk = 4;      // channels per staged row
+constexpr int kRowThreads = 128;  // threads of the row block
 constexpr int kBwdChunk = 8;      // channels per row buffer
 constexpr int kBwdThreads = 256;  // threads of the source-gradient block
 constexpr int kMaxSmem = 232448;  // bytes a block can use on sm_90
@@ -138,7 +182,7 @@ __device__ __forceinline__ int window_index(int col, int col0, int vlen) {
   return min(max(col - col0, 0), vlen - 1);
 }
 
-template <bool kImage>
+// Image warp: one block per (tile, row, batch times channel chunk).
 __global__ void tile_fwd_kernel(const float* __restrict__ src,
                                 const float* __restrict__ off,
                                 float* __restrict__ out, int C, int H, int W,
@@ -160,7 +204,7 @@ __global__ void tile_fwd_kernel(const float* __restrict__ src,
 
   const int x = x0c + threadIdx.x;
   if (x >= W) return;
-  const Tap t = tile_tap<kImage>(
+  const Tap t = tile_tap<true>(
       __ldg(off + static_cast<size_t>(b) * plane + row + x), x, wp, lo, hi);
   const int r0 = window_index(t.i0, col0, vlen);
   const int r1 = window_index(t.i1, col0, vlen);
@@ -168,6 +212,99 @@ __global__ void tile_fwd_kernel(const float* __restrict__ src,
   for (int j = 0; j < nc; ++j) {
     const float* wj = win + j * vlen;
     dst[j * plane] = lerp2(t.w0, wj[r0], t.w1, wj[r1]);
+  }
+}
+
+// One output column's taps, as the row block keeps them in shared memory:
+// weights and the two sample columns relative to the staged window.
+struct RowTap {
+  float w0, w1;
+  int r0, r1;
+};
+
+// 4-byte asynchronous copy from device to shared memory; with `valid`
+// false it reads nothing and writes a zero.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Feature warp: one block per (segment of output columns, chunk of
+// kRowChunk channels), row, batch; blockIdx.x = chunk * n_seg + segment.
+// Shared memory: the segment's taps [seg], its offsets [seg], then the
+// staged window [nc][L] of columns [ws, ws + L).
+__global__ void __launch_bounds__(kRowThreads)
+    feat_row_fwd_kernel(const float* __restrict__ src,
+                        const float* __restrict__ off, float* __restrict__ out,
+                        int C, int H, int W, int wp, float lo, float hi,
+                        int back, int ahead, int seg, int n_seg) {
+  extern __shared__ float4 smem4[];
+  RowTap* taps = reinterpret_cast<RowTap*>(smem4);
+  float* offs = reinterpret_cast<float*>(taps + seg);
+  float* win = offs + seg;
+
+  const int chunk = blockIdx.x / n_seg;
+  const int xs = (blockIdx.x - chunk * n_seg) * seg;
+  const int xe = min(xs + seg, W);
+  const int nx = xe - xs;
+  const int ws = max(xs - back, 0);
+  const int len = min(xe + ahead, wp) - ws;  // L
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int c0 = chunk * kRowChunk;
+  const int nc = min(kRowChunk, C - c0);
+  const size_t plane = static_cast<size_t>(H) * W;
+  const size_t row = static_cast<size_t>(h) * W;
+  const size_t chan0 = (static_cast<size_t>(b) * C + c0) * plane + row;
+
+  // stage the offsets and the window, every copy in flight at once;
+  // columns >= W are zero. A thread takes one column v0 of channels j0,
+  // j0 + lanes, ... where the block has threads for several channels of a
+  // column, else columns v0, v0 + kRowThreads, ... of every channel: one
+  // division a thread, none an element.
+  const float* offr = off + static_cast<size_t>(b) * plane + row + xs;
+  for (int x = threadIdx.x; x < nx; x += kRowThreads)
+    cp_async_f32(offs + x, offr + x, true);
+  {
+    const int lanes = max(kRowThreads / len, 1);
+    const int j0 = threadIdx.x / len;
+    const int v0 = threadIdx.x - j0 * len;
+    const float* rows = src + chan0;
+    for (int j = j0 < lanes ? j0 : nc; j < nc; j += lanes) {  // spare threads idle
+      for (int v = v0; v < len; v += kRowThreads) {
+        const bool in = ws + v < W;
+        cp_async_f32(win + j * len + v, rows + j * plane + (in ? ws + v : 0),
+                     in);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  // the taps, once per column; the min/max only guards the shared-memory
+  // reads, the clip bounds keep them in [0, L)
+  for (int x = threadIdx.x; x < nx; x += kRowThreads) {
+    const Tap t = tile_tap<false>(offs[x], xs + x, wp, lo, hi);
+    taps[x] = RowTap{t.w0, t.w1, min(max(t.i0 - ws, 0), len - 1),
+                     min(max(t.i1 - ws, 0), len - 1)};
+  }
+  __syncthreads();
+
+  // the outputs, x fastest across the threads, with the same split of
+  // channels and columns; each thread reads a column's tap once
+  const int lanes = max(kRowThreads / nx, 1);
+  const int j0 = threadIdx.x / nx;
+  const int x0 = threadIdx.x - j0 * nx;
+  float* dst = out + chan0 + xs;
+  for (int x = x0; x < nx; x += kRowThreads) {
+    const RowTap t = taps[x];
+#pragma unroll 4
+    for (int j = j0 < lanes ? j0 : nc; j < nc; j += lanes) {
+      const float* wj = win + j * len;
+      dst[j * plane + x] = lerp2(t.w0, wj[t.r0], t.w1, wj[t.r1]);
+    }
   }
 }
 
@@ -332,18 +469,67 @@ void window_of(float lo, float hi, int* back, int* ahead) {
 
 inline int padded_width(int W) { return (W + kTile - 1) / kTile * kTile; }
 
-template <bool kImage>
-int launch_fwd(const float* src, const float* off, float* out, int B, int C,
-               int H, int W, float lo, float hi, cudaStream_t stream) {
+int launch_image_fwd(const float* src, const float* off, float* out, int B,
+                     int C, int H, int W, float max_disp,
+                     cudaStream_t stream) {
   int back, ahead;
-  window_of<kImage>(lo, hi, &back, &ahead);
+  window_of<true>(0.f, max_disp, &back, &ahead);
   const int vlen = back + kTile + ahead;
   const int n_chunks = (C + kFwdChunk - 1) / kFwdChunk;
   const size_t smem = sizeof(float) * (C < kFwdChunk ? C : kFwdChunk) * vlen;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((W + kTile - 1) / kTile, H, B * n_chunks);
-  tile_fwd_kernel<kImage><<<grid, kTile, smem, stream>>>(
-      src, off, out, C, H, W, padded_width(W), lo, hi, back, vlen, n_chunks);
+  tile_fwd_kernel<<<grid, kTile, smem, stream>>>(
+      src, off, out, C, H, W, padded_width(W), 0.f, max_disp, back, vlen,
+      n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Floats of shared memory per output column of a segment: its tap record
+// and its offset.
+constexpr long long kRowColFloats = sizeof(RowTap) / sizeof(float) + 1;
+
+// Shared memory of a row block: `seg` columns' taps and offsets, and nc
+// rows of the window, which spans at most seg + back + ahead columns of the
+// padded row (a whole row: the columns [0, min(W + ahead, wp))).
+long long row_smem(long long seg, int nc, int W, int wp, int back,
+                   int ahead) {
+  const long long span =
+      seg >= W ? std::min<long long>(W + ahead, wp)
+               : std::min<long long>(seg + back + ahead, wp);
+  return static_cast<long long>(sizeof(float)) *
+         (kRowColFloats * seg + static_cast<long long>(nc) * span);
+}
+
+// The most output columns a segment can have within kMaxSmem bytes (< 1
+// if the window alone does not fit).
+long long row_seg_fit(int nc, int back, int ahead) {
+  const long long floats = kMaxSmem / static_cast<long long>(sizeof(float));
+  return (floats - static_cast<long long>(nc) * (back + ahead)) /
+         (kRowColFloats + nc);
+}
+
+int launch_features_fwd(const float* src, const float* off, float* out, int B,
+                        int C, int H, int W, float lo, float hi,
+                        cudaStream_t stream) {
+  int back, ahead;
+  window_of<false>(lo, hi, &back, &ahead);
+  const int wp = padded_width(W);
+  const int nc = C < kRowChunk ? C : kRowChunk;
+  long long seg = W;  // the whole row, unless it passes kMaxSmem
+  if (row_smem(seg, nc, W, wp, back, ahead) > kMaxSmem) {
+    seg = std::min<long long>(row_seg_fit(nc, back, ahead), W);
+    if (seg < 1) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = row_smem(seg, nc, W, wp, back, ahead);
+  const long long n_seg = (W + seg - 1) / seg;
+  const long long n_chunks = (static_cast<long long>(C) + kRowChunk - 1) / kRowChunk;
+  if (n_seg * n_chunks > INT_MAX || H > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(n_seg * n_chunks), H, B);
+  feat_row_fwd_kernel<<<grid, kRowThreads, static_cast<size_t>(smem), stream>>>(
+      src, off, out, C, H, W, wp, lo, hi, back, ahead, static_cast<int>(seg),
+      static_cast<int>(n_seg));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,8 +577,8 @@ extern "C" {
 // Raises the dynamic shared-memory limit of every kernel here, on the
 // current device. Called once when the library is loaded.
 int warp_tile_init() {
-  cudaError_t err = allow_max_smem(tile_fwd_kernel<true>);
-  if (err == cudaSuccess) err = allow_max_smem(tile_fwd_kernel<false>);
+  cudaError_t err = allow_max_smem(tile_fwd_kernel);
+  if (err == cudaSuccess) err = allow_max_smem(feat_row_fwd_kernel);
   if (err == cudaSuccess) err = allow_max_smem(tile_bwd_offset_kernel<true>);
   if (err == cudaSuccess) err = allow_max_smem(tile_bwd_offset_kernel<false>);
   if (err == cudaSuccess) err = allow_max_smem(tile_bwd_source_kernel<true>);
@@ -405,15 +591,15 @@ int warp_tile_init() {
 int warp_tile_image_fwd(const float* img, const float* disp, float* out, int B,
                         int C, int H, int W, float max_disp,
                         cudaStream_t stream) {
-  return launch_fwd<true>(img, disp, out, B, C, H, W, 0.f, max_disp, stream);
+  return launch_image_fwd(img, disp, out, B, C, H, W, max_disp, stream);
 }
 
 // feats: [B, C, H, W] fp32 contiguous; dx: [B, 1, H, W]; out like feats.
 int warp_tile_features_fwd(const float* feats, const float* dx, float* out,
                            int B, int C, int H, int W, float max_neg,
                            float max_pos, cudaStream_t stream) {
-  return launch_fwd<false>(feats, dx, out, B, C, H, W, -max_neg, max_pos,
-                           stream);
+  return launch_features_fwd(feats, dx, out, B, C, H, W, -max_neg, max_pos,
+                             stream);
 }
 
 // Backward of warp_tile_image_fwd. g: gradient of the output, like img.

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +33,7 @@ import torch
 
 __all__ = [
     "LAUNCHES", "build_all", "check", "check_float32", "library", "reset_launches", "stream_ptr",
+    "ptxas_usage",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -139,6 +141,19 @@ def library(name: str) -> ctypes.CDLL:
                 check(lib, init(), _INIT[name])
             _libs[name] = lib
         return _libs[name]
+
+
+def ptxas_usage(log: str, kernel: str) -> list:
+    """The lines of an ``nvcc -Xptxas -v`` log that give the registers and
+    spills of each entry function whose mangled name holds ``kernel``."""
+    out, current = [], ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+        elif kernel in current and ("spill" in line or "registers" in line):
+            out.append(line.replace("ptxas info    :", "").strip())
+    return out
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -75,9 +75,21 @@ __all__ = [
     "warp_features_by_mode",
 ]
 
-# channels per block along the grid's z (or y) axis, per library: forward,
-# backward (csrc/warp.cu: kChunk; csrc/warp_tile.cu: kFwdChunk, kBwdChunk)
-_GRID_CHUNKS = {"warp": (1 << 30, 4), "warp_tile": (16, 8)}
+# The launch grid's y and z axes take at most 65535 blocks each. Per entry
+# point: whether a grid axis runs over the rows H, and the channels per
+# block where an axis runs over B times the channel chunks (csrc/warp.cu:
+# kChunk; csrc/warp_tile.cu: kFwdChunk, kBwdChunk), None where it runs over
+# B alone. The feature forwards put their channel groups on the x axis.
+_GRID = {
+    "warp_image_fwd": (True, None),
+    "warp_features_fwd": (False, None),
+    "warp_image_bwd": (True, 4),
+    "warp_features_bwd": (True, 4),
+    "warp_tile_image_fwd": (True, 16),
+    "warp_tile_features_fwd": (True, None),
+    "warp_tile_image_bwd": (True, 8),
+    "warp_tile_features_bwd": (True, 8),
+}
 
 
 def _check(name: str, src: torch.Tensor, off: torch.Tensor) -> None:
@@ -96,9 +108,10 @@ def _all_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _check_grid(fn_name: str, shape, chunk: int) -> None:
+def _check_grid(fn_name: str, shape) -> None:
     b, c, h, _ = shape
-    if h > 65535 or b * -(-c // chunk) > 65535:
+    rows, chunk = _GRID[fn_name]
+    if (rows and h > 65535) or b * (1 if chunk is None else -(-c // chunk)) > 65535:
         raise ValueError(f"{fn_name}: shape {tuple(shape)} exceeds the launch grid")
 
 
@@ -107,7 +120,7 @@ def _launch(
 ) -> torch.Tensor:
     _check(fn_name, src, off)
     b, c, h, w = src.shape
-    _check_grid(fn_name, src.shape, _GRID_CHUNKS[lib_name][0])
+    _check_grid(fn_name, src.shape)
     out = torch.empty_like(src)
     lib = cuda_lib.library(lib_name)
     err = getattr(lib, fn_name)(
@@ -140,7 +153,7 @@ def _launch_bwd(
     if not grad.is_contiguous():
         raise ValueError(f"{fn_name} needs a contiguous gradient")
     b, c, h, w = src.shape
-    _check_grid(fn_name, src.shape, _GRID_CHUNKS[lib_name][1])
+    _check_grid(fn_name, src.shape)
     dsrc = torch.empty_like(src) if need_src else None
     doff = torch.empty_like(off) if need_off else None
     if not (need_src or need_off):

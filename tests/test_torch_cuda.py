@@ -71,16 +71,31 @@ def test_warp_image_kernel_matches_plain(dev, shape, max_disp):
     torch.testing.assert_close(got, tops.warp_image_clamped(img, disp, max_disp), rtol=0, atol=1e-6)
 
 
+# the edges of the feature forwards' grids: W = 1; C = 1 and C = 17 (no
+# multiple of a channel group); rows of 33 and 38 floats (not 16-byte
+# aligned); H = 1 with B = 2; max_neg beyond the row
+_FEATURE_EDGES = [
+    ((1, 3, 4, 1), 6),
+    ((1, 17, 5, 33), 12),
+    ((1, 1, 7, 38), 6),
+    ((2, 5, 1, 76), 12),
+    ((1, 9, 3, 20), 40),
+]
+
+
 @pytest.mark.parametrize(
-    "shape,max_neg", [((2, 6, 4, 140), 20), ((1, 128, 10, 38), 6), ((1, 32, 80, 304), 48)]
+    "shape,max_neg",
+    [((2, 6, 4, 140), 20), ((1, 128, 10, 38), 6), ((1, 32, 80, 304), 48), *_FEATURE_EDGES],
 )
 def test_warp_features_kernel_matches_plain(dev, shape, max_neg):
+    """Bit for bit: the kernel rounds as the plain version does."""
     feats = _normal(shape, 5, dev)
     dx = _uniform((shape[0], 1, *shape[2:]), 6, dev, -max_neg - 10.0, 10.0)
+    before = cuda_lib.LAUNCHES["warp_features_fwd"]
     got = tops.warp_features_cuda(feats, dx, max_neg, 4)
     torch.cuda.synchronize()
-    want = tops.warp_features_clamped(feats, dx, max_neg, 4)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert cuda_lib.LAUNCHES["warp_features_fwd"] == before + 1
+    assert torch.equal(got, tops.warp_features_clamped(feats, dx, max_neg, 4))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -286,17 +301,29 @@ def test_tiled_image_warp_matches_plain_and_clamped_kernels(dev, shape, max_disp
 
 @pytest.mark.parametrize(
     "shape,max_neg",
-    [((2, 6, 4, 140), 20), ((1, 17, 3, 9), 20), ((1, 9, 2, 256), 12), ((1, 128, 10, 38), 6), ((1, 32, 80, 304), 48)],
+    [
+        ((2, 6, 4, 140), 20), ((1, 17, 3, 9), 20), ((1, 9, 2, 256), 12), ((1, 128, 10, 38), 6),
+        ((1, 32, 80, 304), 48), *_FEATURE_EDGES,
+        # a whole row past the default 48 KB of shared memory; rows the
+        # forward stages in two segments, one with a clip window near the
+        # largest a 128-column tile took
+        ((1, 9, 2, 1500), 20), ((1, 9, 2, 7000), 20), ((1, 16, 2, 7000), 3400),
+    ],
 )
 def test_tiled_feature_warp_matches_plain_and_clamped_kernels(dev, shape, max_neg):
     feats = _normal(shape, 27, dev)
     dx = _uniform((shape[0], 1, *shape[2:]), 28, dev, -max_neg - 10.0, 10.0)
     dx[..., 2::7] = -float(max_neg)
     dx[..., 4::9] = 4.0
-    dx[..., -3:] = 2.5  # samples right of the row: a weight on a pad column
+    if shape[3] > 3:
+        dx[..., -3:] = 2.5  # samples right of the row: a weight on a pad column
+    else:
+        dx[..., ::2, :] = -0.25  # one tap left of the row, one on column 0
     g = _normal(shape, 29, dev)
     fg, dg = feats.clone().requires_grad_(), dx.clone().requires_grad_()
+    before = cuda_lib.LAUNCHES["warp_tile_features_fwd"]
     out = tops.warp_features_mxu(fg, dg, max_neg, 4)
+    assert cuda_lib.LAUNCHES["warp_tile_features_fwd"] == before + 1
     dfeats, ddx = torch.autograd.grad(out, (fg, dg), g)
     dfeats2, ddx2 = torch.autograd.grad(tops.warp_features_mxu(fg, dg, max_neg, 4), (fg, dg), g)
     torch.cuda.synchronize()

@@ -250,6 +250,52 @@ def test_kernel_c_signatures_match_ctypes():
     assert declared == 10  # correlation 2, warp 4, warp_tile 4
 
 
+def test_warp_grid_checks_follow_the_kernels_grids():
+    """The wrappers' check of the launch grid, whose y and z axes hold at
+    most 65535 blocks: the feature forwards put their channel groups on the
+    x axis, so the batch alone bounds ``warp_features_fwd``, and batch and
+    rows ``warp_tile_features_fwd``; the other kernels keep their bounds."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.ops import warp_kernels as wk
+
+    assert set(wk._GRID) == {*cuda_lib._SIGNATURES["warp"], *cuda_lib._SIGNATURES["warp_tile"]}
+    wk._check_grid("warp_features_fwd", (65535, 10**6, 70000, 2))
+    wk._check_grid("warp_tile_features_fwd", (65535, 10**6, 65535, 2))
+    for fn, shape in [
+        ("warp_features_fwd", (65536, 1, 1, 1)),
+        ("warp_tile_features_fwd", (1, 1, 65536, 1)),
+        ("warp_tile_features_fwd", (65536, 1, 1, 1)),
+        ("warp_image_fwd", (1, 3, 65536, 1)),
+        ("warp_features_bwd", (1, 4 * 65535 + 1, 1, 1)),
+        ("warp_tile_image_fwd", (2, 16 * 32768, 1, 1)),
+        ("warp_tile_features_bwd", (1, 8 * 65535 + 1, 1, 1)),
+    ]:
+        with pytest.raises(ValueError, match="exceeds the launch grid"):
+            wk._check_grid(fn, shape)
+
+
+def test_ptxas_usage_picks_one_kernels_lines():
+    """``ptxas_usage`` keeps the spill and register lines of the entry
+    functions whose name holds the kernel's, and nothing of the others."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115warp_fwd_kernelEPKf' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_115warp_fwd_kernelEPKf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 24 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122feat_gather_fwd_kernelEPKf' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_122feat_gather_fwd_kernelEPKf",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers",
+    ])
+    assert cuda_lib.ptxas_usage(log, "feat_gather_fwd_kernel") == [
+        "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "Used 32 registers, used 0 barriers",
+    ]
+    assert cuda_lib.ptxas_usage(log, "feat_row_fwd_kernel") == []
+
+
 # ------------------------------------------------------------------ isolation
 
 
