@@ -10,7 +10,7 @@ Phases, each of which raises on failure (nothing is caught):
    precision, fp32.
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report, and
-   apart the registers and spills of the two feature-warp forwards.
+   apart the registers and spills of the two tiled forwards.
 3. Each of the ten kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
    windows: the five forward kernels, and the five backward kernels
@@ -18,13 +18,17 @@ Phases, each of which raises on failure (nothing is caught):
    which must also give bit-identical outputs in two runs. The tiled
    one-hot warps (``csrc/warp_tile.cu``) are held against the one-hot
    products and against the clamped-window kernels, which compute the
-   same function. Prints its
+   same function (the image warps bit for bit). Prints each kernel's
    time (median of CUDA-event-timed replays of a CUDA graph), its bound
    (bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever
-   is larger), the plain version's time and, for the warps, the time of
-   ``F.grid_sample`` (forward) or of its backward on the same sampling,
-   as a yardstick that the port never calls, and per kernel its time
-   summed over its shapes as a ratio to that yardstick's sum.
+   is larger), the plain version's time and, for the warps, a yardstick
+   that the port never calls, timed from a CUDA graph too:
+   ``F.grid_sample`` (forward) or its backward op
+   ``aten.grid_sampler_2d_backward`` on the same sampling. A warp backward
+   is timed twice, with both gradients and with the one the main path
+   asks for, each beside the op with the same output mask. Per kernel it
+   prints its time summed over its shapes as a ratio to that yardstick's
+   sum, for a backward kernel also the main path's variant's.
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -207,6 +211,22 @@ def grid_for(shift: torch.Tensor, sign: float) -> torch.Tensor:
     return torch.stack([gx, gy], dim=-1).contiguous()
 
 
+PADDING_MODES = {"zeros": 0, "border": 1}  # aten's codes of grid_sample's padding_mode
+
+
+def grid_sample_bwd(g, src, grid, padding: str, mask):
+    """The backward of ``F.grid_sample(src, grid, "bilinear", padding,
+    align_corners=True)`` for the output gradient ``g``, as the one op that
+    autograd runs for it: ``(dsrc, dgrid)``, where ``mask`` says which are
+    asked for. Unlike ``torch.autograd.grad``, a CUDA graph captures it
+    like any kernel. A gradient that is not asked for is None; the op
+    computes the grid's all the same, on the CPU and on the card."""
+    dsrc, dgrid = torch.ops.aten.grid_sampler_2d_backward(
+        g, src, grid, 0, PADDING_MODES[padding], True, list(mask)
+    )
+    return (dsrc if mask[0] else None), (dgrid if mask[1] else None)
+
+
 # ------------------------------------------------------------------ phase 3
 def assert_grad_close(got, want, what):
     scale = float(want.abs().max())
@@ -281,9 +301,9 @@ def check_kernels(ops):
     ))
     rows["warp_image_bwd"].append(check_warp_bwd(
         "warp_image_bwd", img, disp, 70, grid, "border",
-        lambda s, o, g, **kw: ops.warp_image_bwd_cuda(s, o, g, MAX_DISP, **kw),
+        lambda s, o, g, need=(True, True): ops.warp_image_bwd_cuda(s, o, g, MAX_DISP, *need),
         lambda s, o: ops.warp_image_clamped(s, o, MAX_DISP),
-        main_path=dict(need_img=False),  # the right image takes no gradient
+        main_path=(False, True),  # ddisp alone: the right image takes no gradient
     ))
 
     # the tiled one-hot image warp: against its plain version (the one-hot
@@ -293,7 +313,8 @@ def check_kernels(ops):
     want = ops.warp_image_onehot(img, disp, MAX_DISP, align=128)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ONEHOT_TOL)
-    torch.testing.assert_close(got, ops.warp_image_cuda(img, disp, MAX_DISP), **WARP_TOL)
+    if not torch.equal(got, ops.warp_image_cuda(img, disp, MAX_DISP)):
+        raise AssertionError("warp_tile_image_fwd: differs from warp_image_fwd, a gather of the same taps")
     rows["warp_tile_image_fwd"].append(dict(
         shape=list(img.shape), err=float((got - want).abs().max()), tol=ONEHOT_TOL,
         lib_err=float((lib() - want).abs().max()),
@@ -305,9 +326,9 @@ def check_kernels(ops):
     ))
     rows["warp_tile_image_bwd"].append(check_warp_bwd(
         "warp_tile_image_bwd", img, disp, 70, grid, "border",
-        lambda s, o, g, **kw: ops.warp_image_mxu_bwd(s, o, g, MAX_DISP, **kw),
+        lambda s, o, g, need=(True, True): ops.warp_image_mxu_bwd(s, o, g, MAX_DISP, *need),
         lambda s, o: ops.warp_image_onehot(s, o, MAX_DISP, align=128),
-        main_path=dict(need_img=False),
+        main_path=(False, True),
         same_as=lambda s, o, g: ops.warp_image_bwd_cuda(s, o, g, MAX_DISP),
     ))
 
@@ -334,9 +355,10 @@ def check_kernels(ops):
         ))
         rows["warp_features_bwd"].append(check_warp_bwd(
             "warp_features_bwd", feats, dx, 80 + i, grid, "zeros",
-            lambda s, o, g, neg=neg, **kw: ops.warp_features_bwd_cuda(s, o, g, neg, MAX_POS, **kw),
+            lambda s, o, g, need=(True, True), neg=neg: ops.warp_features_bwd_cuda(
+                s, o, g, neg, MAX_POS, *need),
             lambda s, o, neg=neg: ops.warp_features_clamped(s, o, neg, MAX_POS),
-            main_path=dict(need_dx=False),  # with the bulkhead the offset takes no gradient
+            main_path=(True, False),  # dfeats alone: with the bulkhead the offset takes no gradient
         ))
 
         got = ops.warp_features_mxu(feats, dx, neg, MAX_POS)
@@ -355,9 +377,10 @@ def check_kernels(ops):
         ))
         rows["warp_tile_features_bwd"].append(check_warp_bwd(
             "warp_tile_features_bwd", feats, dx, 80 + i, grid, "zeros",
-            lambda s, o, g, neg=neg, **kw: ops.warp_features_mxu_bwd(s, o, g, neg, MAX_POS, **kw),
+            lambda s, o, g, need=(True, True), neg=neg: ops.warp_features_mxu_bwd(
+                s, o, g, neg, MAX_POS, *need),
             lambda s, o, neg=neg: ops.warp_features_onehot(s, o, neg, MAX_POS, align=128),
-            main_path=dict(need_dx=False),
+            main_path=(True, False),
             same_as=lambda s, o, g, neg=neg: ops.warp_features_bwd_cuda(s, o, g, neg, MAX_POS),
         ))
 
@@ -368,6 +391,10 @@ def check_kernels(ops):
     for name, rs in rows.items():  # summed over the main-path shapes
         ms, lib_ms = sum(r["ms"] for r in rs), [r["library_ms"] for r in rs]
         ratio = "no library call" if None in lib_ms else f"{ms / sum(lib_ms):.3f} of the library's {sum(lib_ms):.5f} ms"
+        if "main_path_ms" in rs[0]:
+            mp, mp_lib = sum(r["main_path_ms"] for r in rs), sum(r["main_path_library_ms"] for r in rs)
+            ratio += (f"; the main path's variant {rs[0]['main_path_mask']} {mp:.5f} ms, "
+                      f"{mp / mp_lib:.3f} of the library's {mp_lib:.5f} ms")
         log(f"kernel {name}: {ms:.5f} ms over {len(rs)} shape(s), {ratio}")
     return rows
 
@@ -376,9 +403,9 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, main_
     """One warp backward kernel at one shape: both gradients against
     autograd through the plain version (and against ``same_as``, another
     kernel of the same function, where given), two runs bit-identical,
-    times."""
-    import torch.nn.functional as F
-
+    times. ``kernel(src, off, g, need)`` takes the pair (dsrc, doff) of
+    gradients asked for; ``main_path`` is the pair the main path asks for,
+    and the yardstick ``grid_sample_bwd`` is timed with the same mask."""
     _, c, h, w = src.shape
     g = seeded(tuple(src.shape), seed)
     got = kernel(src, off, g)
@@ -394,26 +421,25 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, main_
     if same_as is not None:
         for a, b, nm in zip(got, same_as(src, off, g), ("dsrc", "doff")):
             assert_grad_close(a, b, f"{name} {tuple(src.shape)} {nm} against the other kernel")
-    # the variant the main path runs most: one gradient only
-    part = kernel(src, off, g, **main_path)
-    for a, b in zip(part, got):
-        if a is not None and not torch.equal(a, b):
+    # the variant the main path runs: one gradient only
+    part = kernel(src, off, g, main_path)
+    for a, b, asked in zip(part, got, main_path):
+        if (a is not None) != asked or (a is not None and not torch.equal(a, b)):
             raise AssertionError(f"{name}: one gradient alone differs from both together")
-    # yardstick: grid_sample's backward (source and grid) on the same sampling
-    grid_g = grid.clone().requires_grad_()
-    lib_out = F.grid_sample(src_g, grid_g, "bilinear", padding, align_corners=True)
-    lib = lambda: torch.autograd.grad(lib_out, (src_g, grid_g), g, retain_graph=True)  # noqa: E731
+    # whether the yardstick's op skips the grid's gradient that is not asked for
+    unasked_grid = torch.ops.aten.grid_sampler_2d_backward(
+        g, src, grid, 0, PADDING_MODES[padding], True, [True, False])[1] is not None
     n = h * w
     return dict(
         shape=list(src.shape), err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
         ms=time_ms(lambda: kernel(src, off, g)),
         call_ms=call_ms(lambda: kernel(src, off, g)),
-        main_path_ms=time_ms(lambda: kernel(src, off, g, **main_path)),
-        main_path_variant=main_path,
-        # autograd's backward alone (its graph is built once beforehand),
-        # timed eagerly: time_ms's CUDA graph does not capture autograd
+        main_path_ms=time_ms(lambda: kernel(src, off, g, main_path)),
+        main_path_mask=list(main_path),  # (dsrc, doff) asked for
         plain_ms=call_ms(plain, 50),
-        library_ms=call_ms(lib, 50),
+        library_ms=time_ms(lambda: grid_sample_bwd(g, src, grid, padding, (True, True))),
+        main_path_library_ms=time_ms(lambda: grid_sample_bwd(g, src, grid, padding, main_path)),
+        library_grid_grad_unasked=unasked_grid,
         # reads source, offset, g once, writes both gradients; per pixel and
         # channel 4 flops in the offset gradient, 4 in the source gradient
         bound=bound(4.0 * n * (3 * c + 2), 8.0 * c * n),
@@ -1097,7 +1123,7 @@ def profile_frames(session, frames, out: Path, tag: str):
 
 
 _GROUPS = (  # first match wins
-    ("the port's kernels", r"corr_fwd|corr_bwd|warp_fwd_kernel|feat_gather_fwd|warp_bwd_|tile_fwd_kernel|feat_row_fwd|tile_bwd_"),
+    ("the port's kernels", r"corr_fwd|corr_bwd|warp_fwd_kernel|feat_gather_fwd|warp_bwd_|tile_image_fwd|tile_feat_fwd|tile_bwd_"),
     ("cuDNN backward (dgrad, wgrad)", r"dgrad|wgrad"),
     ("cuDNN/cuBLAS convolutions and matmuls, incl. FFT and layout transforms",
      r"fprop|convolve|region_transform|fft|DSE::|gemm|gemv|cudnn|flip_filter"),
@@ -1178,9 +1204,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    for name, kernel in (("warp", "feat_gather_fwd_kernel"), ("warp_tile", "feat_row_fwd_kernel")):
-        usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get(name, ""), kernel) or ["cached build, no report"]
-        log(f"ptxas {kernel} (redesigned feature-warp forward): {'; '.join(usage)}")
+    for kernel in ("tile_image_fwd_kernel", "tile_feat_fwd_kernel"):
+        usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get("warp_tile", ""), kernel) or ["cached build, no report"]
+        log(f"ptxas {kernel} (redesigned tiled forward): {'; '.join(usage)}")
 
     if args.fused_only:
         run_fused(params_from_jax(seeded_jax_params(0)), args.profile)
@@ -1204,7 +1230,8 @@ def main() -> int:
     kernels = []
     for name, rs in rows.items():
         lib_ms = [r["library_ms"] for r in rs]
-        shape_keys = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "main_path_ms")
+        shape_keys = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "main_path_ms",
+                      "main_path_library_ms")
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1222,6 +1249,9 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rs) else "operations",
             "library_ms": None if None in lib_ms else sum(lib_ms),
+            # backward kernels: the gradients the main path asks for alone
+            **({k: sum(r[k] for r in rs) for k in ("main_path_ms", "main_path_library_ms")}
+               if "main_path_ms" in rs[0] else {}),
             "shapes": [{k: r[k] for k in shape_keys if k in r} for r in rs],
         })
     idle = [k["name"] for k in kernels if not k["launches"] > 0]

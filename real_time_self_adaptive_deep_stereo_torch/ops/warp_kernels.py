@@ -78,15 +78,15 @@ __all__ = [
 # The launch grid's y and z axes take at most 65535 blocks each. Per entry
 # point: whether a grid axis runs over the rows H, and the channels per
 # block where an axis runs over B times the channel chunks (csrc/warp.cu:
-# kChunk; csrc/warp_tile.cu: kFwdChunk, kBwdChunk), None where it runs over
-# B alone. The feature forwards put their channel groups on the x axis.
+# kChunk; csrc/warp_tile.cu: kBwdChunk), None where it runs over B alone.
+# The feature forwards put their channel groups on the x axis.
 _GRID = {
     "warp_image_fwd": (True, None),
     "warp_features_fwd": (False, None),
     "warp_image_bwd": (True, 4),
     "warp_features_bwd": (True, 4),
-    "warp_tile_image_fwd": (True, 16),
-    "warp_tile_features_fwd": (True, None),
+    "warp_tile_image_fwd": (True, None),
+    "warp_tile_features_fwd": (False, None),
     "warp_tile_image_bwd": (True, 8),
     "warp_tile_features_bwd": (True, 8),
 }

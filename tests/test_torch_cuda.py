@@ -15,7 +15,8 @@ they add in a fixed order, the plain versions (autograd, whose scatter
 uses atomics on the card) in another. Two runs of a backward kernel on
 the same input must agree bit for bit. The tiled one-hot warps are held
 against the one-hot products (2e-6 absolute: the product may fuse one
-rounding) and against the clamped-window kernels (1e-6), and one fused
+rounding) and against the clamped-window kernels (1e-6; the image warps
+bit for bit, both forwards being gathers of the same taps), and one fused
 MAD session replayed from CUDA graphs against the same session run
 eagerly.
 """
@@ -262,7 +263,7 @@ def test_tiled_image_warp_matches_plain_and_clamped_kernels(dev, shape, max_disp
     padded row (its plain version) and against the clamped-window kernels,
     which compute the same function: widths that are no multiple of 128,
     one that is, a row narrower than the window, 17 channels across the
-    kernel's chunk of 16, a window wider than the row; offsets beyond both
+    offset gradient's chunk of 16, a window wider than the row; offsets beyond both
     bounds, on them, and exactly 0."""
     img = _normal(shape, 24, dev)
     disp = _uniform((shape[0], 1, *shape[2:]), 25, dev, -20.0, max_disp + 40.0)
@@ -280,7 +281,8 @@ def test_tiled_image_warp_matches_plain_and_clamped_kernels(dev, shape, max_disp
     assert cuda_lib.LAUNCHES["warp_tile_image_bwd"] == before["warp_tile_image_bwd"] + 2
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, tops.warp_image_onehot(img, disp, max_disp, align=128), rtol=0, atol=2e-6)
-    torch.testing.assert_close(out, tops.warp_image_cuda(img, disp, max_disp), rtol=0, atol=1e-6)
+    # a gather of the same taps as warp_image_fwd: the same bits
+    assert torch.equal(out, tops.warp_image_cuda(img, disp, max_disp))
     want_img, want_disp = tops.warp_image_onehot_bwd(img, disp, g, max_disp)
     _close(dimg, want_img, "dimg")
     _close(ddisp, want_disp, "ddisp")
@@ -304,9 +306,8 @@ def test_tiled_image_warp_matches_plain_and_clamped_kernels(dev, shape, max_disp
     [
         ((2, 6, 4, 140), 20), ((1, 17, 3, 9), 20), ((1, 9, 2, 256), 12), ((1, 128, 10, 38), 6),
         ((1, 32, 80, 304), 48), *_FEATURE_EDGES,
-        # a whole row past the default 48 KB of shared memory; rows the
-        # forward stages in two segments, one with a clip window near the
-        # largest a 128-column tile took
+        # wide rows: 1500 and 7000 columns, one with a clip window of 3400
+        # columns (the forward is a gather, with no row-length limit)
         ((1, 9, 2, 1500), 20), ((1, 9, 2, 7000), 20), ((1, 16, 2, 7000), 3400),
     ],
 )

@@ -6,6 +6,7 @@ Inputs are made with numpy from a seed and handed to both packages; the
 port's op-level functions take NCHW, so the tests transpose."""
 
 import ctypes
+import importlib.util
 import pathlib
 import re
 import subprocess
@@ -253,21 +254,28 @@ def test_kernel_c_signatures_match_ctypes():
 def test_warp_grid_checks_follow_the_kernels_grids():
     """The wrappers' check of the launch grid, whose y and z axes hold at
     most 65535 blocks: the feature forwards put their channel groups on the
-    x axis, so the batch alone bounds ``warp_features_fwd``, and batch and
-    rows ``warp_tile_features_fwd``; the other kernels keep their bounds."""
+    x axis, so the batch alone bounds them; the image forwards walk the
+    channels in a thread, so rows and batch bound them; the backward kernels
+    keep their bounds. Each tiled forward has its clamped-window
+    counterpart's grid, since it is a gather of the same form."""
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
     from real_time_self_adaptive_deep_stereo_torch.ops import warp_kernels as wk
 
     assert set(wk._GRID) == {*cuda_lib._SIGNATURES["warp"], *cuda_lib._SIGNATURES["warp_tile"]}
-    wk._check_grid("warp_features_fwd", (65535, 10**6, 70000, 2))
-    wk._check_grid("warp_tile_features_fwd", (65535, 10**6, 65535, 2))
+    assert wk._GRID["warp_tile_image_fwd"] == wk._GRID["warp_image_fwd"] == (True, None)
+    assert wk._GRID["warp_tile_features_fwd"] == wk._GRID["warp_features_fwd"] == (False, None)
+    for fn in ("warp_features_fwd", "warp_tile_features_fwd"):
+        wk._check_grid(fn, (65535, 10**6, 70000, 2))
+    for fn in ("warp_image_fwd", "warp_tile_image_fwd"):
+        wk._check_grid(fn, (65535, 10**6, 65535, 2))
     for fn, shape in [
         ("warp_features_fwd", (65536, 1, 1, 1)),
-        ("warp_tile_features_fwd", (1, 1, 65536, 1)),
         ("warp_tile_features_fwd", (65536, 1, 1, 1)),
         ("warp_image_fwd", (1, 3, 65536, 1)),
+        ("warp_tile_image_fwd", (1, 3, 65536, 1)),
+        ("warp_tile_image_fwd", (65536, 3, 1, 1)),
         ("warp_features_bwd", (1, 4 * 65535 + 1, 1, 1)),
-        ("warp_tile_image_fwd", (2, 16 * 32768, 1, 1)),
+        ("warp_tile_image_bwd", (1, 3, 65536, 1)),
         ("warp_tile_features_bwd", (1, 8 * 65535 + 1, 1, 1)),
     ]:
         with pytest.raises(ValueError, match="exceeds the launch grid"):
@@ -293,7 +301,49 @@ def test_ptxas_usage_picks_one_kernels_lines():
         "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
         "Used 32 registers, used 0 barriers",
     ]
-    assert cuda_lib.ptxas_usage(log, "feat_row_fwd_kernel") == []
+    assert cuda_lib.ptxas_usage(log, "tile_feat_fwd_kernel") == []
+
+
+# ------------------------------------------------------ chip_smoke.py helpers
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", PORT_DIR.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 6, 40), (1, 5, 4, 37)])
+@pytest.mark.parametrize(
+    "padding,mask",
+    [("border", (False, True)), ("zeros", (True, False))],
+    ids=["image-ddisp-alone", "features-dfeats-alone"],
+)
+def test_grid_sample_yardstick_is_autograds_backward(shape, padding, mask):
+    """``chip_smoke.grid_sample_bwd``, the backward yardstick that a CUDA
+    graph can capture, gives exactly what autograd gives through
+    ``F.grid_sample`` on the same ``grid_for`` grid, for the gradient the
+    main path asks for, and None for the other."""
+    import torch.nn.functional as F
+
+    cs = _chip_smoke()
+    r = _rng(13)
+    src = torch.from_numpy(r.normal(size=shape).astype(np.float32))
+    g = torch.from_numpy(r.normal(size=shape).astype(np.float32))
+    if padding == "border":  # the image warp samples at x - clip(disp, 0, 16)
+        shift, sign = r.random((1, 1, *shape[2:])) * 16, -1.0
+    else:  # the feature warp at x + clip(dx, -6, 4)
+        shift, sign = r.random((1, 1, *shape[2:])) * 10 - 6, 1.0
+    grid = cs.grid_for(torch.from_numpy(shift.astype(np.float32)), sign)
+    got = cs.grid_sample_bwd(g, src, grid, padding, mask)
+    s, gr = src.clone().requires_grad_(), grid.clone().requires_grad_()
+    want = torch.autograd.grad(F.grid_sample(s, gr, "bilinear", padding, align_corners=True), (s, gr), g)
+    for a, b, asked in zip(got, want, mask):
+        if asked:
+            assert torch.equal(a, b)
+        else:
+            assert a is None
 
 
 # ------------------------------------------------------------------ isolation
