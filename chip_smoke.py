@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -11,11 +11,16 @@ Phases, each of which raises on failure (nothing is caught):
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report, and
    apart the registers and spills of the two tiled forwards.
-3. Each of the ten kernels at every shape the main paths give it, against
+3. Each of the twelve kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
-   windows: the five forward kernels, and the five backward kernels
+   windows: the six forward kernels, and the six backward kernels
    (``dx``, ``dy``; ``dimg``, ``ddisp``; ``dfeats``, ``ddx``), each of
-   which must also give bit-identical outputs in two runs. The tiled
+   which must also give bit-identical outputs in two runs. The wide
+   correlation kernels (any radius) run at DispNet-Corr1D's call,
+   [1,128,80,304] at radius 40, and are also checked where W < 2R+1
+   ([1,128,5,19]) and at a width that is no multiple of their 64-column
+   tile; for the record, the wide forward is also timed at MADNet's five
+   radius-2 shapes beside ``corr_fwd``. The tiled
    one-hot warps (``csrc/warp_tile.cu``) are held against the one-hot
    products and against the clamped-window kernels, which compute the
    same function (the image warps bit for bit). Prints each kernel's
@@ -70,9 +75,22 @@ Phases, each of which raises on failure (nothing is caught):
    session, NONE with metrics (1 + 4) and NONE without through ``serve``
    (0 + 4; each served disparity is its own frame's), and the reset on the
    device under a threshold below every loss.
+7. DispNet-Corr1D at full width (every width of the JAX model) at
+   320x1216, seeded weights in the JAX layout carried over with
+   ``params_from_jax``: the host NONE session, MAD as ``cli/adapt.py``
+   runs it (momentum, lr 1e-4, ``block_config/dispnet_full_6.json``,
+   SEQUENTIAL, no bulkhead: DispNet has none), FULL, the fused MAD session
+   (``warp_mode='mxu'``) against the host session, and fused NONE serving.
+   Launch counts are asserted frame by frame: one ``corr_fwd_wide`` a
+   frame, one ``corr_bwd_wide`` for FULL and for MAD blocks 3 and 4 (conv2
+   and conv1, before the correlation) and none for the other blocks, and
+   the loss's image-warp kernels as in MADNet. One frame of NONE, of MAD
+   (blocks 3 and 5) and of FULL also runs with the plain modes on the card:
+   the disparities before and after the step agree within 1e-4 of the
+   largest, a step's gradient within 5e-4 of its largest entry.
 
 Prints the card line, the ms/frame of the host and the fused sessions by
-mode, a JSON line of the ten kernels, and as the last line
+mode, a JSON line of the twelve kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 with no result, when no CUDA device is available or the port is missing.
 """
@@ -120,14 +138,24 @@ BWD_RTOL = 1e-5
 # one step, kernels vs plain modes: the gradient and the parameter change,
 # each of its largest entry
 STEP_RTOL = 5e-4
+# DispNet-Corr1D: its correlation's radius and the shape of that call
+# (conv2's features at 1/4 resolution); two shapes that only check the
+# wide kernels: W < 2R+1, and a width that is no multiple of the tile
+DN_RADIUS = 40
+DN_CORR_SHAPE = (1, 128, H // 4, W // 4)
+WIDE_CHECK_SHAPES = [(1, 128, 5, 19), (1, 128, 12, 150)]
+DN_BLOCK_CONFIG = str(Path(__file__).resolve().parent / "block_config" / "dispnet_full_6.json")
 
 _JAX_OPS = "real_time_self_adaptive_deep_stereo_tpu/ops"
 REPLACES = {
     "corr_fwd": f"{_JAX_OPS}/correlation.py:53",
+    # the same Pallas kernel at any radius (DispNet's 40)
+    "corr_fwd_wide": f"{_JAX_OPS}/correlation.py:53",
     "warp_image_fwd": f"{_JAX_OPS}/warp_pallas.py:69",
     "warp_features_fwd": f"{_JAX_OPS}/warp_pallas.py:247",
     # no Pallas kernel: the plain-jnp backward of the custom_vjp around _corr_fwd_kernel
     "corr_bwd": f"{_JAX_OPS}/correlation.py:117",
+    "corr_bwd_wide": f"{_JAX_OPS}/correlation.py:117",
     "warp_image_bwd": f"{_JAX_OPS}/warp_pallas.py:99",
     "warp_features_bwd": f"{_JAX_OPS}/warp_pallas.py:271",
     # one Pallas kernel each way serves both samplings; the port gives each its entry point
@@ -264,7 +292,10 @@ def check_kernels(ops):
             plain_ms=time_ms(lambda: ops.correlation_torch(x, y, RADIUS)),
             library_ms=None,
             bound=bound(4.0 * n * (2 * c + k), 2.0 * n * c * k),
+            # for the record: the wide kernel forced at this radius
+            wide_ms=time_ms(lambda: ops.correlation_cuda(x, y, RADIUS, wide=True)),
         ))
+        torch.testing.assert_close(ops.correlation_cuda(x, y, RADIUS, wide=True), want, **CORR_TOL)
 
         g = seeded((1, k, *shape[2:]), 60 + i)
         got = ops.correlation_bwd_cuda(x, y, g, RADIUS)
@@ -282,6 +313,8 @@ def check_kernels(ops):
             # reads x, y, g once, writes dx, dy; 3 flops per (element, shift) and output
             bound=bound(4.0 * n * (4 * c + k), 6.0 * n * c * k),
         ))
+
+    check_wide_kernels(ops, rows)
 
     img = seeded((1, 3, H, W), 30)
     disp = seeded((1, 1, H, W), 31, -20.0, MAX_DISP + 40.0)  # crosses 0 and max_disp
@@ -397,6 +430,52 @@ def check_kernels(ops):
                       f"{mp / mp_lib:.3f} of the library's {mp_lib:.5f} ms")
         log(f"kernel {name}: {ms:.5f} ms over {len(rs)} shape(s), {ratio}")
     return rows
+
+
+def check_wide_kernels(ops, rows):
+    """``corr_fwd_wide`` and ``corr_bwd_wide`` at DispNet-Corr1D's call
+    (timed, into ``rows``) and at the shapes that only check them: forward
+    within CORR_TOL, backward within BWD_RTOL of each gradient's largest
+    entry and bit-identical in two runs."""
+    k = 2 * DN_RADIUS + 1
+    for i, shape in enumerate([DN_CORR_SHAPE, *WIDE_CHECK_SHAPES]):
+        x, y = seeded(shape, 110 + i), seeded(shape, 120 + i)
+        g = seeded((shape[0], k, *shape[2:]), 130 + i)
+        got, want = ops.correlation_cuda(x, y, DN_RADIUS), ops.correlation_torch(x, y, DN_RADIUS)
+        grads = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
+        again = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
+        want_grads = ops.correlation_torch_bwd(x, y, g, DN_RADIUS)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **CORR_TOL)
+        errs = [assert_grad_close(a, b, f"corr_bwd_wide {shape} {nm}")
+                for a, b, nm in zip(grads, want_grads, ("dx", "dy"))]
+        assert_same_bits(grads, again, f"corr_bwd_wide {shape}")
+        fwd = dict(shape=list(shape), radius=DN_RADIUS, err=float((got - want).abs().max()), tol=CORR_TOL)
+        bwd = dict(shape=list(shape), radius=DN_RADIUS, err=max(errs), tol=f"{BWD_RTOL} of the largest entry")
+        if i:
+            log(f"kernel corr_fwd_wide check {fwd}")
+            log(f"kernel corr_bwd_wide check {bwd}")
+            continue
+        n = shape[2] * shape[3]
+        c = shape[1]
+        rows["corr_fwd_wide"].append(dict(
+            fwd,
+            ms=time_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+            call_ms=call_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+            plain_ms=time_ms(lambda: ops.correlation_torch(x, y, DN_RADIUS), inner=2),
+            library_ms=None,
+            bound=bound(4.0 * n * (2 * c + k), 2.0 * n * c * k),
+        ))
+        rows["corr_bwd_wide"].append(dict(
+            bwd,
+            ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
+            call_ms=call_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
+            plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, DN_RADIUS), inner=2),
+            library_ms=None,
+            # reads x, y, g once, writes dx, dy; a multiply-add per
+            # (element, shift) for each of the two gradients
+            bound=bound(4.0 * n * (4 * c + k), 4.0 * n * c * k),
+        ))
 
 
 def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, main_path, same_as=None):
@@ -518,12 +597,13 @@ def make_smooth_frame(seed: int, d: int = 12):
     return {"left": base[:, :, :W].copy(), "right": base[:, :, d:].copy(), "target": target}
 
 
-def make_session(state, mode, plain=False, warp="auto", fused=False, **session_kw):
+def make_session(state, mode, plain=False, warp="auto", fused=False, model_name="MADNet", **session_kw):
     """A session on the card from the weights ``state``, built through the
-    entry points a user calls. MAD gets the bulkhead, as ``cli/adapt.py``
-    builds it. ``plain`` swaps the kernels for their plain versions;
-    ``warp`` is the warp mode of model and loss; ``fused`` gives the
-    device-resident session instead of the host one."""
+    entry points a user calls. MADNet's MAD gets the bulkhead, as
+    ``cli/adapt.py`` builds it; DispNet takes ``dispnet_full_6.json``, as
+    the JAX package's DispNet MAD runs. ``plain`` swaps the kernels for
+    their plain versions; ``warp`` is the warp mode of model and loss;
+    ``fused`` gives the device-resident session instead of the host one."""
     from real_time_self_adaptive_deep_stereo_torch.adapt import (
         AdaptationEngine,
         FusedOnlineSession,
@@ -536,9 +616,14 @@ def make_session(state, mode, plain=False, warp="auto", fused=False, **session_k
 
     warp = "clamped" if plain else warp
     modes = dict(corr_mode="torch") if plain else {}
-    model = get_stereo_net("MADNet", bulkhead=(mode == "MAD"), warp_mode=warp, **modes)  # device cuda
+    if model_name == "MADNet":
+        model = get_stereo_net("MADNet", bulkhead=(mode == "MAD"), warp_mode=warp, **modes)  # device cuda
+        config = default_block_config_path("MADNet")
+    else:
+        model = get_stereo_net(model_name, **modes)
+        config = DN_BLOCK_CONFIG
     model.load_state_dict(state)
-    blocks = make_blocks(load_block_config(default_block_config_path("MADNet")), model)
+    blocks = make_blocks(load_block_config(config), model)
     engine = AdaptationEngine(model, blocks, lr=LR, optimizer="momentum", warp_mode=warp)
     if fused:
         return FusedOnlineSession(engine, mode=mode, max_steps=64, **session_kw)
@@ -1105,6 +1190,197 @@ def run_fused(state, profile_dir):
     return launches, frame_ms
 
 
+# ------------------------------------------------------------------ phase 7
+N_FRAMES_DN = 12  # two SEQUENTIAL rounds of the six blocks
+DN_CORR_BLOCKS = (3, 4)  # conv2 and conv1: the blocks before the correlation
+DN_DISP = 20.0  # px that each tamed prediction layer predicts
+
+
+def seeded_dispnet_params(seed: int):
+    """DispNet-Corr1D weights in the JAX layout (``w`` HWIO, transposed
+    kernels ``[kh, kw, out, in]``), Xavier-uniform from a numpy seed, with
+    small non-zero biases. Each prediction layer (the five blocks'
+    ``predict`` and the final ``prediction``) is tamed as MADNet's last
+    estimator convs are: weights x0.02 and a bias that predicts DN_DISP px
+    once ``_make_disp`` has scaled it by the padded width over its own. With
+    Xavier weights alone the relu there zeroes a prediction everywhere and
+    its block gets no gradient."""
+    from real_time_self_adaptive_deep_stereo_torch.models import DispNet
+
+    shapes = {k: tuple(v.shape) for k, v in DispNet(device="cpu").state_dict().items()}
+    scale = {"prediction": 2, **{f"up{i}": 2 ** (i + 1) for i in range(1, 6)}}
+    r = np.random.default_rng(seed)
+    tree = {}
+    for key, shape in sorted(shapes.items()):
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        tamed = path[-1] in ("predict", "prediction")
+        if leaf == "weight":  # OIHW or [in, out, kh, kw]: the JAX layout reverses the axes
+            s0, s1, kh, kw = shape
+            lim = math.sqrt(6.0 / (kh * kw * (s0 + s1)))
+            node["w"] = (r.uniform(-lim, lim, (kh, kw, s1, s0)) * (0.02 if tamed else 1.0)).astype(np.float32)
+        else:
+            bias = 0.01 * r.standard_normal(shape) + (DN_DISP / scale[path[0]] if tamed else 0.0)
+            node["b"] = bias.astype(np.float32)
+    return tree
+
+
+def dn_launches(mode: str, k: int = 0, tiled: bool = False):
+    """What one DispNet frame must launch: the wide correlation forward,
+    and the loss's image warp (the tiled kernels on the fused route)."""
+    img_fwd, img_bwd = ("warp_tile_image_fwd", "warp_tile_image_bwd") if tiled else (
+        "warp_image_fwd", "warp_image_bwd")
+    if mode == "NONE":
+        return {"corr_fwd_wide": 1, img_fwd: 1}
+    if mode == "FULL":
+        return {"corr_fwd_wide": 1, "corr_bwd_wide": 1, img_fwd: 1, img_bwd: 1}
+    # MAD: block loss + full loss; a gradient back through the correlation
+    # for the blocks before it only
+    return {"corr_fwd_wide": 1, img_fwd: 2, img_bwd: 1, **({"corr_bwd_wide": 1} if k in DN_CORR_BLOCKS else {})}
+
+
+def check_dispnet_against_plain(state):
+    """One frame of NONE, MAD (block 3, through the correlation, and block
+    5) and FULL with the kernels and with the plain modes on the card: the
+    disparities of the frame's forward and of a forward after the step
+    within MODEL_RTOL of the largest, the gradient within STEP_RTOL of its
+    largest entry; the plain sessions launch no kernel."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    frame = make_smooth_frame(8)
+    images = [torch.from_numpy(frame[k]).cuda() for k in ("left", "right")]
+    for mode, kw in (("NONE", {}), ("MAD", dict(sample_mode="FIXED", fixed_id=3)),
+                     ("MAD", dict(sample_mode="FIXED", fixed_id=5)), ("FULL", {})):
+        what = f"DispNet {mode}{' block %d' % kw['fixed_id'] if kw else ''}"
+        runs = []
+        for plain in (False, True):
+            session = make_session(state, mode, plain=plain, model_name="Dispnet", ssim_th=1e9, **kw)
+            cuda_lib.reset_launches()
+            disp = session.step(frame)["disp"]
+            launched = {n: c for n, c in cuda_lib.LAUNCHES.items() if c}
+            want = {} if plain else dn_launches(mode, kw.get("fixed_id", 0))
+            if launched != want:
+                raise AssertionError(f"{what} {'plain' if plain else 'kernels'}: launches {launched}, want {want}")
+            with torch.no_grad():
+                after = session.engine.model(*images)["disparities"]
+            acc = session.engine.opt["acc"] if mode != "NONE" else {}
+            runs.append(([disp, *after], acc))
+        (fast, fast_acc), (plain_d, plain_acc) = runs
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(fast, plain_d)):
+            scale = max(float(b.abs().max()), 1e-6)
+            worst = max(worst, float((a - b).abs().max()) / scale)
+            torch.testing.assert_close(a, b, rtol=MODEL_RTOL, atol=MODEL_RTOL * scale,
+                                       msg=lambda m, i=i: f"{what} disparity {i}: {m}")
+        msg = f"{what}, kernels vs plain modes: disparities within {worst:.3g} of the largest"
+        if fast_acc:
+            g_scale = max(float(v.abs().max()) for v in plain_acc.values())
+            g_err = max(float((fast_acc[k] - plain_acc[k]).abs().max()) for k in plain_acc)
+            msg += f"; gradient within {g_err / g_scale:.3g} of its largest entry {g_scale:.3g}"
+            if not (g_scale > 0 and g_err <= STEP_RTOL * g_scale):
+                raise AssertionError(msg)
+        log(msg)
+
+
+def run_dispnet(profile_dir):
+    """Phase 7: DispNet-Corr1D's sessions at 320x1216. Returns (launches
+    by path, ms/frame by path)."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import params_from_jax
+
+    state = params_from_jax(seeded_dispnet_params(1))
+    launches, frame_ms = {}, {}
+
+    session = make_session(state, "NONE", model_name="Dispnet")
+    _, _, launches["DISPNET_NONE"], frame_ms["DISPNET_NONE"] = drive(
+        session, make_frames(N_FRAMES_NONE, 11), lambda i: dn_launches("NONE"))
+    if profile_dir:
+        profile_frames(session, make_frames(3, 12), Path(profile_dir), "dispnet_none")
+
+    session = make_session(state, "MAD", model_name="Dispnet", sample_mode="SEQUENTIAL", ssim_th=1e9, seed=0)
+    blocks = session.engine.blocks
+    if len(blocks) != 6:
+        raise AssertionError(f"DispNet MAD: {len(blocks)} blocks")
+
+    def after_step(i, before):
+        k = i % len(blocks)
+        changed = changed_names(session, before)
+        if not changed or not changed <= set(blocks[k].names):
+            raise AssertionError(f"DispNet MAD frame {i}: block {k} was trained but "
+                                 f"{sorted(changed) or 'nothing'} changed")
+
+    _, step_ms, launches["DISPNET_MAD"], frame_ms["DISPNET_MAD"] = drive(
+        session, make_frames(N_FRAMES_DN, 13), lambda i: dn_launches("MAD", i % len(blocks)),
+        after_step, warm=len(blocks))
+    by_block = {k: statistics.median(step_ms[k + len(blocks) :: len(blocks)]) for k in range(len(blocks))}
+    log(f"DispNet MAD ms/frame by block trained (second round): {by_block}")
+    if profile_dir:
+        profile_frames(session, make_frames(len(blocks), 14), Path(profile_dir), "dispnet_mad")
+
+    session = make_session(state, "FULL", model_name="Dispnet", ssim_th=1e9)
+    _, _, launches["DISPNET_FULL"], frame_ms["DISPNET_FULL"] = drive(
+        session, make_frames(N_FRAMES_FULL, 15), lambda i: dn_launches("FULL"))
+    if profile_dir:
+        profile_frames(session, make_frames(3, 16), Path(profile_dir), "dispnet_full")
+    del session
+
+    check_dispnet_against_plain(state)
+
+    # the fused session, tiled warps in the loss: a round checked frame by
+    # frame (eager step and capture), then replays, against the host session
+    frames = smooth_frames(N_FRAMES_DN + 6, 200)
+    mad_kw = dict(sample_mode="SEQUENTIAL", ssim_th=1e9, seed=0)
+    session = make_session(state, "MAD", warp="mxu", fused=True, model_name="Dispnet", **mad_kw)
+    cuda_lib.reset_launches()
+    for i, f in enumerate(frames[:N_FRAMES_DN]):
+        step_counted(session, f, dn_launches("MAD", i % len(blocks), tiled=True), f"DispNet fused MAD frame {i}")
+    want_graphs = {("mad", (k,)): {n: c for n, c in dn_launches("MAD", k, tiled=True).items() if c}
+                   for k in range(len(blocks))}
+    if session.graph_launches != want_graphs:
+        raise AssertionError(f"DispNet fused MAD: graphs hold {session.graph_launches}, want {want_graphs}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames[N_FRAMES_DN:]:
+        session.step(f)
+    torch.cuda.synchronize()
+    frame_ms["DISPNET_FUSED_MAD"] = (time.perf_counter() - t0) * 1e3 / (len(frames) - N_FRAMES_DN)
+    launches["DISPNET_FUSED_MAD"] = dict(cuda_lib.LAUNCHES)
+    fused = session.finalize()
+    host = make_session(state, "MAD", warp="mxu", model_name="Dispnet", **mad_kw)
+    frame_ms["DISPNET_HOST_MAD_MXU"] = timed_host(host, frames, warm=len(blocks))
+    assert_trajectory(fused, host_stats(host), "DispNet fused MAD against the host session")
+    assert_controller(fused, host_stats(host), "DispNet fused MAD against the host session")
+    if profile_dir:
+        profile_frames(session, frames[:len(blocks)], Path(profile_dir), "dispnet_fused_mad")
+    del session, host
+
+    # fused NONE serving: no loss, so the correlation alone
+    session = make_session(state, "NONE", warp="mxu", fused=True, model_name="Dispnet", compute_metrics=False)
+    serve_frames = [{k: f[k] for k in ("left", "right")} for f in frames[:N_FRAMES_NONE + 3]]
+    cuda_lib.reset_launches()
+    disps = list(session.serve(serve_frames[:2]))  # eager and capture, then a replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disps += list(session.serve(serve_frames[2:]))
+    frame_ms["DISPNET_FUSED_NONE_SERVE"] = (time.perf_counter() - t0) * 1e3 / (len(serve_frames) - 2)
+    launches["DISPNET_FUSED_NONE"] = dict(cuda_lib.LAUNCHES)
+    want = {**dict.fromkeys(cuda_lib.LAUNCHES, 0), "corr_fwd_wide": len(serve_frames)}
+    if launches["DISPNET_FUSED_NONE"] != want:
+        raise AssertionError(f"DispNet fused NONE serving: launches {launches['DISPNET_FUSED_NONE']}, want {want}")
+    host = make_session(state, "NONE", warp="mxu", model_name="Dispnet")
+    for i in (0, len(serve_frames) - 1):
+        ref = host.step(frames[i])["disp"].cpu().numpy()
+        if disps[i].shape != (1, H, W, 1) or not np.isfinite(disps[i]).all():
+            raise AssertionError(f"DispNet fused NONE serving: bad disparity {i}")
+        err = float(np.abs(disps[i] - ref).max()) / float(np.abs(ref).max())
+        log(f"DispNet fused NONE served disparity {i} against the host session: {err:.3g} of the largest")
+        if not err <= MODEL_RTOL:
+            raise AssertionError(f"DispNet fused NONE serving: disparity {i} is not frame {i}'s")
+    return launches, frame_ms
+
+
 def profile_frames(session, frames, out: Path, tag: str):
     """Kernel time by name over a few steady frames (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1176,6 +1452,8 @@ def main() -> int:
                     help="stop after the kernels' checks (phase 3), without the result lines")
     ap.add_argument("--fused-only", action="store_true",
                     help="run the fused-session phase (6) alone, without the result lines")
+    ap.add_argument("--dispnet-only", action="store_true",
+                    help="run the DispNet phase (7) alone, without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1204,13 +1482,19 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    for kernel in ("tile_image_fwd_kernel", "tile_feat_fwd_kernel"):
-        usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get("warp_tile", ""), kernel) or ["cached build, no report"]
-        log(f"ptxas {kernel} (redesigned tiled forward): {'; '.join(usage)}")
+    for lib, kernel in (("warp_tile", "tile_image_fwd_kernel"), ("warp_tile", "tile_feat_fwd_kernel"),
+                        ("correlation", "corr_fwd_wide_kernel"), ("correlation", "corr_bwd_wide_kernel")):
+        usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get(lib, ""), kernel) or ["cached build, no report"]
+        log(f"ptxas {kernel}: {'; '.join(usage)}")
 
-    if args.fused_only:
-        run_fused(params_from_jax(seeded_jax_params(0)), args.profile)
-        log("fused session checked; no result lines (--fused-only)")
+    if args.fused_only or args.dispnet_only:
+        if args.fused_only:
+            _, frame_ms = run_fused(params_from_jax(seeded_jax_params(0)), args.profile)
+        else:
+            _, frame_ms = run_dispnet(args.profile)
+        for mode, ms in frame_ms.items():
+            log(f"session {mode} ms/frame {ms!r}")
+        log("sessions checked; no result lines (--fused-only, --dispnet-only)")
         return 0
     rows = check_kernels(ops)
     if args.kernels_only:
@@ -1223,25 +1507,25 @@ def main() -> int:
         launches[mode], frame_ms[mode] = run(state, args.profile)
     check_steps_against_plain(state)
     check_reset(state)
-    fused_launches, fused_ms = run_fused(state, args.profile)
-    launches.update(fused_launches)
-    frame_ms.update(fused_ms)
+    for phase in (run_fused, lambda _, profile: run_dispnet(profile)):
+        phase_launches, phase_ms = phase(state, args.profile)
+        launches.update(phase_launches)
+        frame_ms.update(phase_ms)
 
     kernels = []
     for name, rs in rows.items():
         lib_ms = [r["library_ms"] for r in rs]
         shape_keys = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "main_path_ms",
-                      "main_path_library_ms")
+                      "main_path_library_ms", "wide_ms")
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            # the flagship paths: the host MAD session (clamped-window warps)
-            # and the fused MAD session (tiled warps), counters set to 0
-            # before each
-            "launches": launches["MAD"][name] + launches["FUSED_MAD"][name],
-            "launches_by_path": {mode: launches[mode][name] for mode in launches},
+            # every path driven, MADNet's and DispNet's, host and fused, the
+            # counters set to 0 before each and read after it
+            "launches": sum(launches[path][name] for path in launches),
+            "launches_by_path": {path: launches[path][name] for path in launches},
             "max_abs_err": max(r["err"] for r in rs),
             # one call at each main-path shape: the sums over the shapes
             "ms": sum(r["ms"] for r in rs),
@@ -1254,7 +1538,7 @@ def main() -> int:
                if "main_path_ms" in rs[0] else {}),
             "shapes": [{k: r[k] for k in shape_keys if k in r} for r in rs],
         })
-    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    idle = [k["name"] for k in kernels if not any(k["launches_by_path"].values())]
     if idle:
         raise AssertionError(f"no main path launched {idle}")
     for mode, ms in frame_ms.items():

@@ -39,6 +39,37 @@
 // cache lines. Each product and sum is rounded on its own, in the plain
 // version's order, so that the two agree to the last bit where no column
 // is out of range and within a rounding elsewhere.
+//
+// Both are instantiated for radius 1-4 (R a template parameter, 2R+1 sums
+// in registers). That does not scale to DispNet-Corr1D's radius of 40 (81
+// shifts over C = 128 at 1/4 resolution), so two more kernels take any
+// radius as a runtime argument:
+//
+// corr_fwd_wide computes what corr_fwd computes. A block owns one row
+// (b, h) and a tile of 64 output columns, and, for a radius above 47, one
+// chunk of 96 shifts. It walks the channels in chunks of 32, staging
+// x[c, tile] and the y window [c, tile + k0 - R, tile + k0 - R + 159) in
+// shared memory (28.5 KB, zeros outside [0, W-1]). Each of its 256 threads
+// owns one column and every 4th shift of the chunk, 24 sums in registers
+// (21 used at R = 40); a warp reads 32 consecutive words of the window per
+// shift, free of bank conflicts. The channels are summed in one fixed
+// order, c = 0 .. C-1, with fused multiply-adds, and each output plane is
+// written once, coalesced along w. At R = 40 and C = 128 it does 2C(2R+1)
+// flops a pixel for (2C + 2R + 1) * 4 bytes, 15 flops a byte, close to the
+// card's fp32 ridge of 20: the bytes bound it, the operations nearly so.
+//
+// corr_bwd_wide computes what corr_bwd computes, as the same two gathers.
+// A block owns one row and a tile of 64 columns and walks the channels in
+// chunks of 32, and for each the shifts in chunks of 32 in increasing
+// order. Per shift chunk it stages g[k, tile] / C (for dx), the diagonal
+// g[k, v + R - k] / C for v in the tile (for dy), and the two windows of
+// 95 columns of y and x that those shifts reach (40.7 KB of static shared
+// memory at any radius). Each thread owns one column and 8 channels and
+// keeps both gradients' 16 sums in registers across the shift chunks, so
+// every output is the sum over k = 0 .. 2R in one fixed order: no
+// atomics, and two runs agree bit for bit. Folding 1/C into the staged g
+// and fusing the products into the sums rounds otherwise than the plain
+// version, within a few ulps of each output's terms.
 
 #include <cuda_runtime.h>
 
@@ -148,6 +179,159 @@ void launch(const float* x, const float* y, float* out, int B, int C, int H,
                                                     1.0f / C);
 }
 
+// ---------------------------------------------------------- any radius
+constexpr int kWideTile = 64;  // output columns a block
+constexpr int kWideThreads = 256;
+constexpr int kWideGroups = kWideThreads / kWideTile;  // threads per column
+constexpr int kFwdShiftsPerThread = 24;
+constexpr int kFwdShifts = kWideGroups * kFwdShiftsPerThread;  // 96 a block
+constexpr int kFwdChannels = 32;  // channels staged at a time
+constexpr int kFwdWindow = kWideTile + kFwdShifts - 1;  // y columns staged
+constexpr int kBwdShifts = 32;    // shifts staged at a time
+constexpr int kBwdChannels = 32;  // channels a block sums for at a time
+constexpr int kBwdChannelsPerThread = kBwdChannels / kWideGroups;  // 8
+constexpr int kBwdWindow = kWideTile + kBwdShifts - 1;  // x, y columns staged
+
+__global__ void __launch_bounds__(kWideThreads)
+    corr_fwd_wide_kernel(const float* __restrict__ x,
+                         const float* __restrict__ y, float* __restrict__ out,
+                         int C, int H, int W, int R, int n_tiles,
+                         float inv_c) {
+  __shared__ float xs[kFwdChannels][kWideTile];
+  __shared__ float ys[kFwdChannels][kFwdWindow];
+  const int K = 2 * R + 1;
+  const int w0 = (blockIdx.x % n_tiles) * kWideTile;
+  const int k0 = (blockIdx.x / n_tiles) * kFwdShifts;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x % kWideTile;  // the thread's column
+  const int grp = threadIdx.x / kWideTile;   // its shifts: grp + 4j
+  const int n_shifts = min(kFwdShifts, K - k0);
+  const int ystart = w0 + k0 - R;  // the column of ys[.][0]
+
+  const size_t plane = static_cast<size_t>(H) * W;
+  const size_t row = static_cast<size_t>(h) * W;
+  const float* xp = x + static_cast<size_t>(b) * C * plane + row;
+  const float* yp = y + static_cast<size_t>(b) * C * plane + row;
+
+  float acc[kFwdShiftsPerThread];
+#pragma unroll
+  for (int j = 0; j < kFwdShiftsPerThread; ++j) acc[j] = 0.f;
+
+  for (int c0 = 0; c0 < C; c0 += kFwdChannels) {
+    const int nc = min(kFwdChannels, C - c0);
+    __syncthreads();  // the previous chunk is read
+    for (int i = threadIdx.x; i < nc * kWideTile; i += kWideThreads) {
+      const int c = i / kWideTile, j = i % kWideTile;
+      const int col = w0 + j;
+      xs[c][j] = col < W ? __ldg(xp + (c0 + c) * plane + col) : 0.f;
+    }
+    for (int i = threadIdx.x; i < nc * kFwdWindow; i += kWideThreads) {
+      const int c = i / kFwdWindow, j = i - c * kFwdWindow;
+      const int col = ystart + j;
+      ys[c][j] = (col >= 0 && col < W) ? __ldg(yp + (c0 + c) * plane + col) : 0.f;
+    }
+    __syncthreads();
+    for (int c = 0; c < nc; ++c) {
+      const float xv = xs[c][lane];
+#pragma unroll
+      for (int j = 0; j < kFwdShiftsPerThread; ++j) {
+        const int s = grp + kWideGroups * j;  // the same in a warp
+        if (s < n_shifts) acc[j] = fmaf(xv, ys[c][lane + s], acc[j]);
+      }
+    }
+  }
+
+  const int w = w0 + lane;
+  if (w >= W) return;
+  float* op = out + (static_cast<size_t>(b) * K + k0) * plane + row + w;
+#pragma unroll
+  for (int j = 0; j < kFwdShiftsPerThread; ++j) {
+    const int s = grp + kWideGroups * j;
+    if (s < n_shifts) op[s * plane] = acc[j] * inv_c;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+    corr_bwd_wide_kernel(const float* __restrict__ x,
+                         const float* __restrict__ y,
+                         const float* __restrict__ g, float* __restrict__ dx,
+                         float* __restrict__ dy, int C, int H, int W, int R,
+                         float inv_c) {
+  __shared__ float gx[kBwdShifts][kWideTile];  // g[k][w] / C, w in the tile
+  __shared__ float gy[kBwdShifts][kWideTile];  // g[k][v + R - k] / C
+  __shared__ float ys[kBwdChannels][kBwdWindow];
+  __shared__ float xs[kBwdChannels][kBwdWindow];
+  const int K = 2 * R + 1;
+  const int w0 = blockIdx.x * kWideTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x % kWideTile;  // the thread's column
+  const int grp = threadIdx.x / kWideTile;   // its channels: grp + 4i
+
+  const size_t plane = static_cast<size_t>(H) * W;
+  const size_t row = static_cast<size_t>(h) * W;
+  const size_t batch = static_cast<size_t>(b) * C * plane + row;
+  const float* gp = g + static_cast<size_t>(b) * K * plane + row;
+
+  for (int c0 = 0; c0 < C; c0 += kBwdChannels) {
+    const int nc = min(kBwdChannels, C - c0);
+    const float* xp = x + batch + c0 * plane;
+    const float* yp = y + batch + c0 * plane;
+    float ax[kBwdChannelsPerThread], ay[kBwdChannelsPerThread];
+#pragma unroll
+    for (int i = 0; i < kBwdChannelsPerThread; ++i) ax[i] = ay[i] = 0.f;
+
+    for (int k0 = 0; k0 < K; k0 += kBwdShifts) {
+      const int ns = min(kBwdShifts, K - k0);
+      // ys[c][j] = y[c][w0 + k0 - R + j]: dx at column w0 + l, shift
+      // k0 + kk reads ys[c][l + kk]. xs[c][j] = x[c][xstart + j]: dy at
+      // column w0 + l, shift k0 + kk reads xs[c][l - kk + kBwdShifts - 1].
+      const int ystart = w0 + k0 - R;
+      const int xstart = w0 + R - k0 - (kBwdShifts - 1);
+      __syncthreads();  // the previous chunk is read
+      for (int i = threadIdx.x; i < ns * kWideTile; i += kWideThreads) {
+        const int kk = i / kWideTile, j = i % kWideTile;
+        const int k = k0 + kk;
+        const float* gr = gp + k * plane;
+        const int cx = w0 + j, cy = w0 + j + R - k;
+        gx[kk][j] = cx < W ? __ldg(gr + cx) * inv_c : 0.f;
+        gy[kk][j] = (cy >= 0 && cy < W) ? __ldg(gr + cy) * inv_c : 0.f;
+      }
+      for (int i = threadIdx.x; i < nc * kBwdWindow; i += kWideThreads) {
+        const int c = i / kBwdWindow, j = i - c * kBwdWindow;
+        const int cy = ystart + j, cx = xstart + j;
+        ys[c][j] = (cy >= 0 && cy < W) ? __ldg(yp + c * plane + cy) : 0.f;
+        xs[c][j] = (cx >= 0 && cx < W) ? __ldg(xp + c * plane + cx) : 0.f;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < ns; ++kk) {
+        const float g1 = gx[kk][lane];
+        const float g2 = gy[kk][lane];
+#pragma unroll
+        for (int i = 0; i < kBwdChannelsPerThread; ++i) {
+          const int c = grp + kWideGroups * i;  // the same in a warp
+          ax[i] = fmaf(g1, ys[c][lane + kk], ax[i]);
+          ay[i] = fmaf(g2, xs[c][lane - kk + kBwdShifts - 1], ay[i]);
+        }
+      }
+    }
+
+    const int w = w0 + lane;
+    if (w < W) {
+#pragma unroll
+      for (int i = 0; i < kBwdChannelsPerThread; ++i) {
+        const int c = grp + kWideGroups * i;
+        if (c < nc) {
+          const size_t at = batch + (c0 + c) * plane + w;
+          dx[at] = ax[i];
+          dy[at] = ay[i];
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -178,6 +362,33 @@ int corr_bwd(const float* x, const float* y, const float* g, float* dx,
     case 4: launch_bwd<4>(x, y, g, dx, dy, B, C, H, W, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Any radius >= 0; same arguments as corr_fwd. B and H may be at most 65535.
+int corr_fwd_wide(const float* x, const float* y, float* out, int B, int C,
+                  int H, int W, int radius, cudaStream_t stream) {
+  if (radius < 0 || B > 65535 || H > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = (W + kWideTile - 1) / kWideTile;
+  const int n_chunks = (2 * radius + 1 + kFwdShifts - 1) / kFwdShifts;
+  const dim3 grid(n_tiles * n_chunks, H, B);
+  corr_fwd_wide_kernel<<<grid, kWideThreads, 0, stream>>>(
+      x, y, out, C, H, W, radius, n_tiles, 1.0f / C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Any radius >= 0; same arguments as corr_bwd. B and H may be at most 65535.
+int corr_bwd_wide(const float* x, const float* y, const float* g, float* dx,
+                  float* dy, int B, int C, int H, int W, int radius,
+                  cudaStream_t stream) {
+  if (radius < 0 || B > 65535 || H > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((W + kWideTile - 1) / kWideTile, H, B);
+  corr_bwd_wide_kernel<<<grid, kWideThreads, 0, stream>>>(
+      x, y, g, dx, dy, C, H, W, radius, 1.0f / C);
   return static_cast<int>(cudaGetLastError());
 }
 

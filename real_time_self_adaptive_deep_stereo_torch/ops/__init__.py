@@ -1,5 +1,6 @@
 from real_time_self_adaptive_deep_stereo_torch.ops.conv import (  # noqa: F401
     conv2d,
+    conv2d_transpose,
     dilated_conv2d,
     init_conv,
     leaky_relu,
@@ -10,6 +11,7 @@ from real_time_self_adaptive_deep_stereo_torch.ops.correlation import (  # noqa:
     correlation_cuda,
     correlation_torch,
     correlation_torch_bwd,
+    resolve_corr_mode,
 )
 from real_time_self_adaptive_deep_stereo_torch.ops.resize import (  # noqa: F401
     crop_or_pad,
@@ -19,6 +21,7 @@ from real_time_self_adaptive_deep_stereo_torch.ops.resize import (  # noqa: F401
     resize_to,
 )
 from real_time_self_adaptive_deep_stereo_torch.ops.warp import (  # noqa: F401
+    bilinear_sampler,
     resolve_warp_mode,
     warp_features_clamped,
     warp_features_clamped_bwd,

@@ -10,17 +10,21 @@ along W. Port of ``real_time_self_adaptive_deep_stereo_tpu/ops/correlation.py``:
 * :func:`correlation_torch_bwd` is the plain version of the backward, a
   copy of ``_corr_pallas_bwd``.
 * :func:`correlation_cuda` is the wrapper of the hand-written kernels in
-  ``csrc/correlation.cu``: ``corr_fwd``, which replaces the Pallas kernel
-  ``_corr_fwd_kernel``, and in backward ``corr_bwd``. On a CPU tensor it
-  runs the plain version (autograd differentiates it); on a CUDA tensor
-  it launches the kernels or raises.
-* :func:`correlation` picks one: ``mode='auto'`` is ``cuda`` for CUDA
-  tensors at stride 1 and ``torch`` otherwise.
+  ``csrc/correlation.cu``, which replace the Pallas kernel
+  ``_corr_fwd_kernel`` at any radius: ``corr_fwd`` (and ``corr_bwd`` in
+  backward) keep their sums in registers and are instantiated for radius
+  1 .. ``MAX_REGISTER_RADIUS`` (MADNet's 2); ``corr_fwd_wide`` and
+  ``corr_bwd_wide`` take any radius (DispNet-Corr1D's 40). On a CPU tensor
+  it runs the plain version (autograd differentiates it); on a CUDA
+  tensor it launches the kernels or raises.
+* :func:`correlation` picks one by :func:`resolve_corr_mode`: ``auto`` is
+  ``cuda`` for CUDA tensors at stride 1, at every radius, and ``torch``
+  otherwise.
 """
 
 from __future__ import annotations
 
-from typing import Literal, Tuple
+from typing import Literal, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,10 +37,13 @@ __all__ = [
     "correlation_torch_bwd",
     "correlation_cuda",
     "correlation_bwd_cuda",
-    "MAX_KERNEL_RADIUS",
+    "resolve_corr_mode",
+    "MAX_REGISTER_RADIUS",
 ]
 
-MAX_KERNEL_RADIUS = 4  # corr_fwd and corr_bwd are instantiated for radius 1..4
+# the largest radius of the register-resident instances corr_fwd and
+# corr_bwd; a wider (or zero) radius runs corr_fwd_wide and corr_bwd_wide
+MAX_REGISTER_RADIUS = 4
 
 
 def correlation_torch(
@@ -75,91 +82,121 @@ def correlation_torch_bwd(
     return dx, dy
 
 
-def _check(name: str, x: torch.Tensor, y: torch.Tensor, max_disp: int) -> None:
+def _is_wide(max_disp: int, wide: Optional[bool]) -> bool:
+    """Whether a radius runs the wide kernels: by default beyond the
+    register-resident instances; ``wide`` forces one kind."""
+    if max_disp < 0:
+        raise ValueError(f"the correlation needs max_disp >= 0, got {max_disp}")
+    if wide is None:
+        return not 1 <= max_disp <= MAX_REGISTER_RADIUS
+    if not wide and not 1 <= max_disp <= MAX_REGISTER_RADIUS:
+        raise ValueError(f"corr_fwd and corr_bwd support max_disp 1..{MAX_REGISTER_RADIUS}, got {max_disp}")
+    return bool(wide)
+
+
+def _check(name: str, x: torch.Tensor, y: torch.Tensor) -> None:
     if x.device.type != "cuda" or y.device != x.device:
         raise ValueError(f"{name} needs both inputs on one CUDA device, got {x.device}, {y.device}")
     if x.dim() != 4 or x.shape != y.shape:
         raise ValueError(f"{name} needs two NCHW tensors of one shape, got {tuple(x.shape)}, {tuple(y.shape)}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError(f"{name} needs contiguous inputs")
-    if not 1 <= max_disp <= MAX_KERNEL_RADIUS:
-        raise ValueError(f"{name} supports max_disp 1..{MAX_KERNEL_RADIUS}, got {max_disp}")
+    if x.shape[0] > 65535 or x.shape[2] > 65535:  # the launch grid's y and z axes
+        raise ValueError(f"{name} supports batch and height up to 65535, got {tuple(x.shape)}")
 
 
-def _corr_fwd_launch(x: torch.Tensor, y: torch.Tensor, max_disp: int) -> torch.Tensor:
-    _check("corr_fwd", x, y, max_disp)
+def _corr_fwd_launch(x: torch.Tensor, y: torch.Tensor, max_disp: int, wide: bool) -> torch.Tensor:
+    name = "corr_fwd_wide" if wide else "corr_fwd"
+    _check(name, x, y)
     b, c, h, w = x.shape
     out = torch.empty((b, 2 * max_disp + 1, h, w), device=x.device, dtype=x.dtype)
     lib = cuda_lib.library("correlation")
-    err = lib.corr_fwd(
+    err = getattr(lib, name)(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), b, c, h, w, max_disp,
         cuda_lib.stream_ptr(x.device),
     )
-    cuda_lib.check(lib, err, "corr_fwd")
-    cuda_lib.LAUNCHES["corr_fwd"] += 1
+    cuda_lib.check(lib, err, name)
+    cuda_lib.LAUNCHES[name] += 1
     return out
 
 
 def _corr_bwd_launch(
-    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, max_disp: int
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, max_disp: int, wide: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check("corr_bwd", x, y, max_disp)
+    name = "corr_bwd_wide" if wide else "corr_bwd"
+    _check(name, x, y)
     b, c, h, w = x.shape
     if g.device != x.device or g.dtype != x.dtype or tuple(g.shape) != (b, 2 * max_disp + 1, h, w):
         raise ValueError(
-            f"corr_bwd needs a float32 gradient of shape {(b, 2 * max_disp + 1, h, w)} on "
+            f"{name} needs a float32 gradient of shape {(b, 2 * max_disp + 1, h, w)} on "
             f"{x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}"
         )
     if not g.is_contiguous():
-        raise ValueError("corr_bwd needs a contiguous gradient")
-    if c > 65535:
+        raise ValueError(f"{name} needs a contiguous gradient")
+    if not wide and c > 65535:
         raise ValueError(f"corr_bwd supports at most 65535 channels, got {c}")
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     lib = cuda_lib.library("correlation")
-    err = lib.corr_bwd(
+    err = getattr(lib, name)(
         x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), dy.data_ptr(),
         b, c, h, w, max_disp, cuda_lib.stream_ptr(x.device),
     )
-    cuda_lib.check(lib, err, "corr_bwd")
-    cuda_lib.LAUNCHES["corr_bwd"] += 1
+    cuda_lib.check(lib, err, name)
+    cuda_lib.LAUNCHES[name] += 1
     return dx, dy
 
 
 class _CorrelationCUDA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, y, max_disp):
+    def forward(ctx, x, y, max_disp, wide):
         ctx.save_for_backward(x, y)
-        ctx.max_disp = max_disp
-        return _corr_fwd_launch(x, y, max_disp)
+        ctx.max_disp, ctx.wide = max_disp, wide
+        return _corr_fwd_launch(x, y, max_disp, wide)
 
     @staticmethod
     def backward(ctx, grad):
         x, y = ctx.saved_tensors
         # cuDNN may hand the gradient over in another layout or as an
         # expanded view; the kernel takes contiguous NCHW
-        dx, dy = _corr_bwd_launch(x, y, grad.contiguous(), ctx.max_disp)
-        return dx, dy, None
+        dx, dy = _corr_bwd_launch(x, y, grad.contiguous(), ctx.max_disp, ctx.wide)
+        return dx, dy, None, None
 
 
-def correlation_cuda(x: torch.Tensor, y: torch.Tensor, max_disp: int) -> torch.Tensor:
-    """Kernel wrapper (stride 1, fp32, NCHW): ``corr_fwd``, and ``corr_bwd``
-    in backward, on CUDA tensors; the plain version on CPU tensors."""
+def correlation_cuda(
+    x: torch.Tensor, y: torch.Tensor, max_disp: int, wide: Optional[bool] = None
+) -> torch.Tensor:
+    """Kernel wrapper (stride 1, fp32, NCHW) on CUDA tensors: ``corr_fwd``
+    (and ``corr_bwd`` in backward) for radius 1..``MAX_REGISTER_RADIUS``,
+    ``corr_fwd_wide`` (and ``corr_bwd_wide``) for any other radius;
+    ``wide`` forces one kind. The plain version on CPU tensors."""
     cuda_lib.check_float32("corr_fwd", x, y)
+    wide = _is_wide(max_disp, wide)
     if x.device.type == "cpu" and y.device.type == "cpu":
         return correlation_torch(x, y, max_disp)
-    return _CorrelationCUDA.apply(x, y, max_disp)
+    return _CorrelationCUDA.apply(x, y, max_disp, wide)
 
 
 def correlation_bwd_cuda(
-    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, max_disp: int
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, max_disp: int, wide: Optional[bool] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Wrapper of the backward kernel alone: ``(dx, dy)`` from ``corr_bwd``
-    on CUDA tensors, from the plain version on CPU tensors. The backward
-    of :func:`correlation_cuda` launches the same kernel."""
+    """Wrapper of the backward kernels alone: ``(dx, dy)`` from
+    ``corr_bwd`` or ``corr_bwd_wide`` (picked as :func:`correlation_cuda`
+    picks) on CUDA tensors, from the plain version on CPU tensors. The
+    backward of :func:`correlation_cuda` launches the same kernel."""
     cuda_lib.check_float32("corr_bwd", x, y, g)
+    wide = _is_wide(max_disp, wide)
     if x.device.type == "cpu" and y.device.type == "cpu" and g.device.type == "cpu":
         return correlation_torch_bwd(x, y, g, max_disp)
-    return _corr_bwd_launch(x, y, g, max_disp)
+    return _corr_bwd_launch(x, y, g, max_disp, wide)
+
+
+def resolve_corr_mode(device_type: str, stride: int, max_disp: int) -> str:
+    """What ``mode='auto'`` runs: ``'cuda'``, the kernels, for a CUDA
+    tensor at stride 1 whatever the radius (the kernels take every
+    ``max_disp >= 0``), and ``'torch'``, the plain version, otherwise."""
+    if max_disp < 0:
+        raise ValueError(f"the correlation needs max_disp >= 0, got {max_disp}")
+    return "cuda" if device_type == "cuda" and stride == 1 else "torch"
 
 
 def correlation(
@@ -171,7 +208,7 @@ def correlation(
 ) -> torch.Tensor:
     """Correlation cost volume between left ``x`` and right ``y`` (NCHW)."""
     if mode == "auto":
-        mode = "cuda" if (x.device.type == "cuda" and stride == 1) else "torch"
+        mode = resolve_corr_mode(x.device.type, stride, max_disp)
     if mode == "cuda":
         if stride != 1:
             raise ValueError("the correlation kernel requires stride == 1")

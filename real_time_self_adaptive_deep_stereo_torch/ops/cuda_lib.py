@@ -50,6 +50,8 @@ _SIGNATURES = {
     "correlation": {
         "corr_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "corr_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "corr_fwd_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "corr_bwd_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "warp": {
         "warp_image_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -44,6 +44,9 @@ Each exists in two forms that differ for out-of-range offsets:
 
 A fresh random-weight MADNet produces disparities beyond the windows, so
 every comparison pins the mode.
+
+:func:`bilinear_sampler` is the general 2-D bilinear sampler of the JAX
+package (clamp-to-edge, for parity and generic flows); no model calls it.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ __all__ = [
     "warp_features_onehot",
     "warp_image_onehot_bwd",
     "warp_features_onehot_bwd",
+    "bilinear_sampler",
     "resolve_warp_mode",
     "WARP_MODES",
 ]
@@ -250,4 +254,30 @@ def warp_features_onehot_bwd(
     ddx)`` for the gradient ``g`` of :func:`warp_features_onehot`'s output."""
     return _vjp(
         lambda f, d: warp_features_onehot(f, d, max_neg, max_pos, align=align), feats, dx, g
+    )
+
+
+def bilinear_sampler(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Full 2-D bilinear sampling of NCHW ``img`` at ``coords``
+    [B,2,H,W] = (x, y): weights from the unclamped coordinates, indices
+    clamped to the image, as the JAX package's ``bilinear_sampler``
+    (NHWC ``coords`` [B,H,W,2] there)."""
+    b, c, h, w = img.shape
+    cx, cy = coords[:, 0], coords[:, 1]
+    x0, y0 = torch.floor(cx), torch.floor(cy)
+    wx1, wy1 = cx - x0, cy - y0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    x0i, x1i = (torch.clamp(v, 0, w - 1).long() for v in (x0, x0 + 1))
+    y0i, y1i = (torch.clamp(v, 0, h - 1).long() for v in (y0, y0 + 1))
+    flat = img.reshape(b, c, h * w)
+
+    def gather(yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+        idx = (yi * w + xi).reshape(b, 1, h * w).expand(b, c, h * w)
+        return torch.gather(flat, 2, idx).reshape(b, c, h, w)
+
+    return (
+        (wx0 * wy0)[:, None] * gather(y0i, x0i)
+        + (wx0 * wy1)[:, None] * gather(y1i, x0i)
+        + (wx1 * wy0)[:, None] * gather(y0i, x1i)
+        + (wx1 * wy1)[:, None] * gather(y1i, x1i)
     )

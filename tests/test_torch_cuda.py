@@ -7,7 +7,7 @@ it runs on its own:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: the correlation kernel sums over C in another order than
+Tolerances: the correlation kernels sum over C in another order than
 ``torch.mean`` (1e-5 relative and absolute); the warp kernels round every
 product and sum as the plain version does and agree to 1e-6 absolute. The
 backward kernels are held to 1e-5 of the largest entry of each gradient:
@@ -104,7 +104,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         tops.correlation_cuda(x.transpose(2, 3), x.transpose(2, 3), 2)
     with pytest.raises(ValueError, match="max_disp"):
-        tops.correlation_cuda(x, x, 9)
+        tops.correlation_cuda(x, x, 9, wide=False)  # the register instances stop at 4
+    with pytest.raises(ValueError, match="max_disp"):
+        tops.correlation_cuda(x, x, -1)
     with pytest.raises(ValueError):
         tops.warp_image_cuda(x, torch.zeros(1, 2, 3, 8, device=dev), 8)
     with pytest.raises(ValueError):
@@ -115,6 +117,54 @@ def _close(got, want, what):
     scale = float(want.abs().max())
     assert scale > 0, what
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale, msg=lambda m: f"{what}: {m}")
+
+
+# DispNet's shape at 320x1216, an edge where W < 2R+1, widths that are no
+# multiple of the 64-column tile, channels that are no multiple of 32, and
+# radii that take two and three chunks of shifts
+_WIDE = [
+    ((1, 128, 80, 304), 40),
+    ((1, 128, 5, 19), 40),
+    ((2, 7, 3, 70), 40),
+    ((1, 33, 4, 130), 5),
+    ((1, 5, 2, 140), 50),
+    ((1, 70, 2, 200), 100),
+]
+
+
+@pytest.mark.parametrize("shape,radius", _WIDE)
+def test_corr_wide_kernels_match_plain(dev, shape, radius):
+    """``correlation(mode='auto')`` beyond radius 4 runs ``corr_fwd_wide``
+    and, in backward, ``corr_bwd_wide``; both against their plain
+    versions, the backward bit-identical in two runs."""
+    x, y = _normal(shape, 31, dev), _normal(shape, 32, dev)
+    g = _normal((shape[0], 2 * radius + 1, *shape[2:]), 33, dev)
+    xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+    cuda_lib.reset_launches()
+    out = tops.correlation(xg, yg, radius)
+    dx, dy = torch.autograd.grad(out, (xg, yg), g)
+    dx2, dy2 = tops.correlation_bwd_cuda(x, y, g, radius)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {"corr_fwd_wide": 1, "corr_bwd_wide": 2}
+    torch.testing.assert_close(out, tops.correlation_torch(x, y, radius), rtol=1e-5, atol=1e-5)
+    want_dx, want_dy = tops.correlation_torch_bwd(x, y, g, radius)
+    _close(dx, want_dx, "dx")
+    _close(dy, want_dy, "dy")
+    assert torch.equal(dx, dx2) and torch.equal(dy, dy2)
+
+
+@pytest.mark.parametrize("shape", [(1, 192, 5, 19), (1, 32, 80, 304)])
+def test_corr_wide_kernels_take_a_register_radius(dev, shape):
+    """Forced at MADNet's radius 2, the wide kernels compute what the
+    register instances compute."""
+    x, y = _normal(shape, 34, dev), _normal(shape, 35, dev)
+    g = _normal((shape[0], 5, *shape[2:]), 36, dev)
+    torch.testing.assert_close(
+        tops.correlation_cuda(x, y, 2, wide=True), tops.correlation_cuda(x, y, 2), rtol=1e-5, atol=1e-5
+    )
+    for a, b, nm in zip(tops.correlation_bwd_cuda(x, y, g, 2, wide=True), tops.correlation_torch_bwd(x, y, g, 2),
+                        ("dx", "dy")):
+        _close(a, b, nm)
 
 
 @pytest.mark.parametrize("radius", [1, 2, 3, 4])
@@ -249,6 +299,40 @@ def test_madnet_kernels_match_plain_modes(dev):
     for da, db in zip(a["disparities"], b["disparities"]):
         scale = max(float(db.abs().max()), 1e-6)
         torch.testing.assert_close(da, db, rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_dispnet_with_kernels_matches_plain_modes(dev):
+    """DispNet-Corr1D at a size that is not a multiple of 64: the forward
+    (1e-4 of the largest disparity) and one backward through the loss
+    (5e-4 of the largest gradient), kernels against the plain correlation
+    and warps on the card; the forward runs ``corr_fwd_wide`` once and the
+    backward ``corr_bwd_wide`` once."""
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_reprojection_loss
+
+    r = np.random.default_rng(25)
+    frame = {
+        k: torch.from_numpy((r.random((1, 70, 130, 3)) * 255).astype(np.float32)).to(dev)
+        for k in ("left", "right")
+    }
+    outs, grads = [], []
+    for kw, warp in (({}, "auto"), (dict(corr_mode="torch"), "clamped")):
+        net = get_stereo_net("Dispnet", seed=4, **kw)
+        loss_fn = get_reprojection_loss("mean_SSIM_l1", warp_mode=warp)
+        cuda_lib.reset_launches()
+        out = net(frame["left"], frame["right"])
+        grads.append(torch.autograd.grad(loss_fn(out["disparities"], frame), list(net.parameters())))
+        outs.append([d.detach() for d in out["disparities"]])
+        if not kw:
+            assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+                "corr_fwd_wide": 1, "corr_bwd_wide": 1, "warp_image_fwd": 1, "warp_image_bwd": 1,
+            }
+    for da, db in zip(*outs):
+        scale = max(float(db.abs().max()), 1e-6)
+        torch.testing.assert_close(da, db, rtol=1e-4, atol=1e-4 * scale)
+    scale = max(float(g.abs().max()) for g in grads[1])
+    assert scale > 0
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4 * scale)
 
 
 # ------------------------------------------------- the tiled one-hot warps

@@ -125,8 +125,10 @@ def test_jax_saved_npz_loads_into_port(setup, jax_outputs, tmp_path):
 
 
 def test_entry_points_need_cuda_or_cpu():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_net("Dispnet", device="cpu")
+    assert torch_net("Dispnet", device="cpu").device == torch.device("cpu")
+    with pytest.raises(KeyError, match="Unrecognized network name"):
+        torch_net("PSMNet", device="cpu")
     if not torch.cuda.is_available():  # no silent fallback to the CPU
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            torch_net("MADNet")
+        for name in ("MADNet", "Dispnet"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                torch_net(name)

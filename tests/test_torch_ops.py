@@ -1,5 +1,6 @@
-"""The PyTorch port's ops against the JAX package on the CPU: correlation,
-both warps in both semantics, conv, resize/pad/crop, the kernel
+"""The PyTorch port's ops against the JAX package on the CPU: correlation
+(DispNet's radius 40 included), both warps in both semantics, the 2-D
+bilinear sampler, conv and transposed conv, resize/pad/crop, the kernel
 wrappers' CPU behaviour and the port's isolation from JAX.
 
 Inputs are made with numpy from a seed and handed to both packages; the
@@ -12,6 +13,7 @@ import re
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,7 +72,97 @@ def test_correlation_kernel_wrapper_matches_pallas_interpret():
     np.testing.assert_allclose(got_auto, want, rtol=1e-5, atol=1e-6)
 
 
+# DispNet-Corr1D's radius: 81 shifts, with W below and above 2R+1
+@pytest.mark.parametrize("w", [19, 100])
+def test_correlation_torch_matches_jnp_at_radius_40(w):
+    r = _rng(6)
+    x = r.normal(size=(1, 3, w, 6)).astype(np.float32)
+    y = r.normal(size=(1, 3, w, 6)).astype(np.float32)
+    want = np.asarray(correlation_jnp(jnp.asarray(x), jnp.asarray(y), 40))
+    got = _nhwc(tops.correlation(_t(x), _t(y), 40))  # 'auto' on the CPU: the plain version
+    assert got.shape == (1, 3, w, 81)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the kernel wrapper on CPU tensors is the same plain version
+    np.testing.assert_array_equal(_nhwc(tops.correlation_cuda(_t(x), _t(y), 40)), got)
+
+
+@pytest.mark.parametrize("w", [19, 100])
+def test_correlation_bwd_matches_pallas_vjp_at_radius_40(w):
+    """The plain backward, the plain version of ``corr_bwd_wide``, against
+    the vjp of the Pallas kernel in interpret mode (``_corr_pallas_bwd``)."""
+    r = _rng(7)
+    x = r.normal(size=(1, 2, w, 5)).astype(np.float32)
+    y = r.normal(size=(1, 2, w, 5)).astype(np.float32)
+    g = r.normal(size=(1, 2, w, 81)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: correlation_pallas(a, b, 40, True), jnp.asarray(x), jnp.asarray(y))
+    want = vjp(jnp.asarray(g))
+    got = tops.correlation_bwd_cuda(_t(x), _t(y), _t(g), 40)  # CPU tensors: the plain version
+    for a, b, nm in zip(got, want, ("dx", "dy")):
+        b = np.asarray(b)
+        np.testing.assert_allclose(_nhwc(a), b, rtol=0, atol=1e-5 * np.abs(b).max(), err_msg=nm)
+
+
+def test_corr_auto_resolves_to_the_kernels_at_every_radius():
+    """``correlation(mode='auto')`` on a stride-1 CUDA tensor runs the
+    kernels at MADNet's radius 2 and DispNet's 40 alike: the register
+    instances up to radius 4, the wide kernels beyond. It never picks the
+    plain version there; at stride 2 or on the CPU it does."""
+    # the module: the package's ``correlation`` is the function
+    tcorr = importlib.import_module("real_time_self_adaptive_deep_stereo_torch.ops.correlation")
+    for radius in (1, 2, 4, 5, 40, 100):
+        assert tops.resolve_corr_mode("cuda", 1, radius) == "cuda"
+        assert tops.resolve_corr_mode("cpu", 1, radius) == "torch"
+        assert tops.resolve_corr_mode("cuda", 2, radius) == "torch"
+    assert tcorr.MAX_REGISTER_RADIUS == 4
+    assert [tcorr._is_wide(r, None) for r in (0, 1, 2, 4, 5, 40)] == [True, False, False, False, True, True]
+    assert tcorr._is_wide(2, True) and not tcorr._is_wide(2, False)
+    with pytest.raises(ValueError, match="max_disp 1..4"):
+        tcorr._is_wide(40, False)
+    with pytest.raises(ValueError, match="max_disp >= 0"):
+        tops.resolve_corr_mode("cuda", 1, -1)
+
+
+# ---------------------------------------------------------------- transposed conv
+
+
+@pytest.mark.parametrize("k,stride", [(4, 2), (3, 2), (4, 1)])
+@pytest.mark.parametrize("hw", [(6, 10), (7, 9)])
+def test_conv2d_transpose_matches_jax(k, stride, hw):
+    """TF SAME transposed conv, DispNet's 4x4 s2 and two other shapes, at
+    even and odd sizes: the JAX kernel [kh, kw, out, in] goes to the port
+    under ``params_from_jax``'s permutation, unflipped."""
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import params_from_jax
+
+    r = _rng(8)
+    x = r.normal(size=(2, *hw, 5)).astype(np.float32)
+    params = {
+        "w": r.normal(size=(k, k, 3, 5)).astype(np.float32),
+        "b": r.normal(size=(3,)).astype(np.float32),
+    }
+    want = np.asarray(jconv.conv2d_transpose(params, jnp.asarray(x), strides=stride))
+    sd = params_from_jax({"d": params})
+    got = _nhwc(tops.conv2d_transpose(_t(x), sd["d.weight"], sd["d.bias"], stride))
+    assert got.shape == (2, hw[0] * stride, hw[1] * stride, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 # ----------------------------------------------------------------------- warp
+
+
+def test_bilinear_sampler_matches_jax():
+    """Coordinates inside, between and outside the image (clamped indices,
+    weights from the unclamped coordinates)."""
+    r = _rng(9)
+    img = r.normal(size=(2, 7, 11, 3)).astype(np.float32)
+    coords = np.stack(
+        [r.uniform(-4, 15, (2, 7, 11)), r.uniform(-3, 10, (2, 7, 11))], axis=-1
+    ).astype(np.float32)
+    coords[0, 0, :3] = [[-1.0, 2.0], [10.0, 6.0], [3.0, 3.0]]  # on edges and integers
+    want = np.asarray(jwarp.bilinear_sampler(jnp.asarray(img), jnp.asarray(coords)))
+    got = _nhwc(tops.bilinear_sampler(_t(img), _t(coords)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 
 
 def _img_case(seed, w=200):
@@ -248,7 +340,7 @@ def test_kernel_c_signatures_match_ctypes():
             assert [ctype(p) for p in params] == argtypes, fn
             declared += 1
     assert set(cuda_lib.LAUNCHES) == {fn for fns in cuda_lib._SIGNATURES.values() for fn in fns}
-    assert declared == 10  # correlation 2, warp 4, warp_tile 4
+    assert declared == 12  # correlation 4 (register and wide, each way), warp 4, warp_tile 4
 
 
 def test_warp_grid_checks_follow_the_kernels_grids():

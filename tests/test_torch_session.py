@@ -156,12 +156,13 @@ def test_none_session_matches_jax(session_runs):
 def test_session_modes_of_later_slices_raise():
     """FULL and MAD sessions now construct (``test_torch_adapt.py`` holds
     them against JAX); what still raises is an unknown mode, MAD without
-    blocks, and a model that is not ported yet."""
+    blocks, and a model the factory does not know (both of the JAX
+    package's models are ported)."""
     eng = TorchEngine(torch_net("MADNet", device="cpu"), device="cpu")
     assert TorchSession(eng, mode="FULL").mode == "FULL"
     with pytest.raises(ValueError, match="unknown adaptation mode"):
         TorchSession(eng, mode="SOME")
     with pytest.raises(ValueError, match="blocks"):
         TorchSession(eng, mode="MAD")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_net("Dispnet", device="cpu")
+    with pytest.raises(KeyError, match="Unrecognized network name"):
+        torch_net("PSMNet", device="cpu")
