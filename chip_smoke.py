@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only]
+    python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only | --precision-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
 1. The card's name and power limit (``nvidia-smi``) and the TF32 flags,
-   which must be off: the port runs the JAX package's ``highest``
-   precision, fp32.
+   which must be off: phases 3-7 run the JAX package's default precision,
+   ``highest``, fp32.
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report, and
    apart the registers and spills of the two tiled forwards.
-3. Each of the twelve kernels at every shape the main paths give it, against
+3. Each of the sixteen kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
    windows: the six forward kernels, and the six backward kernels
    (``dx``, ``dy``; ``dimg``, ``ddisp``; ``dfeats``, ``ddx``), each of
@@ -88,9 +88,29 @@ Phases, each of which raises on failure (nothing is caught):
    (blocks 3 and 5) and of FULL also runs with the plain modes on the card:
    the disparities before and after the step agree within 1e-4 of the
    largest, a step's gradient within 5e-4 of its largest entry.
+8. The precision modes ``default``, ``bf16`` and ``bf16_act``
+   (``ops/conv.py``). Phase 3 also holds the four bf16 instances of the
+   correlation kernels (``corr_fwd_bf16``, ``corr_bwd_bf16``,
+   ``corr_fwd_wide_bf16``, ``corr_bwd_wide_bf16``) against their plain
+   versions at the main-path shapes, on seeded values rounded to bf16:
+   every entry within one bf16 ulp, the backward bit-identical in two runs,
+   each timed beside its bound and the fp32 instance. Then, for each mode
+   against ``highest`` on the same smooth frames and weights: the first
+   frame's full-resolution disparity within a median relative error of
+   0.05 (the bound of the JAX package's own drift test), fused MAD
+   (SEQUENTIAL, bulkhead, ``mxu``, 15 frames, the first round counted frame
+   by frame) with the first round's EPE within 5% of ``highest``'s a frame
+   (every frame's printed), and fused NONE serving. Under ``bf16_act`` every correlation launches a bf16
+   instance and none an fp32 one; under ``default`` and ``bf16`` none a
+   bf16 one. Under ``bf16_act`` also host MAD against fused MAD (loss 1e-3,
+   EPE 1e-2 a frame: cuDNN's bf16 weight gradients), fused FULL, and
+   DispNet-Corr1D's host MAD over ``dispnet_full_6.json`` (blocks 3-4 run
+   ``corr_bwd_wide_bf16``) and fused NONE serving, whose disparities must
+   be bf16, as the reference's are. The TF32 flags must be on for cuDNN
+   under ``default`` only, and off again after the phase.
 
 Prints the card line, the ms/frame of the host and the fused sessions by
-mode, a JSON line of the twelve kernels, and as the last line
+mode and precision, a JSON line of the sixteen kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 with no result, when no CUDA device is available or the port is missing.
 """
@@ -118,6 +138,9 @@ N_FRAMES_FULL = 5
 LR = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, published
+# H100 SXM bf16 tensor cores, dense, fp32 accumulate, published: the peak for
+# products of bf16 operands summed in fp32, which the bf16 instances compute
+BF16_FLOPS = 989e12
 RADIUS = 2  # MADNet radius_d
 MAX_DISP = 192  # warp_max_disp
 MAX_POS = 4
@@ -163,6 +186,12 @@ REPLACES = {
     "warp_tile_features_fwd": f"{_JAX_OPS}/warp_pallas.py:460",
     "warp_tile_image_bwd": f"{_JAX_OPS}/warp_pallas.py:495",
     "warp_tile_features_bwd": f"{_JAX_OPS}/warp_pallas.py:495",
+    # the bf16 instances of K1 and of its backward: the features under the
+    # JAX package's bf16_act precision mode
+    "corr_fwd_bf16": f"{_JAX_OPS}/correlation.py:53",
+    "corr_bwd_bf16": f"{_JAX_OPS}/correlation.py:117",
+    "corr_fwd_wide_bf16": f"{_JAX_OPS}/correlation.py:53",
+    "corr_bwd_wide_bf16": f"{_JAX_OPS}/correlation.py:117",
 }
 _CSRC = "real_time_self_adaptive_deep_stereo_torch/csrc"
 SOURCES = {
@@ -218,8 +247,8 @@ def call_ms(fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOPS * 1e3
+def bound(n_bytes: float, n_flops: float, peak_flops: float = FP32_FLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -315,6 +344,7 @@ def check_kernels(ops):
         ))
 
     check_wide_kernels(ops, rows)
+    check_bf16_kernels(ops, rows)
 
     img = seeded((1, 3, H, W), 30)
     disp = seeded((1, 1, H, W), 31, -20.0, MAX_DISP + 40.0)  # crosses 0 and max_disp
@@ -475,6 +505,100 @@ def check_wide_kernels(ops, rows):
             # reads x, y, g once, writes dx, dy; a multiply-add per
             # (element, shift) for each of the two gradients
             bound=bound(4.0 * n * (4 * c + k), 4.0 * n * c * k),
+        ))
+
+
+def bf16_tol(got, want, abs_terms, n_terms):
+    """What a bf16 instance may differ from its plain version by, entry by
+    entry: one bf16 ulp (both round an fp32 sum once), plus what two fp32
+    sums of the same ``n_terms`` terms in other orders may differ by,
+    2 (n_terms + 2) 2^-24 times the sum of the terms' magnitudes
+    (``abs_terms``, the plain version on |inputs|). Where a sum cancels,
+    that second part is more than a bf16 ulp of the small result; elsewhere
+    it is a few hundredths of one."""
+    mag = torch.maximum(got.float().abs(), want.float().abs()).clamp(min=2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7) + 2.0 * (n_terms + 2) * 2.0**-24 * abs_terms
+
+
+def bf16_err(got, want, abs_terms, n_terms, what):
+    """Max abs error of bf16 ``got`` against bf16 ``want``; raises unless
+    every entry is within :func:`bf16_tol`. Logs how many entries are
+    beyond one bf16 ulp of their value (the cancelling sums)."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: dtypes {got.dtype}, {want.dtype}, want bfloat16")
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = bf16_tol(got, want, abs_terms, n_terms)
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{what}: {int((err > tol).sum())} entries beyond the tolerance")
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp(min=2.0**-126))) - 7)
+    beyond = int((err > ulp).sum())
+    if beyond:
+        log(f"{what}: {beyond} of {err.numel()} entries beyond one bf16 ulp, all within the fp32 reordering bound")
+    return float(err.max())
+
+
+def check_bf16_kernels(ops, rows):
+    """The four bf16 instances at the main-path shapes (MADNet's five
+    radius-2 calls, DispNet's radius-40 call; the wide pair also at the
+    shapes that only check them) on seeded fp32 values rounded to bf16,
+    against their plain versions: every entry within one bf16 ulp (both
+    sum in fp32 and round once, in another order) but where the sum
+    cancels (:func:`bf16_tol`), the backward bit-identical in two runs.
+    Timed beside the fp32 instance on the fp32 values; the bound counts 2
+    bytes an element and the fp32 rows' multiply-adds at the bf16 tensor
+    cores' rate, the card's peak for bf16 products summed in fp32."""
+    from real_time_self_adaptive_deep_stereo_torch.ops.correlation import MAX_REGISTER_RADIUS
+
+    cases = [((1, c, H // f, W // f), RADIUS, True) for c, f in CORR_LEVELS]
+    cases += [(DN_CORR_SHAPE, DN_RADIUS, True)] + [(sh, DN_RADIUS, False) for sh in WIDE_CHECK_SHAPES]
+    for i, (shape, radius, timed) in enumerate(cases):
+        wide = radius > MAX_REGISTER_RADIUS
+        fwd_name, bwd_name = (("corr_fwd_wide_bf16", "corr_bwd_wide_bf16") if wide
+                              else ("corr_fwd_bf16", "corr_bwd_bf16"))
+        k = 2 * radius + 1
+        xf, yf = seeded(shape, 140 + i), seeded(shape, 150 + i)
+        gf = seeded((shape[0], k, *shape[2:]), 160 + i)
+        x, y, g = xf.bfloat16(), yf.bfloat16(), gf.bfloat16()
+        got, want = ops.correlation_cuda(x, y, radius), ops.correlation_torch(x, y, radius)
+        grads = ops.correlation_bwd_cuda(x, y, g, radius)
+        again = ops.correlation_bwd_cuda(x, y, g, radius)
+        want_grads = ops.correlation_torch_bwd(x, y, g, radius)
+        # the sums of the terms' magnitudes, for the tolerance
+        xa, ya, ga = x.float().abs(), y.float().abs(), g.float().abs()
+        abs_fwd = ops.correlation_torch(xa, ya, radius)
+        abs_grads = ops.correlation_torch_bwd(xa, ya, ga, radius)
+        torch.cuda.synchronize()
+        tol = "one bf16 ulp of each entry, plus 2 (n + 2) 2^-24 of its terms' magnitudes (n terms)"
+        fwd = dict(shape=list(shape), radius=radius, tol=tol,
+                   err=bf16_err(got, want, abs_fwd, shape[1], f"{fwd_name} {shape}"))
+        errs = [bf16_err(a, b, t, k, f"{bwd_name} {shape} {nm}")
+                for a, b, t, nm in zip(grads, want_grads, abs_grads, ("dx", "dy"))]
+        assert_same_bits(grads, again, f"{bwd_name} {shape}")
+        bwd = dict(shape=list(shape), radius=radius, err=max(errs), tol=tol)
+        if not timed:
+            log(f"kernel {fwd_name} check {fwd}")
+            log(f"kernel {bwd_name} check {bwd}")
+            continue
+        n, c = shape[2] * shape[3], shape[1]
+        inner = 2 if wide else 20  # the plain versions at radius 40 are slow
+        rows[fwd_name].append(dict(
+            fwd,
+            ms=time_ms(lambda: ops.correlation_cuda(x, y, radius)),
+            call_ms=call_ms(lambda: ops.correlation_cuda(x, y, radius)),
+            fp32_ms=time_ms(lambda: ops.correlation_cuda(xf, yf, radius)),
+            plain_ms=time_ms(lambda: ops.correlation_torch(x, y, radius), inner=inner),
+            library_ms=None,
+            bound=bound(2.0 * n * (2 * c + k), 2.0 * n * c * k, BF16_FLOPS),
+        ))
+        rows[bwd_name].append(dict(
+            bwd,
+            ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, radius)),
+            call_ms=call_ms(lambda: ops.correlation_bwd_cuda(x, y, g, radius)),
+            fp32_ms=time_ms(lambda: ops.correlation_bwd_cuda(xf, yf, gf, radius)),
+            plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, radius), inner=inner),
+            library_ms=None,
+            bound=bound(2.0 * n * (4 * c + k), (4.0 if wide else 6.0) * n * c * k, BF16_FLOPS),
         ))
 
 
@@ -869,12 +993,12 @@ def step_counted(session, frame, want, what):
         raise AssertionError(f"{what}: launches {added}, want {want}")
 
 
-def assert_trajectory(got, want, what, frames=None):
+def assert_trajectory(got, want, what, frames=None, loss_rtol=TRAJ_LOSS_RTOL, epe_rtol=TRAJ_EPE_RTOL):
     """``finalize()`` of a fused session against another's, or against the
     per-frame results of a host session."""
     n = len(want["loss"]) if frames is None else frames
     worst = {}
-    for key, rtol in (("loss", TRAJ_LOSS_RTOL), ("epe", TRAJ_EPE_RTOL)):
+    for key, rtol in (("loss", loss_rtol), ("epe", epe_rtol)):
         a, b = np.asarray(got[key][:n], np.float64), np.asarray(want[key][:n], np.float64)
         if a.shape != b.shape or not np.isfinite(a).all():
             raise AssertionError(f"{what}: {key} {a} against {b}")
@@ -889,13 +1013,13 @@ def host_stats(session):
     return {"loss": st.loss, "epe": st.epe, "fetch_counter": st.fetch_counter, "scores": session.scores}
 
 
-def assert_controller(got, want, what):
+def assert_controller(got, want, what, score_atol=TRAJ_SCORE_ATOL):
     got = {**got, "fetch_counter": [int(c) for c in got["fetch_counter"]]}
     if got["fetch_counter"] != [int(c) for c in want["fetch_counter"]]:
         raise AssertionError(f"{what}: fetch counter {got['fetch_counter']} against {want['fetch_counter']}")
     err = float(np.max(np.abs(np.asarray(got["scores"], np.float64) - np.asarray(want["scores"], np.float64))))
     log(f"{what}: fetch counter {got['fetch_counter']}, scores within {err:.3g}")
-    if not err <= TRAJ_SCORE_ATOL:
+    if not err <= score_atol:
         raise AssertionError(f"{what}: scores {got['scores']} against {want['scores']}")
 
 
@@ -922,46 +1046,37 @@ def device_activities(session, frame) -> int:
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
-def run_fused(state, profile_dir):
-    """Phase 6: the fused device session at 320x1216 with the tiled one-hot
-    warps in model and loss. Returns (launches by path, ms/frame by path)."""
+MAD_KW = dict(sample_mode="SEQUENTIAL", ssim_th=1e9, seed=0)
+TILE_FULL = {"corr_fwd": 5, "warp_tile_image_fwd": 1, "warp_tile_features_fwd": 4,
+             "corr_bwd": 5, "warp_tile_image_bwd": 1, "warp_tile_features_bwd": 4}
+TILE_SERVE = {"corr_fwd": 5, "warp_tile_features_fwd": 4}  # no loss: no image warp
+
+
+def fused_mad_in(session, frames, per_frame, checked, what, after_step=None):
+    """A fused MAD session over ``frames``: the first ``checked`` frames (a
+    round or more) one by one, frame i adding exactly ``per_frame(i)``
+    launches, ``after_step(i)`` after each; then one graph per block,
+    holding that block's launches; the rest replayed with every host sync
+    an error, and timed. Returns (finalize(), launches, steady ms/frame)."""
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
 
-    launches, frame_ms = {}, {}
-    frames = smooth_frames(N_FRAMES_FUSED, 100)
-    mad_kw = dict(sample_mode="SEQUENTIAL", ssim_th=1e9, seed=0)
-
-    # --- MAD, SEQUENTIAL: two rounds checked frame by frame, then two rounds
-    # free-running with every host sync turned into an error
-    session = make_session(state, "MAD", warp="mxu", fused=True, **mad_kw)
-    if not session.use_graphs:
-        raise AssertionError("the fused session must replay graphs on the card")
     n_blocks = len(session.engine.blocks)
-    checked = 2 * n_blocks
-    torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     first_ms = []
     for i, f in enumerate(frames[:checked]):
-        k = i % n_blocks
-        before = session.arena.flat.clone()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step_counted(session, f, mad_tile_launches(k), f"fused MAD frame {i}")
+        step_counted(session, f, per_frame(i), f"{what} frame {i}")
         torch.cuda.synchronize()
         first_ms.append((time.perf_counter() - t0) * 1e3)
-        moved = (session.arena.flat != before).nonzero().flatten()
-        start, end = session.arena.block_ranges[k]
-        if moved.numel() == 0 or int(moved.min()) < start or int(moved.max()) >= end:
-            raise AssertionError(f"fused MAD frame {i}: block {k} owns [{start}, {end}) but the "
-                                 f"arena moved in [{int(moved.min()) if moved.numel() else None}, "
-                                 f"{int(moved.max()) if moved.numel() else None}]")
-    # one graph per block, each holding exactly that block's launches
-    want_graphs = {("mad", (k,)): {n: c for n, c in mad_tile_launches(k).items() if c}
-                   for k in range(n_blocks)}
+        if after_step:
+            after_step(i)
+    want_graphs = {("mad", (k,)): {n: c for n, c in per_frame(k).items() if c} for k in range(n_blocks)}
     if session.graph_launches != want_graphs:
-        raise AssertionError(f"fused MAD: graphs hold {session.graph_launches}, want {want_graphs}")
-    log(f"fused MAD first round (eager step + capture) ms/frame {first_ms[:n_blocks]}")
-    log(f"fused MAD second round (replay, fenced by a sync) ms/frame {first_ms[n_blocks:]}")
+        raise AssertionError(f"{what}: graphs hold {session.graph_launches}, want {want_graphs}")
+    log(f"{what} first round (eager step + capture) ms/frame {first_ms[:n_blocks]}")
+    if checked > n_blocks:
+        log(f"{what} checked replays (fenced by a sync) ms/frame {first_ms[n_blocks:]}")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -970,27 +1085,123 @@ def run_fused(state, profile_dir):
             session.step(f)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / (N_FRAMES_FUSED - checked)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / (len(frames) - checked)
     torch.cuda.synchronize()
-    frame_ms["FUSED_MAD"] = (time.perf_counter() - t0) * 1e3 / (N_FRAMES_FUSED - checked)
-    log(f"fused MAD steady: {frame_ms['FUSED_MAD']:.3f} ms/frame over {N_FRAMES_FUSED - checked} frames "
-        f"with no host sync (the host took {enqueue_ms:.3f} ms/frame to enqueue them); "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    launches["FUSED_MAD"] = dict(cuda_lib.LAUNCHES)
-    want_total = dict.fromkeys(cuda_lib.LAUNCHES, 0)
-    for i in range(N_FRAMES_FUSED):
-        for name, c in mad_tile_launches(i % n_blocks).items():
-            want_total[name] += c
-    if launches["FUSED_MAD"] != want_total:
-        raise AssertionError(f"fused MAD: launches {launches['FUSED_MAD']}, want {want_total}")
-    fused = session.finalize()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(frames) - checked)
+    log(f"{what} steady: {ms:.3f} ms/frame over {len(frames) - checked} frames with no host sync "
+        f"(the host took {enqueue_ms:.3f} ms/frame to enqueue them)")
+    launches = dict(cuda_lib.LAUNCHES)
+    want = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+    for i in range(len(frames)):
+        for name, c in per_frame(i).items():
+            want[name] += c
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    stats = session.finalize()
+    if stats["steps"] != len(frames) or int(stats["reset_count"]) != 0 or not np.isfinite(stats["loss"]).all():
+        raise AssertionError(f"{what}: {stats['steps']} steps, {stats['reset_count']} resets, loss {stats['loss']}")
+    return stats, launches, ms
+
+
+def fused_full_in(state, frames, per_frame, what):
+    """A fused FULL session over ``frames``: two frames (eager step and
+    capture, then a replay) each adding exactly ``per_frame`` launches, the
+    rest timed. Returns (finalize(), launches, ms/frame)."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    session = make_session(state, "FULL", warp="mxu", fused=True, ssim_th=1e9)
+    cuda_lib.reset_launches()
+    for i, f in enumerate(frames[:2]):
+        step_counted(session, f, per_frame, f"{what} frame {i}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames[2:]:
+        session.step(f)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(frames) - 2)
+    launches = dict(cuda_lib.LAUNCHES)
+    if launches != {**dict.fromkeys(cuda_lib.LAUNCHES, 0), **{k: v * len(frames) for k, v in per_frame.items()}}:
+        raise AssertionError(f"{what}: launches {launches}")
+    stats = session.finalize()
+    if stats["steps"] != len(frames) or not np.isfinite(stats["loss"]).all():
+        raise AssertionError(f"{what}: {stats['steps']} steps, loss {stats['loss']}")
+    return stats, launches, ms
+
+
+def fused_serve_in(state, frames, per_frame, what, model_name="MADNet"):
+    """Fused NONE serving without metrics over ``frames``, each adding
+    ``per_frame`` launches. Returns (launches, ms/frame, the served
+    disparities, the session)."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    session = make_session(state, "NONE", warp="mxu", fused=True, model_name=model_name, compute_metrics=False)
+    serve = [{k: f[k] for k in ("left", "right")} for f in frames]
+    cuda_lib.reset_launches()
+    disps = list(session.serve(serve[:2]))  # eager and capture, then a replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disps += list(session.serve(serve[2:]))
+    ms = (time.perf_counter() - t0) * 1e3 / (len(serve) - 2)
+    launches = dict(cuda_lib.LAUNCHES)
+    want = {**dict.fromkeys(cuda_lib.LAUNCHES, 0), **{k: v * len(serve) for k, v in per_frame.items()}}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    if len(disps) != len(serve) or any(
+        d.shape != (1, H, W, 1) or d.dtype != np.float32 or not np.isfinite(d).all() for d in disps
+    ):
+        raise AssertionError(f"{what}: bad served disparities")
+    return launches, ms, disps, session
+
+
+def assert_served(state, frames, disps, what, model_name="MADNet", rtol=MODEL_RTOL):
+    """Each served disparity is its own frame's: the host session's, for
+    the first frame and the last, within ``rtol`` of the largest."""
+    host = make_session(state, "NONE", warp="mxu", model_name=model_name)
+    for i in (0, len(disps) - 1):
+        ref = host.step(frames[i])["disp"].float().cpu().numpy()
+        err = float(np.abs(disps[i] - ref).max()) / float(np.abs(ref).max())
+        log(f"{what}: served disparity {i} against the host session: {err:.3g} of the largest")
+        if not err <= rtol:
+            raise AssertionError(f"{what}: disparity {i} is not frame {i}'s")
+
+
+def run_fused(state, profile_dir):
+    """Phase 6: the fused device session at 320x1216 with the tiled one-hot
+    warps in model and loss. Returns (launches by path, ms/frame by path)."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    launches, frame_ms = {}, {}
+    frames = smooth_frames(N_FRAMES_FUSED, 100)
+
+    # --- MAD, SEQUENTIAL: two rounds checked frame by frame, then two rounds
+    # free-running with every host sync turned into an error
+    session = make_session(state, "MAD", warp="mxu", fused=True, **MAD_KW)
+    if not session.use_graphs:
+        raise AssertionError("the fused session must replay graphs on the card")
+    n_blocks = len(session.engine.blocks)
+    checked = 2 * n_blocks
+    prev = [session.arena.flat.clone()]
+
+    def owns_block(i):
+        # the step moved the sampled block's arena range and nothing else
+        k = i % n_blocks
+        moved = (session.arena.flat != prev[0]).nonzero().flatten()
+        prev[0] = session.arena.flat.clone()
+        start, end = session.arena.block_ranges[k]
+        if moved.numel() == 0 or int(moved.min()) < start or int(moved.max()) >= end:
+            raise AssertionError(f"fused MAD frame {i}: block {k} owns [{start}, {end}) but the "
+                                 f"arena moved in [{int(moved.min()) if moved.numel() else None}, "
+                                 f"{int(moved.max()) if moved.numel() else None}]")
+
+    torch.cuda.reset_peak_memory_stats()
+    fused, launches["FUSED_MAD"], frame_ms["FUSED_MAD"] = fused_mad_in(
+        session, frames, lambda i: mad_tile_launches(i % n_blocks), checked, "fused MAD", owns_block)
+    log(f"fused MAD peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     fused_flat = session.arena.flat.clone()
     fused_disp = session.last_disp.clone()
-    if fused["steps"] != N_FRAMES_FUSED or int(fused["reset_count"]) != 0:
-        raise AssertionError(f"fused MAD: {fused['steps']} steps, {fused['reset_count']} resets")
 
     # the host session over the same frames and weights with the same warps
-    host = make_session(state, "MAD", warp="mxu", **mad_kw)
+    host = make_session(state, "MAD", warp="mxu", **MAD_KW)
     frame_ms["HOST_MAD_MXU"] = timed_host(host, frames, warm=n_blocks)
     assert_trajectory(fused, host_stats(host), "fused MAD against the host session")
     assert_controller(fused, host_stats(host), "fused MAD against the host session")
@@ -1003,7 +1214,7 @@ def run_fused(state, profile_dir):
         raise AssertionError("fused MAD: adapted weights differ from the host session's")
 
     # replay against eager: the same session class without graphs
-    eager = make_session(state, "MAD", warp="mxu", fused=True, use_graphs=False, **mad_kw)
+    eager = make_session(state, "MAD", warp="mxu", fused=True, use_graphs=False, **MAD_KW)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for f in frames:
@@ -1025,7 +1236,7 @@ def run_fused(state, profile_dir):
     # the same session on the clamped-window kernels (warp_mode 'cuda'), for
     # the in-model comparison of the two warp routes: first round captures,
     # then both run the same steady frames, turn and turn about
-    other = make_session(state, "MAD", warp="cuda", fused=True, **mad_kw)
+    other = make_session(state, "MAD", warp="cuda", fused=True, **MAD_KW)
     for f in frames[:n_blocks]:
         other.step(f)
     by_route = {"mxu": [], "cuda": []}
@@ -1057,7 +1268,7 @@ def run_fused(state, profile_dir):
 
     # the one-graph alternative: shared forward, block loss selected on the
     # device, full backward, update masked by block ownership
-    shared = make_session(state, "MAD", warp="mxu", fused=True, shared_forward=True, **mad_kw)
+    shared = make_session(state, "MAD", warp="mxu", fused=True, shared_forward=True, **MAD_KW)
     for f in frames[:checked]:
         shared.step(f)
     torch.cuda.synchronize()
@@ -1075,7 +1286,7 @@ def run_fused(state, profile_dir):
     del shared
 
     # step_chunk over K frames equals K steps
-    chunked = make_session(state, "MAD", warp="mxu", fused=True, **mad_kw)
+    chunked = make_session(state, "MAD", warp="mxu", fused=True, **MAD_KW)
     for c in range(2):
         chunk = frames[c * n_blocks : (c + 1) * n_blocks]
         chunked.step_chunk({k: np.stack([f[k] for f in chunk]) for k in chunk[0]})
@@ -1109,29 +1320,15 @@ def run_fused(state, profile_dir):
 
     # --- FULL
     full_kw = dict(ssim_th=1e9)
-    full_launches = {"corr_fwd": 5, "warp_tile_image_fwd": 1, "warp_tile_features_fwd": 4,
-                     "corr_bwd": 5, "warp_tile_image_bwd": 1, "warp_tile_features_bwd": 4}
-    session = make_session(state, "FULL", warp="mxu", fused=True, **full_kw)
-    cuda_lib.reset_launches()
-    for i, f in enumerate(frames[:2]):
-        step_counted(session, f, full_launches, f"fused FULL frame {i}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for f in frames[2:N_FRAMES_FULL + 3]:
-        session.step(f)
-    torch.cuda.synchronize()
-    frame_ms["FUSED_FULL"] = (time.perf_counter() - t0) * 1e3 / (N_FRAMES_FULL + 1)
-    launches["FUSED_FULL"] = dict(cuda_lib.LAUNCHES)
-    if launches["FUSED_FULL"] != {**dict.fromkeys(cuda_lib.LAUNCHES, 0),
-                                  **{k: v * (N_FRAMES_FULL + 3) for k, v in full_launches.items()}}:
-        raise AssertionError(f"fused FULL: launches {launches['FUSED_FULL']}")
+    fused, launches["FUSED_FULL"], frame_ms["FUSED_FULL"] = fused_full_in(
+        state, frames[:N_FRAMES_FULL + 3], TILE_FULL, "fused FULL")
     host = make_session(state, "FULL", warp="mxu", **full_kw)
     frame_ms["HOST_FULL_MXU"] = timed_host(host, frames[:N_FRAMES_FULL + 3], warm=1)
-    assert_trajectory(session.finalize(), host_stats(host), "fused FULL against the host session")
-    del session, host
+    assert_trajectory(fused, host_stats(host), "fused FULL against the host session")
+    del host
 
     # --- NONE: with metrics (the loss runs), then serving without
-    none_launches = {"corr_fwd": 5, "warp_tile_image_fwd": 1, "warp_tile_features_fwd": 4}
+    none_launches = {**TILE_SERVE, "warp_tile_image_fwd": 1}
     session = make_session(state, "NONE", warp="mxu", fused=True)
     cuda_lib.reset_launches()
     for i, f in enumerate(frames[:3]):
@@ -1141,32 +1338,10 @@ def run_fused(state, profile_dir):
         host.step(f)
     assert_trajectory(session.finalize(), host_stats(host), "fused NONE against the host session")
     del session, host
-    session = make_session(state, "NONE", warp="mxu", fused=True, compute_metrics=False)
-    serve_frames = [{k: f[k] for k in ("left", "right")} for f in frames[:N_FRAMES_NONE + 3]]
-    cuda_lib.reset_launches()
-    disps = list(session.serve(serve_frames[:2]))  # eager and capture, then a replay
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    disps += list(session.serve(serve_frames[2:]))
-    frame_ms["FUSED_NONE_SERVE"] = (time.perf_counter() - t0) * 1e3 / (len(serve_frames) - 2)
-    launches["FUSED_NONE"] = dict(cuda_lib.LAUNCHES)
-    want = {**dict.fromkeys(cuda_lib.LAUNCHES, 0), "corr_fwd": 5 * len(serve_frames),
-            "warp_tile_features_fwd": 4 * len(serve_frames)}
-    if launches["FUSED_NONE"] != want:
-        raise AssertionError(f"fused NONE serving: launches {launches['FUSED_NONE']}, want {want}")
-    if len(disps) != len(serve_frames) or any(
-        d.shape != (1, H, W, 1) or not np.isfinite(d).all() for d in disps
-    ):
-        raise AssertionError("fused NONE serving: bad disparities")
-    # each served disparity is its own frame's: the host session's, frame by frame
-    host = make_session(state, "NONE", warp="mxu")
-    for i in (0, len(serve_frames) - 1):
-        ref = host.step(frames[i])["disp"].cpu().numpy()
-        err = float(np.abs(disps[i] - ref).max()) / float(np.abs(ref).max())
-        log(f"fused NONE served disparity {i} against the host session: {err:.3g} of the largest")
-        if not err <= MODEL_RTOL:
-            raise AssertionError(f"fused NONE serving: disparity {i} is not frame {i}'s")
-    del session, host
+    launches["FUSED_NONE"], frame_ms["FUSED_NONE_SERVE"], disps, session = fused_serve_in(
+        state, frames[:N_FRAMES_NONE + 3], TILE_SERVE, "fused NONE serving")
+    assert_served(state, frames, disps, "fused NONE serving")
+    del session
 
     # --- the reset, on the device: a threshold below every loss
     session = make_session(state, "MAD", warp="mxu", fused=True, sample_mode="FIXED", fixed_id=2,
@@ -1181,7 +1356,7 @@ def run_fused(state, profile_dir):
     log("fused reset safeguard: arena restored on the device, optimizer state kept")
 
     if profile_dir:
-        for mode, kw in (("MAD", mad_kw), ("FULL", full_kw), ("NONE", {})):
+        for mode, kw in (("MAD", MAD_KW), ("FULL", full_kw), ("NONE", {})):
             session = make_session(state, mode, warp="mxu", fused=True, **kw)
             for f in frames[:n_blocks]:
                 session.step(f)  # every branch captured
@@ -1331,24 +1506,10 @@ def run_dispnet(profile_dir):
     # the fused session, tiled warps in the loss: a round checked frame by
     # frame (eager step and capture), then replays, against the host session
     frames = smooth_frames(N_FRAMES_DN + 6, 200)
-    mad_kw = dict(sample_mode="SEQUENTIAL", ssim_th=1e9, seed=0)
-    session = make_session(state, "MAD", warp="mxu", fused=True, model_name="Dispnet", **mad_kw)
-    cuda_lib.reset_launches()
-    for i, f in enumerate(frames[:N_FRAMES_DN]):
-        step_counted(session, f, dn_launches("MAD", i % len(blocks), tiled=True), f"DispNet fused MAD frame {i}")
-    want_graphs = {("mad", (k,)): {n: c for n, c in dn_launches("MAD", k, tiled=True).items() if c}
-                   for k in range(len(blocks))}
-    if session.graph_launches != want_graphs:
-        raise AssertionError(f"DispNet fused MAD: graphs hold {session.graph_launches}, want {want_graphs}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for f in frames[N_FRAMES_DN:]:
-        session.step(f)
-    torch.cuda.synchronize()
-    frame_ms["DISPNET_FUSED_MAD"] = (time.perf_counter() - t0) * 1e3 / (len(frames) - N_FRAMES_DN)
-    launches["DISPNET_FUSED_MAD"] = dict(cuda_lib.LAUNCHES)
-    fused = session.finalize()
-    host = make_session(state, "MAD", warp="mxu", model_name="Dispnet", **mad_kw)
+    session = make_session(state, "MAD", warp="mxu", fused=True, model_name="Dispnet", **MAD_KW)
+    fused, launches["DISPNET_FUSED_MAD"], frame_ms["DISPNET_FUSED_MAD"] = fused_mad_in(
+        session, frames, lambda i: dn_launches("MAD", i % len(blocks), tiled=True), N_FRAMES_DN, "DispNet fused MAD")
+    host = make_session(state, "MAD", warp="mxu", model_name="Dispnet", **MAD_KW)
     frame_ms["DISPNET_HOST_MAD_MXU"] = timed_host(host, frames, warm=len(blocks))
     assert_trajectory(fused, host_stats(host), "DispNet fused MAD against the host session")
     assert_controller(fused, host_stats(host), "DispNet fused MAD against the host session")
@@ -1357,27 +1518,222 @@ def run_dispnet(profile_dir):
     del session, host
 
     # fused NONE serving: no loss, so the correlation alone
-    session = make_session(state, "NONE", warp="mxu", fused=True, model_name="Dispnet", compute_metrics=False)
-    serve_frames = [{k: f[k] for k in ("left", "right")} for f in frames[:N_FRAMES_NONE + 3]]
-    cuda_lib.reset_launches()
-    disps = list(session.serve(serve_frames[:2]))  # eager and capture, then a replay
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    disps += list(session.serve(serve_frames[2:]))
-    frame_ms["DISPNET_FUSED_NONE_SERVE"] = (time.perf_counter() - t0) * 1e3 / (len(serve_frames) - 2)
-    launches["DISPNET_FUSED_NONE"] = dict(cuda_lib.LAUNCHES)
-    want = {**dict.fromkeys(cuda_lib.LAUNCHES, 0), "corr_fwd_wide": len(serve_frames)}
-    if launches["DISPNET_FUSED_NONE"] != want:
-        raise AssertionError(f"DispNet fused NONE serving: launches {launches['DISPNET_FUSED_NONE']}, want {want}")
-    host = make_session(state, "NONE", warp="mxu", model_name="Dispnet")
-    for i in (0, len(serve_frames) - 1):
-        ref = host.step(frames[i])["disp"].cpu().numpy()
-        if disps[i].shape != (1, H, W, 1) or not np.isfinite(disps[i]).all():
-            raise AssertionError(f"DispNet fused NONE serving: bad disparity {i}")
-        err = float(np.abs(disps[i] - ref).max()) / float(np.abs(ref).max())
-        log(f"DispNet fused NONE served disparity {i} against the host session: {err:.3g} of the largest")
-        if not err <= MODEL_RTOL:
-            raise AssertionError(f"DispNet fused NONE serving: disparity {i} is not frame {i}'s")
+    launches["DISPNET_FUSED_NONE"], frame_ms["DISPNET_FUSED_NONE_SERVE"], disps, _ = fused_serve_in(
+        state, frames[:N_FRAMES_NONE + 3], {"corr_fwd_wide": 1}, "DispNet fused NONE serving", model_name="Dispnet")
+    assert_served(state, frames, disps, "DispNet fused NONE serving", model_name="Dispnet")
+    return launches, frame_ms
+
+
+# ------------------------------------------------------------------ phase 8
+PRECISIONS = ("default", "bf16", "bf16_act")
+N_FRAMES_PREC = 15  # three SEQUENTIAL rounds; the first runs eagerly and captures
+# JAX tests/test_adapt.py::test_bf16_act_forward_drift_bounded: the median
+# of |d - d_highest| / max(|d_highest|, 1) over the first frame's full-res
+# disparity
+DRIFT_MEDIAN = 0.05
+# the per-frame EPE of the first MAD round (each block trained once from
+# the same weights) against highest's, relative: the same class of bound as
+# the disparity's drift. Later rounds are printed, not bounded: on these
+# random-weight trajectories each second step of block 0 moves the EPE by
+# some 110 px in every mode (34 to 280 px over 15 frames at highest, with a
+# flat loss), and a divergent trajectory amplifies any rounding difference
+PREC_EPE_RTOL = 0.05
+# fused against host MAD in a mode: the same ops on the same frames (under
+# bf16_act they agreed exactly); cuDNN's bf16 backward rounds its weight
+# gradient to bf16 and is not run to run deterministic, so a step's weights
+# may differ in the last bf16 digit of a gradient where fp32 differs in the
+# seventh decimal. Under default the two sessions' TF32 convolutions do not
+# round alike (frame 0's loss, before any step, differed by 1.2e-5) and the
+# random-weight trajectory amplifies that (1.5e-3 by frame 7), so there the
+# first round (each block trained once) is bounded, in the bf16 modes every
+# frame
+PREC_TRAJ_LOSS_RTOL = 1e-3
+PREC_TRAJ_EPE_RTOL = 1e-2
+PREC_SCORE_ATOL = 1e-4
+# a served disparity against the host session's, of the largest: one bf16
+# ulp in the bf16 modes; under default 1e-2, as the two sessions' TF32
+# convolutions round apart and 49 layers add it up (measured 1.3e-3). A
+# frame served out of order is whole pixels off
+PREC_SERVE_RTOL = {"default": 1e-2, "bf16": 2.0**-8, "bf16_act": 2.0**-8}
+# bf16_act steps, kernels against plain modes: at least this share of the
+# entries where the plain modes' bf16_act and highest results differ lies
+# closer to the bf16_act one; the kernels run at highest (the control)
+# score about 0
+PREC_SHARE = 0.5
+
+
+def in_precision(table, mode):
+    """A launch table as ``mode`` runs it: the correlation's bf16 instances
+    under bf16_act (the features are bf16), the fp32 ones otherwise."""
+    if mode != "bf16_act":
+        return dict(table)
+    return {(f"{k}_bf16" if k.startswith("corr") else k): v for k, v in table.items()}
+
+
+def assert_tf32(mode):
+    got = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if got != (False, mode == "default"):
+        raise AssertionError(f"{mode}: tf32 matmul/cudnn {got}, want (False, {mode == 'default'})")
+
+
+def drift(got, want):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    return float(np.median(np.abs(got - want) / np.maximum(np.abs(want), 1.0)))
+
+
+def closer_share(got, want, highest):
+    """Among the entries where ``want`` (a mode's reference) and
+    ``highest`` differ, the share at which ``got`` lies closer to ``want``."""
+    differ = want != highest
+    if not bool(differ.any()):
+        raise AssertionError("the mode's reference equals highest's")
+    return float(((got - want).abs()[differ] < (got - highest).abs()[differ]).float().mean())
+
+
+def check_bf16_act_against_plain(mad_state, dn_state):
+    """One bf16_act MAD step of MADNet (block 4) and of DispNet (block 3,
+    back through the wide bf16 correlation) with the kernels and with the
+    plain modes on the card. The plain modes' steps at bf16_act and at
+    highest are the references: at the entries where the two differ, the
+    kernels' disparity (the frame's forward) and gradient lie closer to the
+    bf16_act one at PREC_SHARE of them or more, and the kernels run at
+    highest, the control, at fewer. The plain runs launch no kernel; the
+    kernels' runs launch the bf16 correlation under bf16_act only."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision, cuda_lib
+
+    frame = make_smooth_frame(4)
+    for model_name, state, block in (("MADNet", mad_state, 4), ("Dispnet", dn_state, 3)):
+        runs = {}
+        for mode, plain in (("bf16_act", False), ("bf16_act", True), ("highest", True), ("highest", False)):
+            with conv_precision(mode):
+                session = make_session(state, "MAD", plain=plain, model_name=model_name, ssim_th=1e9,
+                                       sample_mode="FIXED", fixed_id=block)
+                cuda_lib.reset_launches()
+                disp = session.step(frame)["disp"].float().flatten()
+            launched = {n for n, c in cuda_lib.LAUNCHES.items() if c}
+            corr = {n for n in launched if n.startswith("corr")}
+            if (plain and launched) or (not plain and (not corr or any(
+                    n.endswith("_bf16") != (mode == "bf16_act") for n in corr))):
+                raise AssertionError(f"{model_name} {mode} {'plain' if plain else 'kernels'}: launched {launched}")
+            acc = session.engine.opt["acc"]
+            runs[mode, plain] = (disp, torch.cat([acc[k].flatten() for k in sorted(acc)]))
+        ref, highest = runs["bf16_act", True], runs["highest", True]
+        for i, what in enumerate(("disparity", "gradient")):
+            scale = float(ref[i].abs().max())
+            kernels = [runs[mode, False][i] for mode in ("bf16_act", "highest")]
+            share, control = (closer_share(k, ref[i], highest[i]) for k in kernels)
+            err, gap = (float((k - ref[i]).abs().max()) / scale for k in kernels)
+            log(f"{model_name} bf16_act MAD block {block} {what}, kernels vs plain modes: within {err:.3g} of the "
+                f"largest, closer to the plain bf16_act result at {share:.3f} of the entries where it differs from "
+                f"highest's; the kernels at highest (control): {gap:.3g}, {control:.3f} (bound {PREC_SHARE})")
+            if not (share >= PREC_SHARE > control):
+                raise AssertionError(f"{model_name} bf16_act {what}: the kernels do not follow the plain modes")
+
+
+def run_precision(state, profile_dir):
+    """Phase 8: the precision modes on the card. MADNet's fused MAD, host
+    MAD and fused NONE serving in every mode against highest on the same
+    frames and weights, fused against host; under bf16_act also fused FULL,
+    DispNet's host MAD (blocks 3-4 run the wide bf16 backward) and fused
+    NONE serving, and one step of each model with the kernels against the
+    plain modes. Returns (launches by path, ms/frame by path)."""
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import params_from_jax
+    from real_time_self_adaptive_deep_stereo_torch.utils.device import resolve_device
+
+    launches, frame_ms = {}, {}
+    dn_state = params_from_jax(seeded_dispnet_params(1))
+    frames = smooth_frames(N_FRAMES_PREC, 300)
+    first = [torch.from_numpy(frames[0][k]).cuda() for k in ("left", "right")]
+
+    def first_frame_disp():
+        model = get_stereo_net("MADNet", bulkhead=True, warp_mode="mxu")
+        model.load_state_dict(state)
+        with torch.no_grad():
+            return model(*first)["full_res_disp"]
+
+    def fused_mad(mode):
+        session = make_session(state, "MAD", warp="mxu", fused=True, **MAD_KW)
+        assert_tf32(mode)
+        n = len(session.engine.blocks)
+        stats, counts, ms = fused_mad_in(session, frames, lambda i: in_precision(mad_tile_launches(i % n), mode),
+                                         n, f"{mode} fused MAD")
+        return stats, counts, ms, session
+
+    ref_disp = first_frame_disp()
+    ref, _, frame_ms["PREC_HIGHEST_FUSED_MAD"], session = fused_mad("highest")
+    n_blocks = len(session.engine.blocks)
+    del session
+    for mode in PRECISIONS:
+        tag = f"PREC_{mode.upper()}"
+        with conv_precision(mode):
+            disp = first_frame_disp()
+            if disp.dtype != torch.float32 or not bool(torch.isfinite(disp).all()):
+                raise AssertionError(f"{mode}: first frame's disparity {disp.dtype}")
+            d = drift(disp, ref_disp)
+            log(f"{mode}: first frame's full-res disparity against highest: median relative error {d:.4g} "
+                f"(bound {DRIFT_MEDIAN})")
+            if not d < DRIFT_MEDIAN:
+                raise AssertionError(f"{mode}: drift {d} from highest")
+
+            stats, launches[f"{tag}_FUSED_MAD"], frame_ms[f"{tag}_FUSED_MAD"], session = fused_mad(mode)
+            rel = np.abs(stats["epe"] - ref["epe"]) / ref["epe"]
+            log(f"{mode} fused MAD EPE per frame {np.round(stats['epe'], 4).tolist()}; highest "
+                f"{np.round(ref['epe'], 4).tolist()}; largest relative difference over the first round "
+                f"{float(rel[:n_blocks].max()):.4g} (bound {PREC_EPE_RTOL}), over all {len(rel)} frames "
+                f"{float(rel.max()):.4g} (not bounded); loss {np.round(stats['loss'], 6).tolist()}")
+            if not float(rel[:n_blocks].max()) <= PREC_EPE_RTOL:
+                raise AssertionError(f"{mode} fused MAD: EPE departs from highest's")
+            if profile_dir and mode == "bf16_act":
+                profile_frames(session, frames[:5], Path(profile_dir), "fused_mad_bf16_act")
+            del session
+
+            # host MAD over the same frames, against the fused trajectory
+            host = make_session(state, "MAD", warp="mxu", **MAD_KW)
+            _, _, launches[f"{tag}_HOST_MAD"], frame_ms[f"{tag}_HOST_MAD"] = drive(
+                host, frames, lambda i: in_precision(mad_tile_launches(i % n_blocks), mode), warm=n_blocks)
+            assert_trajectory(stats, host_stats(host), f"{mode} fused MAD against the host session",
+                              frames=n_blocks if mode == "default" else None,
+                              loss_rtol=PREC_TRAJ_LOSS_RTOL, epe_rtol=PREC_TRAJ_EPE_RTOL)
+            assert_controller(stats, host_stats(host), f"{mode} fused MAD against the host session",
+                              score_atol=PREC_SCORE_ATOL)
+            del host
+
+            serve_rtol = PREC_SERVE_RTOL[mode]
+            launches[f"{tag}_FUSED_NONE"], frame_ms[f"{tag}_FUSED_NONE_SERVE"], disps, session = fused_serve_in(
+                state, frames[:N_FRAMES_NONE + 3], in_precision(TILE_SERVE, mode), f"{mode} fused NONE serving")
+            assert_served(state, frames, disps, f"{mode} fused NONE serving", rtol=serve_rtol)
+            if profile_dir and mode == "bf16_act":
+                profile_frames(session, [{k: f[k] for k in ("left", "right")} for f in frames[:5]],
+                               Path(profile_dir), "fused_none_bf16_act")
+            del session
+            if mode != "bf16_act":
+                continue
+
+            _, launches[f"{tag}_FUSED_FULL"], frame_ms[f"{tag}_FUSED_FULL"] = fused_full_in(
+                state, frames[:N_FRAMES_FULL + 3], in_precision(TILE_FULL, mode), "bf16_act fused FULL")
+
+            # DispNet-Corr1D: host MAD over dispnet_full_6.json, fused NONE serving
+            session = make_session(dn_state, "MAD", model_name="Dispnet", **MAD_KW)
+            results, _, launches[f"{tag}_DISPNET_HOST_MAD"], frame_ms[f"{tag}_DISPNET_HOST_MAD"] = drive(
+                session, make_frames(N_FRAMES_DN, 13), lambda i: in_precision(dn_launches("MAD", i % 6), mode), warm=6)
+            if any(r["disp"].dtype != torch.bfloat16 for r in results):
+                raise AssertionError("DispNet under bf16_act: the disparities must be bf16, as the reference's")
+            del session
+            launches[f"{tag}_DISPNET_FUSED_NONE"], frame_ms[f"{tag}_DISPNET_FUSED_NONE_SERVE"], disps, session = (
+                fused_serve_in(dn_state, frames[:N_FRAMES_NONE + 3], in_precision({"corr_fwd_wide": 1}, mode),
+                               "bf16_act DispNet fused NONE serving", model_name="Dispnet"))
+            if session.last_disp.dtype != torch.bfloat16:
+                raise AssertionError(f"DispNet fused serving under bf16_act: {session.last_disp.dtype}")
+            assert_served(dn_state, frames, disps, "bf16_act DispNet fused NONE serving", model_name="Dispnet",
+                          rtol=serve_rtol)
+            del session
+
+    check_bf16_act_against_plain(state, dn_state)
+    resolve_device("cuda")
+    assert_tf32("highest")
+    log("precision phase done; back under highest, TF32 off")
     return launches, frame_ms
 
 
@@ -1402,7 +1758,7 @@ _GROUPS = (  # first match wins
     ("the port's kernels", r"corr_fwd|corr_bwd|warp_fwd_kernel|feat_gather_fwd|warp_bwd_|tile_image_fwd|tile_feat_fwd|tile_bwd_"),
     ("cuDNN backward (dgrad, wgrad)", r"dgrad|wgrad"),
     ("cuDNN/cuBLAS convolutions and matmuls, incl. FFT and layout transforms",
-     r"fprop|convolve|region_transform|fft|DSE::|gemm|gemv|cudnn|flip_filter"),
+     r"fprop|convolve|region_transform|fft|DSE::|gemm|gemv|cudnn|flip_filter|xmma|cutlass"),
     ("PyTorch elementwise, reduce, pad, cat, copy", r"."),
 )
 
@@ -1454,6 +1810,9 @@ def main() -> int:
                     help="run the fused-session phase (6) alone, without the result lines")
     ap.add_argument("--dispnet-only", action="store_true",
                     help="run the DispNet phase (7) alone, without the result lines")
+    ap.add_argument("--precision-only", action="store_true",
+                    help="check the bf16 kernels and run the precision phase (8) alone, "
+                         "without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1487,6 +1846,18 @@ def main() -> int:
         usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get(lib, ""), kernel) or ["cached build, no report"]
         log(f"ptxas {kernel}: {'; '.join(usage)}")
 
+    if args.precision_only:
+        rows = {name: [] for name in REPLACES}
+        check_bf16_kernels(ops, rows)
+        for name, rs in rows.items():
+            for r in rs:
+                log(f"kernel {name} {r}")
+        _, frame_ms = run_precision(params_from_jax(seeded_jax_params(0)), args.profile)
+        for mode, ms in frame_ms.items():
+            log(f"session {mode} ms/frame {ms!r}")
+        log(card)
+        log("precision checked; no result lines (--precision-only)")
+        return 0
     if args.fused_only or args.dispnet_only:
         if args.fused_only:
             _, frame_ms = run_fused(params_from_jax(seeded_jax_params(0)), args.profile)
@@ -1507,7 +1878,7 @@ def main() -> int:
         launches[mode], frame_ms[mode] = run(state, args.profile)
     check_steps_against_plain(state)
     check_reset(state)
-    for phase in (run_fused, lambda _, profile: run_dispnet(profile)):
+    for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision):
         phase_launches, phase_ms = phase(state, args.profile)
         launches.update(phase_launches)
         frame_ms.update(phase_ms)
@@ -1515,8 +1886,8 @@ def main() -> int:
     kernels = []
     for name, rs in rows.items():
         lib_ms = [r["library_ms"] for r in rs]
-        shape_keys = ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "library_ms", "main_path_ms",
-                      "main_path_library_ms", "wide_ms")
+        shape_keys = ("shape", "radius", "ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms", "library_ms",
+                      "main_path_ms", "main_path_library_ms", "wide_ms")
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1536,6 +1907,8 @@ def main() -> int:
             # backward kernels: the gradients the main path asks for alone
             **({k: sum(r[k] for r in rs) for k in ("main_path_ms", "main_path_library_ms")}
                if "main_path_ms" in rs[0] else {}),
+            # bf16 instances: the fp32 instance's time at the same shapes
+            **({"fp32_ms": sum(r["fp32_ms"] for r in rs)} if "fp32_ms" in rs[0] else {}),
             "shapes": [{k: r[k] for k in shape_keys if k in r} for r in rs],
         })
     idle = [k["name"] for k in kernels if not any(k["launches_by_path"].values())]

@@ -37,6 +37,7 @@ from real_time_self_adaptive_deep_stereo_torch.losses import (
     get_proxy_loss,
     get_reprojection_loss,
 )
+from real_time_self_adaptive_deep_stereo_torch.ops.conv import get_conv_precision
 from real_time_self_adaptive_deep_stereo_torch.ops.resize import resize_bilinear
 from real_time_self_adaptive_deep_stereo_torch.utils import optim
 from real_time_self_adaptive_deep_stereo_torch.utils.device import resolve_device
@@ -99,6 +100,12 @@ class AdaptationEngine:
       reprojection_scale: compute block losses at 1/scale resolution.
       momentum: the momentum optimizer's beta.
       warp_mode: warp mode of the loss's image warp (``ops/warp.py``).
+
+    The engine runs under the convolution precision in force when it is
+    built (``ops/conv.py::set_conv_precision``), kept as ``precision``; a
+    step under another mode raises. The parameters, their gradients and
+    the optimizer state stay fp32 in every mode: the bf16 modes cast the
+    weights per call.
     """
 
     def __init__(
@@ -115,7 +122,8 @@ class AdaptationEngine:
     ):
         if optimizer not in ("momentum", "adam"):
             raise ValueError(f"unknown optimizer {optimizer!r}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device)  # also sets TF32 from the mode
+        self.precision = get_conv_precision()
         self.model = model.to(self.device)
         self.blocks = list(blocks) if blocks else []
         self.lr = lr
@@ -143,6 +151,15 @@ class AdaptationEngine:
 
         self._named_params: Dict[str, torch.nn.Parameter] = dict(self.model.named_parameters())
         self.opt: Optional[Dict] = None
+
+    def check_precision(self) -> None:
+        """Raise unless the precision in force is the engine's."""
+        now = get_conv_precision()
+        if now != self.precision:
+            raise RuntimeError(
+                f"the engine was built under conv precision {self.precision!r} but "
+                f"{now!r} is in force; build a new engine (and session) for that mode"
+            )
 
     # ------------------------------------------------------------- opt state
     def init_opt(self) -> Dict:
@@ -224,6 +241,7 @@ class AdaptationEngine:
     # ------------------------------------------------------------- step fns
     def infer(self, frame: Dict) -> Dict[str, torch.Tensor]:
         """Mode NONE: forward, loss and metrics; results stay on the device."""
+        self.check_precision()
         frame = self._to_device(frame)
         with torch.no_grad():
             out = self.model(frame["left"], frame["right"])
@@ -232,6 +250,7 @@ class AdaptationEngine:
 
     def adapt_full(self, frame: Dict) -> Dict[str, torch.Tensor]:
         """Mode FULL: one step on every parameter with the full loss."""
+        self.check_precision()
         frame = self._to_device(frame)
         names, params = list(self._named_params), list(self._named_params.values())
         self._set_trainable()
@@ -263,6 +282,7 @@ class AdaptationEngine:
         update reads the pre-step step count, which then advances once
         per block trained. ``block_loss`` is the stack of block losses in
         sorted id order."""
+        self.check_precision()
         frame = self._to_device(frame)
         sel = [self.blocks[k] for k in sorted(dict.fromkeys(int(k) for k in ks))]
         self._set_trainable([p for block in sel for p in block.params])

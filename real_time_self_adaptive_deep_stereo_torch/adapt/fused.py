@@ -74,6 +74,10 @@ Branch = Tuple  # ("none",) | ("full",) | ("shared",) | ("mad", (k, ...))
 _FRAME_KEYS = ("left", "right", "target", "proxy")
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 class FusedOnlineSession:
     """Device-resident NONE / FULL / MAD adaptation session.
 
@@ -555,7 +559,10 @@ class FusedOnlineSession:
         """Dispatch one frame; returns at once. The frame's full-resolution
         disparity is kept as ``last_disp``, a device tensor that holds its
         values until the next step (it lives in the graphs' memory pool):
-        fetch it with :meth:`fetch_disp`, or clone it, before stepping on."""
+        fetch it with :meth:`fetch_disp`, or clone it, before stepping on.
+        Raises if the conv precision in force is no longer the engine's: a
+        graph captured under one mode would replay that mode."""
+        self.engine.check_precision()
         bufs = self._load_frame(frame)
         branch = self._pick_branch(self._host_step)
         self.last_disp = self._dispatch(branch, bufs)
@@ -568,13 +575,15 @@ class FusedOnlineSession:
         on the step's stream, so it is ordered before the next replay
         overwrites the disparity; the materializer waits on its event.
         Call it right after ``step``; materialize before the second fetch
-        after this one reuses the buffer."""
+        after this one reuses the buffer. numpy has no bfloat16: a bf16
+        disparity (DispNet under ``bf16_act``) arrives widened to float32,
+        losslessly."""
         d = self.last_disp
         if d is None:
             raise RuntimeError("fetch_disp before the first step")
         if self.device.type != "cuda":
             host = d.detach().clone()
-            return lambda: host.numpy()
+            return lambda: _numpy(host)
         slot = self._fetches % 2
         self._fetches += 1
         host = self._disp_host[slot]
@@ -588,7 +597,7 @@ class FusedOnlineSession:
 
         def materialize() -> np.ndarray:
             event.synchronize()
-            return host.numpy().copy()
+            return _numpy(host).copy()
 
         return materialize
 

@@ -70,17 +70,52 @@
 // atomics, and two runs agree bit for bit. Folding 1/C into the staged g
 // and fusing the products into the sums rounds otherwise than the plain
 // version, within a few ulps of each output's terms.
+//
+// Precision. Each kernel is a template on its element type T, float or
+// __nv_bfloat16, and has an fp32 and a bf16 entry point. The JAX package
+// calls the Pallas kernel on bf16 features under its `bf16_act` precision
+// mode: `_corr_fwd_kernel` widens x and y to fp32, accumulates in fp32
+// and stores in the input dtype. The bf16 instances do the same: every
+// load widens with __bfloat162float (exact), every sum is kept in fp32,
+// and the one store of each output rounds with __float2bfloat16_rn,
+// round-to-nearest-even as JAX's `astype`. Their backward computes in
+// fp32 from the bf16 values and rounds each gradient once, where the
+// reference's plain-jnp backward computes in bf16 (ROADMAP.md, section 3).
+// A product of two bf16 values is exact in fp32, so the bf16 instances
+// round as the fp32 kernels round on the widened inputs. The wide kernels
+// widen while they stage, so their shared memory holds fp32 as before.
+// bf16 halves the bytes each kernel must move, not its fp32 operations.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
 
-template <int R>
-__global__ void corr_fwd_kernel(const float* __restrict__ x,
-                                const float* __restrict__ y,
-                                float* __restrict__ out, int C, int H, int W,
+// one element of T from device memory through the read-only path, as fp32
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// an fp32 value stored as T: rounded to nearest even for bf16
+template <typename T>
+__device__ __forceinline__ T store_as(float v);
+template <>
+__device__ __forceinline__ float store_as<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <int R, typename T>
+__global__ void corr_fwd_kernel(const T* __restrict__ x,
+                                const T* __restrict__ y,
+                                T* __restrict__ out, int C, int H, int W,
                                 float inv_c) {
   constexpr int K = 2 * R + 1;
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
@@ -90,8 +125,8 @@ __global__ void corr_fwd_kernel(const float* __restrict__ x,
 
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t row = static_cast<size_t>(h) * W;
-  const float* xp = x + static_cast<size_t>(b) * C * plane + row;
-  const float* yp = y + static_cast<size_t>(b) * C * plane + row;
+  const T* xp = x + static_cast<size_t>(b) * C * plane + row;
+  const T* yp = y + static_cast<size_t>(b) * C * plane + row;
 
   // The bounds check is made once per thread: every load in the channel
   // loop is unconditional (at a clamped column) and an out-of-range shift
@@ -111,25 +146,25 @@ __global__ void corr_fwd_kernel(const float* __restrict__ x,
 
 #pragma unroll 4
   for (int c = 0; c < C; ++c) {
-    const float xv = __ldg(xp + c * plane + w);
-    const float* yr = yp + c * plane;
+    const float xv = load(xp + c * plane + w);
+    const T* yr = yp + c * plane;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const float yv = __ldg(yr + col[k]);
+      const float yv = load(yr + col[k]);
       acc[k] = inside[k] ? fmaf(xv, yv, acc[k]) : acc[k];
     }
   }
 
-  float* op = out + static_cast<size_t>(b) * K * plane + row + w;
+  T* op = out + static_cast<size_t>(b) * K * plane + row + w;
 #pragma unroll
-  for (int k = 0; k < K; ++k) op[k * plane] = acc[k] * inv_c;
+  for (int k = 0; k < K; ++k) op[k * plane] = store_as<T>(acc[k] * inv_c);
 }
 
-template <int R>
-__global__ void corr_bwd_kernel(const float* __restrict__ x,
-                                const float* __restrict__ y,
-                                const float* __restrict__ g,
-                                float* __restrict__ dx, float* __restrict__ dy,
+template <int R, typename T>
+__global__ void corr_bwd_kernel(const T* __restrict__ x,
+                                const T* __restrict__ y,
+                                const T* __restrict__ g,
+                                T* __restrict__ dx, T* __restrict__ dy,
                                 int C, int H, int W, float inv_c) {
   constexpr int K = 2 * R + 1;
   const int plane = H * W;
@@ -141,42 +176,42 @@ __global__ void corr_bwd_kernel(const float* __restrict__ x,
   const int w = p % W;
   const int row = p - w;
   const size_t chan = (static_cast<size_t>(b) * C + c) * plane;
-  const float* xr = x + chan + row;
-  const float* yr = y + chan + row;
-  const float* gr = g + static_cast<size_t>(b) * K * plane + row;
+  const T* xr = x + chan + row;
+  const T* yr = y + chan + row;
+  const T* gr = g + static_cast<size_t>(b) * K * plane + row;
 
   float ax = 0.f, ay = 0.f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int wy = w + k - R;  // the y column that output w reads at shift k
     if (wy >= 0 && wy < W) {
-      const float t = __fmul_rn(__ldg(gr + k * plane + w), __ldg(yr + wy));
+      const float t = __fmul_rn(load(gr + k * plane + w), load(yr + wy));
       ax = __fadd_rn(ax, __fmul_rn(t, inv_c));
     }
     const int wx = w + R - k;  // the output whose shift k reads y column w
     if (wx >= 0 && wx < W) {
-      const float t = __fmul_rn(__ldg(gr + k * plane + wx), __ldg(xr + wx));
+      const float t = __fmul_rn(load(gr + k * plane + wx), load(xr + wx));
       ay = __fadd_rn(ay, __fmul_rn(t, inv_c));
     }
   }
-  dx[chan + p] = ax;
-  dy[chan + p] = ay;
+  dx[chan + p] = store_as<T>(ax);
+  dy[chan + p] = store_as<T>(ay);
 }
 
-template <int R>
-void launch_bwd(const float* x, const float* y, const float* g, float* dx,
-                float* dy, int B, int C, int H, int W, cudaStream_t stream) {
+template <int R, typename T>
+void launch_bwd(const T* x, const T* y, const T* g, T* dx, T* dy, int B, int C,
+                int H, int W, cudaStream_t stream) {
   const dim3 grid((H * W + kThreads - 1) / kThreads, C, B);
-  corr_bwd_kernel<R><<<grid, kThreads, 0, stream>>>(x, y, g, dx, dy, C, H, W,
-                                                    1.0f / C);
+  corr_bwd_kernel<R, T><<<grid, kThreads, 0, stream>>>(x, y, g, dx, dy, C, H,
+                                                       W, 1.0f / C);
 }
 
-template <int R>
-void launch(const float* x, const float* y, float* out, int B, int C, int H,
-            int W, cudaStream_t stream) {
+template <int R, typename T>
+void launch(const T* x, const T* y, T* out, int B, int C, int H, int W,
+            cudaStream_t stream) {
   const dim3 grid((W + kThreads - 1) / kThreads, H, B);
-  corr_fwd_kernel<R><<<grid, kThreads, 0, stream>>>(x, y, out, C, H, W,
-                                                    1.0f / C);
+  corr_fwd_kernel<R, T><<<grid, kThreads, 0, stream>>>(x, y, out, C, H, W,
+                                                       1.0f / C);
 }
 
 // ---------------------------------------------------------- any radius
@@ -192,11 +227,11 @@ constexpr int kBwdChannels = 32;  // channels a block sums for at a time
 constexpr int kBwdChannelsPerThread = kBwdChannels / kWideGroups;  // 8
 constexpr int kBwdWindow = kWideTile + kBwdShifts - 1;  // x, y columns staged
 
+template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
-    corr_fwd_wide_kernel(const float* __restrict__ x,
-                         const float* __restrict__ y, float* __restrict__ out,
-                         int C, int H, int W, int R, int n_tiles,
-                         float inv_c) {
+    corr_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                         T* __restrict__ out, int C, int H, int W, int R,
+                         int n_tiles, float inv_c) {
   __shared__ float xs[kFwdChannels][kWideTile];
   __shared__ float ys[kFwdChannels][kFwdWindow];
   const int K = 2 * R + 1;
@@ -211,8 +246,8 @@ __global__ void __launch_bounds__(kWideThreads)
 
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t row = static_cast<size_t>(h) * W;
-  const float* xp = x + static_cast<size_t>(b) * C * plane + row;
-  const float* yp = y + static_cast<size_t>(b) * C * plane + row;
+  const T* xp = x + static_cast<size_t>(b) * C * plane + row;
+  const T* yp = y + static_cast<size_t>(b) * C * plane + row;
 
   float acc[kFwdShiftsPerThread];
 #pragma unroll
@@ -224,12 +259,12 @@ __global__ void __launch_bounds__(kWideThreads)
     for (int i = threadIdx.x; i < nc * kWideTile; i += kWideThreads) {
       const int c = i / kWideTile, j = i % kWideTile;
       const int col = w0 + j;
-      xs[c][j] = col < W ? __ldg(xp + (c0 + c) * plane + col) : 0.f;
+      xs[c][j] = col < W ? load(xp + (c0 + c) * plane + col) : 0.f;
     }
     for (int i = threadIdx.x; i < nc * kFwdWindow; i += kWideThreads) {
       const int c = i / kFwdWindow, j = i - c * kFwdWindow;
       const int col = ystart + j;
-      ys[c][j] = (col >= 0 && col < W) ? __ldg(yp + (c0 + c) * plane + col) : 0.f;
+      ys[c][j] = (col >= 0 && col < W) ? load(yp + (c0 + c) * plane + col) : 0.f;
     }
     __syncthreads();
     for (int c = 0; c < nc; ++c) {
@@ -244,19 +279,19 @@ __global__ void __launch_bounds__(kWideThreads)
 
   const int w = w0 + lane;
   if (w >= W) return;
-  float* op = out + (static_cast<size_t>(b) * K + k0) * plane + row + w;
+  T* op = out + (static_cast<size_t>(b) * K + k0) * plane + row + w;
 #pragma unroll
   for (int j = 0; j < kFwdShiftsPerThread; ++j) {
     const int s = grp + kWideGroups * j;
-    if (s < n_shifts) op[s * plane] = acc[j] * inv_c;
+    if (s < n_shifts) op[s * plane] = store_as<T>(acc[j] * inv_c);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
-    corr_bwd_wide_kernel(const float* __restrict__ x,
-                         const float* __restrict__ y,
-                         const float* __restrict__ g, float* __restrict__ dx,
-                         float* __restrict__ dy, int C, int H, int W, int R,
+    corr_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                         const T* __restrict__ g, T* __restrict__ dx,
+                         T* __restrict__ dy, int C, int H, int W, int R,
                          float inv_c) {
   __shared__ float gx[kBwdShifts][kWideTile];  // g[k][w] / C, w in the tile
   __shared__ float gy[kBwdShifts][kWideTile];  // g[k][v + R - k] / C
@@ -272,12 +307,12 @@ __global__ void __launch_bounds__(kWideThreads)
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t row = static_cast<size_t>(h) * W;
   const size_t batch = static_cast<size_t>(b) * C * plane + row;
-  const float* gp = g + static_cast<size_t>(b) * K * plane + row;
+  const T* gp = g + static_cast<size_t>(b) * K * plane + row;
 
   for (int c0 = 0; c0 < C; c0 += kBwdChannels) {
     const int nc = min(kBwdChannels, C - c0);
-    const float* xp = x + batch + c0 * plane;
-    const float* yp = y + batch + c0 * plane;
+    const T* xp = x + batch + c0 * plane;
+    const T* yp = y + batch + c0 * plane;
     float ax[kBwdChannelsPerThread], ay[kBwdChannelsPerThread];
 #pragma unroll
     for (int i = 0; i < kBwdChannelsPerThread; ++i) ax[i] = ay[i] = 0.f;
@@ -293,16 +328,16 @@ __global__ void __launch_bounds__(kWideThreads)
       for (int i = threadIdx.x; i < ns * kWideTile; i += kWideThreads) {
         const int kk = i / kWideTile, j = i % kWideTile;
         const int k = k0 + kk;
-        const float* gr = gp + k * plane;
+        const T* gr = gp + k * plane;
         const int cx = w0 + j, cy = w0 + j + R - k;
-        gx[kk][j] = cx < W ? __ldg(gr + cx) * inv_c : 0.f;
-        gy[kk][j] = (cy >= 0 && cy < W) ? __ldg(gr + cy) * inv_c : 0.f;
+        gx[kk][j] = cx < W ? load(gr + cx) * inv_c : 0.f;
+        gy[kk][j] = (cy >= 0 && cy < W) ? load(gr + cy) * inv_c : 0.f;
       }
       for (int i = threadIdx.x; i < nc * kBwdWindow; i += kWideThreads) {
         const int c = i / kBwdWindow, j = i - c * kBwdWindow;
         const int cy = ystart + j, cx = xstart + j;
-        ys[c][j] = (cy >= 0 && cy < W) ? __ldg(yp + c * plane + cy) : 0.f;
-        xs[c][j] = (cx >= 0 && cx < W) ? __ldg(xp + c * plane + cx) : 0.f;
+        ys[c][j] = (cy >= 0 && cy < W) ? load(yp + c * plane + cy) : 0.f;
+        xs[c][j] = (cx >= 0 && cx < W) ? load(xp + c * plane + cx) : 0.f;
       }
       __syncthreads();
       for (int kk = 0; kk < ns; ++kk) {
@@ -324,12 +359,66 @@ __global__ void __launch_bounds__(kWideThreads)
         const int c = grp + kWideGroups * i;
         if (c < nc) {
           const size_t at = batch + (c0 + c) * plane + w;
-          dx[at] = ax[i];
-          dy[at] = ay[i];
+          dx[at] = store_as<T>(ax[i]);
+          dy[at] = store_as<T>(ay[i]);
         }
       }
     }
   }
+}
+
+// ------------------------------------------------------- entry points
+template <typename T>
+int corr_fwd_impl(const T* x, const T* y, T* out, int B, int C, int H, int W,
+                  int radius, cudaStream_t stream) {
+  switch (radius) {
+    case 1: launch<1, T>(x, y, out, B, C, H, W, stream); break;
+    case 2: launch<2, T>(x, y, out, B, C, H, W, stream); break;
+    case 3: launch<3, T>(x, y, out, B, C, H, W, stream); break;
+    case 4: launch<4, T>(x, y, out, B, C, H, W, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int corr_bwd_impl(const T* x, const T* y, const T* g, T* dx, T* dy, int B,
+                  int C, int H, int W, int radius, cudaStream_t stream) {
+  switch (radius) {
+    case 1: launch_bwd<1, T>(x, y, g, dx, dy, B, C, H, W, stream); break;
+    case 2: launch_bwd<2, T>(x, y, g, dx, dy, B, C, H, W, stream); break;
+    case 3: launch_bwd<3, T>(x, y, g, dx, dy, B, C, H, W, stream); break;
+    case 4: launch_bwd<4, T>(x, y, g, dx, dy, B, C, H, W, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int corr_fwd_wide_impl(const T* x, const T* y, T* out, int B, int C, int H,
+                       int W, int radius, cudaStream_t stream) {
+  if (radius < 0 || B > 65535 || H > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_tiles = (W + kWideTile - 1) / kWideTile;
+  const int n_chunks = (2 * radius + 1 + kFwdShifts - 1) / kFwdShifts;
+  const dim3 grid(n_tiles * n_chunks, H, B);
+  corr_fwd_wide_kernel<T><<<grid, kWideThreads, 0, stream>>>(
+      x, y, out, C, H, W, radius, n_tiles, 1.0f / C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int corr_bwd_wide_impl(const T* x, const T* y, const T* g, T* dx, T* dy,
+                       int B, int C, int H, int W, int radius,
+                       cudaStream_t stream) {
+  if (radius < 0 || B > 65535 || H > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((W + kWideTile - 1) / kWideTile, H, B);
+  corr_bwd_wide_kernel<T><<<grid, kWideThreads, 0, stream>>>(
+      x, y, g, dx, dy, C, H, W, radius, 1.0f / C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -340,14 +429,7 @@ extern "C" {
 // Returns cudaGetLastError() after the launch (0 on success).
 int corr_fwd(const float* x, const float* y, float* out, int B, int C, int H,
              int W, int radius, cudaStream_t stream) {
-  switch (radius) {
-    case 1: launch<1>(x, y, out, B, C, H, W, stream); break;
-    case 2: launch<2>(x, y, out, B, C, H, W, stream); break;
-    case 3: launch<3>(x, y, out, B, C, H, W, stream); break;
-    case 4: launch<4>(x, y, out, B, C, H, W, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return corr_fwd_impl(x, y, out, B, C, H, W, radius, stream);
 }
 
 // x, y: [B, C, H, W] fp32 contiguous; g: [B, 2*radius+1, H, W], the gradient
@@ -355,41 +437,48 @@ int corr_fwd(const float* x, const float* y, float* out, int B, int C, int H,
 int corr_bwd(const float* x, const float* y, const float* g, float* dx,
              float* dy, int B, int C, int H, int W, int radius,
              cudaStream_t stream) {
-  switch (radius) {
-    case 1: launch_bwd<1>(x, y, g, dx, dy, B, C, H, W, stream); break;
-    case 2: launch_bwd<2>(x, y, g, dx, dy, B, C, H, W, stream); break;
-    case 3: launch_bwd<3>(x, y, g, dx, dy, B, C, H, W, stream); break;
-    case 4: launch_bwd<4>(x, y, g, dx, dy, B, C, H, W, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return corr_bwd_impl(x, y, g, dx, dy, B, C, H, W, radius, stream);
 }
 
 // Any radius >= 0; same arguments as corr_fwd. B and H may be at most 65535.
 int corr_fwd_wide(const float* x, const float* y, float* out, int B, int C,
                   int H, int W, int radius, cudaStream_t stream) {
-  if (radius < 0 || B > 65535 || H > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int n_tiles = (W + kWideTile - 1) / kWideTile;
-  const int n_chunks = (2 * radius + 1 + kFwdShifts - 1) / kFwdShifts;
-  const dim3 grid(n_tiles * n_chunks, H, B);
-  corr_fwd_wide_kernel<<<grid, kWideThreads, 0, stream>>>(
-      x, y, out, C, H, W, radius, n_tiles, 1.0f / C);
-  return static_cast<int>(cudaGetLastError());
+  return corr_fwd_wide_impl(x, y, out, B, C, H, W, radius, stream);
 }
 
 // Any radius >= 0; same arguments as corr_bwd. B and H may be at most 65535.
 int corr_bwd_wide(const float* x, const float* y, const float* g, float* dx,
                   float* dy, int B, int C, int H, int W, int radius,
                   cudaStream_t stream) {
-  if (radius < 0 || B > 65535 || H > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((W + kWideTile - 1) / kWideTile, H, B);
-  corr_bwd_wide_kernel<<<grid, kWideThreads, 0, stream>>>(
-      x, y, g, dx, dy, C, H, W, radius, 1.0f / C);
-  return static_cast<int>(cudaGetLastError());
+  return corr_bwd_wide_impl(x, y, g, dx, dy, B, C, H, W, radius, stream);
+}
+
+// The bf16 instances of the four: the same arguments with every tensor
+// bf16 (outputs too); fp32 sums, one rounding per output.
+int corr_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                  __nv_bfloat16* out, int B, int C, int H, int W, int radius,
+                  cudaStream_t stream) {
+  return corr_fwd_impl(x, y, out, B, C, H, W, radius, stream);
+}
+
+int corr_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                  const __nv_bfloat16* g, __nv_bfloat16* dx,
+                  __nv_bfloat16* dy, int B, int C, int H, int W, int radius,
+                  cudaStream_t stream) {
+  return corr_bwd_impl(x, y, g, dx, dy, B, C, H, W, radius, stream);
+}
+
+int corr_fwd_wide_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                       __nv_bfloat16* out, int B, int C, int H, int W,
+                       int radius, cudaStream_t stream) {
+  return corr_fwd_wide_impl(x, y, out, B, C, H, W, radius, stream);
+}
+
+int corr_bwd_wide_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                       const __nv_bfloat16* g, __nv_bfloat16* dx,
+                       __nv_bfloat16* dy, int B, int C, int H, int W,
+                       int radius, cudaStream_t stream) {
+  return corr_bwd_wide_impl(x, y, g, dx, dy, B, C, H, W, radius, stream);
 }
 
 const char* kernel_error_string(int err) {

@@ -19,6 +19,10 @@ with the same architecture and defaults, in both variants:
   centre-cropped, and the final prediction resized and doubled.
 
 Activations are leaky-relu(0.1) except the linear layers named above.
+Under the ``bf16_act`` precision mode (``ops/conv.py``) every activation
+after the first convolution is bf16, and so are the seven disparities:
+the JAX model casts none of them back to fp32, unlike MADNet's heads, and
+the port keeps that. Every concat joins tensors of the activation dtype.
 Parameter groups keep the JAX keys (``conv1`` .. ``conv6_1``,
 ``conv_redir``, ``up5.deconv`` .. ``up1.concat``, ``prediction``), each
 with ``weight`` and ``bias``; convolution weights are OIHW, transposed

@@ -159,7 +159,8 @@ class MADNet(nn.Module):
 
     # --------------------------------------------------------------- forward
     def _make_disp(self, v: torch.Tensor, hp: int, wp: int, h: int, w: int) -> torch.Tensor:
-        """relu(-20*V) upsampled to padded res, cropped back."""
+        """relu(-20*V) upsampled to padded res, cropped back; fp32 under
+        every precision mode, as the JAX heads."""
         d = resize_bilinear(torch.relu(v.float() * -20.0), hp, wp)
         return crop_or_pad(d, h, w)
 
@@ -201,9 +202,13 @@ class MADNet(nn.Module):
                     u = u.detach()
                 if self.warping:
                     bound = -(-self.warp_max_disp // factor)  # ceil
-                    rf = warp_features_by_mode(rf, u, self.warp_mode, bound, 4)
+                    # the warp runs in fp32; the cost volume stays in the
+                    # feature dtype (bf16 under 'bf16_act'), as in JAX
+                    rf = warp_features_by_mode(rf, u, self.warp_mode, bound, 4).to(lf.dtype)
             corr = correlation(lf, rf, self.radius_d, self.stride, mode=self.corr_mode)
-            volume = torch.cat([lf, corr] if u is None else [lf, corr, u], dim=1)
+            # torch.cat would promote a mixed list: cast each part first
+            parts = [lf, corr.to(lf.dtype)] + ([] if u is None else [u.to(lf.dtype)])
+            volume = torch.cat(parts, dim=1)
             est = getattr(self, f"estimator_{k}")
             v = volume
             for j in range(1, 7):
@@ -213,7 +218,7 @@ class MADNet(nn.Module):
             last_left = lf
 
         if self.context_net:
-            x = torch.cat([last_left, v], dim=1)
+            x = torch.cat([last_left, v.to(last_left.dtype)], dim=1)
             for j in range(1, 8):
                 x = self.context[f"context{j}"](x)
             v = v + x

@@ -1,9 +1,13 @@
 from real_time_self_adaptive_deep_stereo_torch.ops.conv import (  # noqa: F401
+    PRECISIONS,
     conv2d,
     conv2d_transpose,
+    conv_precision,
     dilated_conv2d,
+    get_conv_precision,
     init_conv,
     leaky_relu,
+    set_conv_precision,
 )
 from real_time_self_adaptive_deep_stereo_torch.ops.correlation import (  # noqa: F401
     correlation,

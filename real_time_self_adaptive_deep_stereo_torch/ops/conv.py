@@ -2,9 +2,23 @@
 
 Port of ``real_time_self_adaptive_deep_stereo_tpu/ops/conv.py``
 (``leaky_relu``, ``init_conv``, ``conv2d``, ``dilated_conv2d``,
-``conv2d_transpose``) at its
-default precision, ``highest``: fp32 convolutions on cuDNN with TF32 off
-(see ``utils/device.py``). The other precision modes come later.
+``conv2d_transpose``) with its four precision modes, set globally by
+:func:`set_conv_precision` as in JAX:
+
+* ``highest`` (the default): fp32 convolutions, on cuDNN with TF32 off;
+* ``default``: fp32 operands, TF32 on cuDNN, which is what JAX's
+  ``Precision.DEFAULT`` is on a GPU; fp32 on the CPU, as in JAX;
+* ``bf16``: operands cast to bf16 (the weight per call, so that the fp32
+  master weights take the gradient), fp32 accumulation, the convolution's
+  output rounded to bf16 and widened again, and the bias and activation in
+  fp32;
+* ``bf16_act``: the same, with the bias and activation in bf16 whatever
+  the input's dtype, so that the activations between convolutions are
+  bf16.
+
+The TF32 flags follow the mode (:func:`apply_precision_flags`, also run by
+``utils/device.py::resolve_device``); cuBLAS matmuls stay fp32 in every
+mode, as the JAX resize's ``precision="highest"`` matmuls do.
 
 TF SAME padding splits the total pad ``max((out-1)*s + k_eff - in, 0)``
 as ``total//2`` before and the rest after, so at stride 2 on an even
@@ -16,18 +30,70 @@ convolution.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["leaky_relu", "init_conv", "conv2d", "dilated_conv2d", "conv2d_transpose", "same_pad"]
+__all__ = [
+    "leaky_relu", "init_conv", "conv2d", "dilated_conv2d", "conv2d_transpose", "same_pad",
+    "PRECISIONS", "set_conv_precision", "get_conv_precision", "conv_precision",
+    "apply_precision_flags",
+]
+
+PRECISIONS = ("highest", "default", "bf16", "bf16_act")
+_PRECISION = "highest"
+
+
+def apply_precision_flags() -> None:
+    """Set PyTorch's TF32 flags from the mode: cuDNN's on under
+    ``default`` only, cuBLAS's always off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = _PRECISION == "default"
+
+
+def set_conv_precision(p: str) -> None:
+    """Set the global convolution precision, one of :data:`PRECISIONS`
+    (the JAX package's strings), and the TF32 flags that go with it."""
+    global _PRECISION
+    if p not in PRECISIONS:
+        raise ValueError(f"unknown conv precision {p!r}; one of {PRECISIONS}")
+    _PRECISION = p
+    apply_precision_flags()
+
+
+def get_conv_precision() -> str:
+    return _PRECISION
+
+
+@contextlib.contextmanager
+def conv_precision(p: str) -> Iterator[None]:
+    """Run a block under precision ``p`` and restore the previous mode."""
+    prev = _PRECISION
+    set_conv_precision(p)
+    try:
+        yield
+    finally:
+        set_conv_precision(prev)
+
+
+def _bf16_epilogue(x: torch.Tensor) -> Optional[torch.dtype]:
+    """Under ``bf16`` and ``bf16_act``, the dtype of the bias and
+    activation (JAX ``_epilogue_dtype``): bf16 under ``bf16_act``, else the
+    input's. None in the fp32 modes."""
+    if _PRECISION == "bf16_act":
+        return torch.bfloat16
+    return x.dtype if _PRECISION == "bf16" else None
 
 
 def leaky_relu(alpha: float = 0.1) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``max(alpha*x, x)``, the form the JAX package uses."""
-    return lambda x: torch.maximum(alpha * x, x)
+    """``max(alpha*x, x)``, the form the JAX package uses. On a bf16 ``x``
+    the slope is rounded to bf16 first (0.2 becomes 0.2001953125), as
+    JAX's weak-typed scalar is; PyTorch would keep it in fp32."""
+    alpha_bf16 = float(torch.tensor(alpha, dtype=torch.bfloat16))
+    return lambda x: torch.maximum((alpha_bf16 if x.dtype == torch.bfloat16 else alpha) * x, x)
 
 
 def init_conv(
@@ -61,12 +127,27 @@ def same_pad(x: torch.Tensor, k: Tuple[int, int], stride: int = 1, rate: int = 1
     return x
 
 
+def _bias_act(y, bias, dt, activation):
+    """The bf16 modes' epilogue: ``y`` (rounded to bf16 by the
+    convolution) cast to ``dt``, then the bias in ``dt``, then the
+    activation."""
+    y = y.to(dt)
+    if bias is not None:
+        y = y + bias.to(dt).view(1, -1, 1, 1)
+    return activation(y)
+
+
 def _conv(x, weight, bias, stride, rate, activation, padding):
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    dt = _bf16_epilogue(x)
+    if dt is not None:
+        x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
     if padding == "SAME":
         x = same_pad(x, weight.shape[2:], stride, rate)
-    elif padding != "VALID":
-        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
-    return activation(F.conv2d(x, weight, bias, stride=stride, dilation=rate))
+    if dt is None:
+        return activation(F.conv2d(x, weight, bias, stride=stride, dilation=rate))
+    return _bias_act(F.conv2d(x, weight, None, stride=stride, dilation=rate), bias, dt, activation)
 
 
 def conv2d(
@@ -112,7 +193,11 @@ def conv2d_transpose(
     columns before the ``n*s`` it returns; for k = 4, s = 2 that is
     ``conv_transpose2d``'s ``padding=1``. The crop (or, for a kernel
     narrower than the stride, zero extension) is one pad of the full
-    output, and the bias comes after it, as in TF."""
+    output, and the bias comes after it, as in TF. The precision modes
+    apply as in :func:`conv2d`."""
+    dt = _bf16_epilogue(x)
+    if dt is not None:
+        x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
     y = F.conv_transpose2d(x, weight, None, stride=stride)
     pads = []
     for n, k, full in ((x.shape[3], weight.shape[3], y.shape[3]), (x.shape[2], weight.shape[2], y.shape[2])):
@@ -120,6 +205,8 @@ def conv2d_transpose(
         pads += [-before, n * stride + before - full]
     if any(pads):
         y = F.pad(y, pads)
+    if dt is not None:
+        return _bias_act(y, bias, dt, activation)
     if bias is not None:
         y = y + bias.view(1, -1, 1, 1)
     return activation(y)

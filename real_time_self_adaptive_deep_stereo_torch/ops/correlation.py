@@ -9,6 +9,12 @@ along W. Port of ``real_time_self_adaptive_deep_stereo_tpu/ops/correlation.py``:
   ``correlation_jnp``. The CPU path and the tests use it.
 * :func:`correlation_torch_bwd` is the plain version of the backward, a
   copy of ``_corr_pallas_bwd``.
+
+Both take float32 or bfloat16. On bf16 they compute in fp32 from the
+bf16 values and round each output once, which is what the Pallas forward
+does (``_corr_fwd_kernel`` widens, accumulates in fp32 and stores in the
+input dtype) and what the kernels' bf16 instances do; the reference's
+backward computes in bf16 instead (``ROADMAP.md``, section 3).
 * :func:`correlation_cuda` is the wrapper of the hand-written kernels in
   ``csrc/correlation.cu``, which replace the Pallas kernel
   ``_corr_fwd_kernel`` at any radius: ``corr_fwd`` (and ``corr_bwd`` in
@@ -16,7 +22,9 @@ along W. Port of ``real_time_self_adaptive_deep_stereo_tpu/ops/correlation.py``:
   1 .. ``MAX_REGISTER_RADIUS`` (MADNet's 2); ``corr_fwd_wide`` and
   ``corr_bwd_wide`` take any radius (DispNet-Corr1D's 40). On a CPU tensor
   it runs the plain version (autograd differentiates it); on a CUDA
-  tensor it launches the kernels or raises.
+  tensor it launches the kernels or raises. bf16 inputs launch the bf16
+  instances, counted as ``corr_fwd_bf16``, ``corr_bwd_bf16``,
+  ``corr_fwd_wide_bf16`` and ``corr_bwd_wide_bf16``.
 * :func:`correlation` picks one by :func:`resolve_corr_mode`: ``auto`` is
   ``cuda`` for CUDA tensors at stride 1, at every radius, and ``torch``
   otherwise.
@@ -49,7 +57,17 @@ MAX_REGISTER_RADIUS = 4
 def correlation_torch(
     x: torch.Tensor, y: torch.Tensor, max_disp: int, stride: int = 1
 ) -> torch.Tensor:
-    """Plain version (NCHW in, [B, n_shifts, H, W] out)."""
+    """Plain version (NCHW in, [B, n_shifts, H, W] out, in x's dtype)."""
+    if x.dtype == torch.bfloat16:
+        # fp32 sums of the widened values, scaled by 1/C and rounded once,
+        # as _corr_fwd_kernel
+        xf, ypad = x.float(), F.pad(y.float(), (max_disp, max_disp))
+        inv_c, w = 1.0 / x.shape[1], x.shape[3]
+        outs = [
+            (ypad[..., k : k + w] * xf).sum(dim=1, keepdim=True) * inv_c
+            for k in range(0, 2 * max_disp + 1, stride)
+        ]
+        return torch.cat(outs, dim=1).to(x.dtype)
     w = x.shape[3]
     ypad = F.pad(y, (max_disp, max_disp))
     outs = []
@@ -67,7 +85,12 @@ def correlation_torch_bwd(
 
         dx[w, c] = sum_k g[w, k] * ypad[w + k, c] / C
         dy[v, c] = sum_k g[v + max_disp - k, k] * x[v + max_disp - k, c] / C
+
+    On bf16 the sums are taken in fp32 and each gradient is rounded once.
     """
+    if x.dtype == torch.bfloat16:
+        dx, dy = correlation_torch_bwd(x.float(), y.float(), g.float(), max_disp)
+        return dx.to(x.dtype), dy.to(y.dtype)
     c, w = x.shape[1], x.shape[3]
     inv_c = 1.0 / c
     pad = (max_disp, max_disp)
@@ -105,8 +128,12 @@ def _check(name: str, x: torch.Tensor, y: torch.Tensor) -> None:
         raise ValueError(f"{name} supports batch and height up to 65535, got {tuple(x.shape)}")
 
 
+def _kernel_name(base: str, wide: bool, dtype: torch.dtype) -> str:
+    return base + ("_wide" if wide else "") + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
 def _corr_fwd_launch(x: torch.Tensor, y: torch.Tensor, max_disp: int, wide: bool) -> torch.Tensor:
-    name = "corr_fwd_wide" if wide else "corr_fwd"
+    name = _kernel_name("corr_fwd", wide, x.dtype)
     _check(name, x, y)
     b, c, h, w = x.shape
     out = torch.empty((b, 2 * max_disp + 1, h, w), device=x.device, dtype=x.dtype)
@@ -123,13 +150,13 @@ def _corr_fwd_launch(x: torch.Tensor, y: torch.Tensor, max_disp: int, wide: bool
 def _corr_bwd_launch(
     x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, max_disp: int, wide: bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    name = "corr_bwd_wide" if wide else "corr_bwd"
+    name = _kernel_name("corr_bwd", wide, x.dtype)
     _check(name, x, y)
     b, c, h, w = x.shape
     if g.device != x.device or g.dtype != x.dtype or tuple(g.shape) != (b, 2 * max_disp + 1, h, w):
         raise ValueError(
-            f"{name} needs a float32 gradient of shape {(b, 2 * max_disp + 1, h, w)} on "
-            f"{x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}"
+            f"{name} needs a {x.dtype} gradient (the inputs' dtype) of shape "
+            f"{(b, 2 * max_disp + 1, h, w)} on {x.device}, got {g.dtype} {tuple(g.shape)} on {g.device}"
         )
     if not g.is_contiguous():
         raise ValueError(f"{name} needs a contiguous gradient")
@@ -157,19 +184,22 @@ class _CorrelationCUDA(torch.autograd.Function):
     def backward(ctx, grad):
         x, y = ctx.saved_tensors
         # cuDNN may hand the gradient over in another layout or as an
-        # expanded view; the kernel takes contiguous NCHW
-        dx, dy = _corr_bwd_launch(x, y, grad.contiguous(), ctx.max_disp, ctx.wide)
+        # expanded view; the kernel takes contiguous NCHW. A downstream
+        # promotion may hand back a wider gradient than bf16 inputs: it is
+        # cast to their dtype, as _corr_pallas_bwd does.
+        dx, dy = _corr_bwd_launch(x, y, grad.to(x.dtype).contiguous(), ctx.max_disp, ctx.wide)
         return dx, dy, None, None
 
 
 def correlation_cuda(
     x: torch.Tensor, y: torch.Tensor, max_disp: int, wide: Optional[bool] = None
 ) -> torch.Tensor:
-    """Kernel wrapper (stride 1, fp32, NCHW) on CUDA tensors: ``corr_fwd``
-    (and ``corr_bwd`` in backward) for radius 1..``MAX_REGISTER_RADIUS``,
-    ``corr_fwd_wide`` (and ``corr_bwd_wide``) for any other radius;
-    ``wide`` forces one kind. The plain version on CPU tensors."""
-    cuda_lib.check_float32("corr_fwd", x, y)
+    """Kernel wrapper (stride 1, fp32 or bf16, NCHW) on CUDA tensors:
+    ``corr_fwd`` (and ``corr_bwd`` in backward) for radius
+    1..``MAX_REGISTER_RADIUS``, ``corr_fwd_wide`` (and ``corr_bwd_wide``)
+    for any other radius; ``wide`` forces one kind; bf16 inputs run the
+    ``_bf16`` instances. The plain version on CPU tensors."""
+    cuda_lib.check_same_float("corr_fwd", x, y)
     wide = _is_wide(max_disp, wide)
     if x.device.type == "cpu" and y.device.type == "cpu":
         return correlation_torch(x, y, max_disp)
@@ -183,7 +213,7 @@ def correlation_bwd_cuda(
     ``corr_bwd`` or ``corr_bwd_wide`` (picked as :func:`correlation_cuda`
     picks) on CUDA tensors, from the plain version on CPU tensors. The
     backward of :func:`correlation_cuda` launches the same kernel."""
-    cuda_lib.check_float32("corr_bwd", x, y, g)
+    cuda_lib.check_same_float("corr_bwd", x, y, g)
     wide = _is_wide(max_disp, wide)
     if x.device.type == "cpu" and y.device.type == "cpu" and g.device.type == "cpu":
         return correlation_torch_bwd(x, y, g, max_disp)

@@ -32,8 +32,8 @@ from typing import Dict
 import torch
 
 __all__ = [
-    "LAUNCHES", "build_all", "check", "check_float32", "library", "reset_launches", "stream_ptr",
-    "ptxas_usage",
+    "LAUNCHES", "build_all", "check", "check_float32", "check_same_float", "library",
+    "reset_launches", "stream_ptr", "ptxas_usage",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -52,6 +52,11 @@ _SIGNATURES = {
         "corr_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "corr_fwd_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "corr_bwd_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # the bf16 instances of the same four, counted under their own names
+        "corr_fwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "corr_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "corr_fwd_wide_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "corr_bwd_wide_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "warp": {
         "warp_image_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -170,6 +175,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def check_float32(what: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is float32, the one type the kernels take."""
+    """Raise unless every tensor is float32, the one type the warp kernels take."""
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"{what} takes float32 only, got {[t.dtype for t in tensors]}")
+
+
+def check_same_float(what: str, *tensors: torch.Tensor) -> torch.dtype:
+    """Raise unless the tensors are all float32 or all bfloat16, the two
+    types the correlation kernels take; returns that type."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise TypeError(
+            f"{what} takes float32 or bfloat16, all tensors of one type, "
+            f"got {[t.dtype for t in tensors]}"
+        )
+    return dtypes.pop()

@@ -378,9 +378,21 @@ def warp_features_mxu_bwd(
     )
 
 
+def _widen(*tensors: torch.Tensor):
+    """bf16 sources and offsets widened to fp32, losslessly. The warp
+    kernels take fp32 alone, and no warp of the reference computes in bf16:
+    under ``bf16_act`` its Pallas feature warps reject bf16 features, and
+    its ``gather`` and ``onehot`` warps promote them to fp32. A warp of
+    bf16 inputs therefore returns fp32, as the reference's does."""
+    return [t.float() if t.dtype == torch.bfloat16 else t for t in tensors]
+
+
 def warp_image_by_mode(
     img: torch.Tensor, disp: torch.Tensor, mode: str, max_disp: int = 192
 ) -> torch.Tensor:
+    """The image warp of ``mode`` (``ops/warp.py::resolve_warp_mode``), in
+    fp32 (a bf16 disparity, DispNet's under ``bf16_act``, is widened)."""
+    img, disp = _widen(img, disp)
     mode = resolve_warp_mode(mode, img.device)
     if mode == "cuda":
         return warp_image_cuda(img.contiguous(), disp.contiguous(), max_disp)
@@ -396,6 +408,9 @@ def warp_image_by_mode(
 def warp_features_by_mode(
     feats: torch.Tensor, dx: torch.Tensor, mode: str, max_neg: int = 64, max_pos: int = 4
 ) -> torch.Tensor:
+    """The feature warp of ``mode``, in fp32 (bf16 features and offsets,
+    MADNet's under ``bf16_act``, are widened); the caller casts back."""
+    feats, dx = _widen(feats, dx)
     mode = resolve_warp_mode(mode, feats.device)
     if mode == "cuda":
         return warp_features_cuda(feats.contiguous(), dx.contiguous(), max_neg, max_pos)

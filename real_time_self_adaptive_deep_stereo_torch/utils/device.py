@@ -1,11 +1,12 @@
 """Device selection for the port's entry points.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-Without a GPU they raise instead of falling back. On the GPU the
-precision is the JAX package's default, ``highest``
-(``real_time_self_adaptive_deep_stereo_tpu/ops/conv.py``): fp32 with
-TF32 off for cuDNN convolutions and cuBLAS matmuls, set explicitly
-because PyTorch lets cuDNN use TF32 by default.
+Without a GPU they raise instead of falling back. Every call also sets
+PyTorch's TF32 flags from the convolution precision in force
+(``ops/conv.py``): TF32 on cuDNN under ``default`` only, as JAX's
+``Precision.DEFAULT`` on a GPU; off under ``highest``, the JAX package's
+default, and under the bf16 modes; off for cuBLAS matmuls always. They are
+set explicitly because PyTorch lets cuDNN use TF32 by default.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+from real_time_self_adaptive_deep_stereo_torch.ops.conv import apply_precision_flags
 
 __all__ = ["resolve_device"]
 
@@ -26,8 +29,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions on the CPU"
             )
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
+    apply_precision_flags()
     return dev

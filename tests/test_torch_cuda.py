@@ -18,7 +18,10 @@ against the one-hot products (2e-6 absolute: the product may fuse one
 rounding) and against the clamped-window kernels (1e-6; the image warps
 bit for bit, both forwards being gathers of the same taps), and one fused
 MAD session replayed from CUDA graphs against the same session run
-eagerly.
+eagerly. The bf16 correlation instances are held within one bf16 ulp of
+each entry of their plain versions (both sum in fp32 and round once, in
+another order), plus what the order of an fp32 sum may change where it
+cancels: 2 (n + 2) 2^-24 times the sum of its n terms' magnitudes.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ import torch
 from real_time_self_adaptive_deep_stereo_torch import ops as tops
 from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
 from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+from real_time_self_adaptive_deep_stereo_torch.ops.correlation import MAX_REGISTER_RADIUS
 
 pytestmark = pytest.mark.cuda
 
@@ -541,3 +545,136 @@ def test_fused_mad_step_replayed_equals_eager(dev):
     scale = float((eager.arena.flat - eager.arena.flat0).abs().max())
     assert float((graphed.arena.flat - eager.arena.flat).abs().max()) <= 1e-2 * scale
     assert not eager._graphs
+
+
+# ------------------------------------------------ bf16: the precision modes
+
+
+def _bf16_normal(shape, seed, dev):
+    return _normal(shape, seed, dev).bfloat16()
+
+
+def _assert_bf16_close(got, want, abs_terms, n_terms, what):
+    """Every entry of bf16 ``got`` within one bf16 ulp of ``want``'s, plus
+    what two fp32 sums of ``n_terms`` terms in other orders may differ by,
+    2 (n_terms + 2) 2^-24 times the sum of the terms' magnitudes
+    (``abs_terms``): both sides round an fp32 sum once, and where the sum
+    cancels its order moves the small result by more than a bf16 ulp."""
+    assert got.dtype == want.dtype == torch.bfloat16, what
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0**-126)
+    tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 2.0 * (n_terms + 2) * 2.0**-24 * abs_terms
+    bad = (g - w).abs() > tol
+    assert not bool(bad.any()), f"{what}: {int(bad.sum())} entries beyond the tolerance"
+
+
+def _assert_corr_bf16(x, y, g, radius, out, dx, dy):
+    """Forward and gradients of the bf16 instances against the plain versions."""
+    xa, ya, ga = x.float().abs(), y.float().abs(), g.float().abs()
+    _assert_bf16_close(out, tops.correlation_torch(x, y, radius), tops.correlation_torch(xa, ya, radius),
+                       x.shape[1], "forward")
+    want = tops.correlation_torch_bwd(x, y, g, radius)
+    terms = tops.correlation_torch_bwd(xa, ya, ga, radius)
+    for got, w, t, nm in zip((dx, dy), want, terms, ("dx", "dy")):
+        _assert_bf16_close(got, w, t, 2 * radius + 1, nm)
+
+
+# MADNet's scales, the register radii at an edge shape, DispNet's call and
+# the wide kernels' edges: W < 2R+1, two and three chunks of shifts
+_BF16_CASES = [
+    ((1, 192, 5, 19), 2), ((1, 32, 80, 304), 2), ((2, 7, 5, 37), 1), ((2, 7, 5, 37), 3),
+    ((1, 3, 2, 3), 4), ((1, 128, 80, 304), 40), ((1, 128, 5, 19), 40), ((2, 7, 3, 70), 40),
+    ((1, 5, 2, 140), 50), ((1, 70, 2, 200), 100),
+]
+
+
+@pytest.mark.parametrize("shape,radius", _BF16_CASES)
+def test_corr_bf16_instances_match_plain(dev, shape, radius):
+    """bf16 inputs launch the bf16 instances, counted under their own
+    names; forward and backward against the plain versions (fp32 sums, one
+    rounding) within :func:`_assert_bf16_close`, the backward bit-identical
+    in two runs. An fp32 gradient (a downstream promotion) is cast to bf16."""
+    x, y = _bf16_normal(shape, 41, dev), _bf16_normal(shape, 42, dev)
+    g = _bf16_normal((shape[0], 2 * radius + 1, *shape[2:]), 43, dev)
+    xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+    cuda_lib.reset_launches()
+    out = tops.correlation(xg, yg, radius)
+    dx, dy = torch.autograd.grad(out, (xg, yg), g.float())
+    dx2, dy2 = tops.correlation_bwd_cuda(x, y, g, radius)
+    torch.cuda.synchronize()
+    wide = "_wide" if radius > MAX_REGISTER_RADIUS else ""
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+        f"corr_fwd{wide}_bf16": 1, f"corr_bwd{wide}_bf16": 2}
+    _assert_corr_bf16(x, y, g, radius, out, dx, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dy, dy2)
+
+
+@pytest.mark.parametrize("shape", [(1, 192, 5, 19), (1, 32, 80, 304)])
+def test_corr_wide_bf16_instances_take_a_register_radius(dev, shape):
+    x, y = _bf16_normal(shape, 44, dev), _bf16_normal(shape, 45, dev)
+    g = _bf16_normal((shape[0], 5, *shape[2:]), 46, dev)
+    cuda_lib.reset_launches()
+    _assert_corr_bf16(x, y, g, 2, tops.correlation_cuda(x, y, 2, wide=True),
+                      *tops.correlation_bwd_cuda(x, y, g, 2, wide=True))
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {"corr_fwd_wide_bf16": 1, "corr_bwd_wide_bf16": 1}
+
+
+def test_wrappers_reject_mixed_dtypes(dev):
+    x = _normal((1, 4, 3, 8), 47, dev)
+    g = torch.zeros(1, 5, 3, 8, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tops.correlation_cuda(x, x.bfloat16(), 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tops.correlation_bwd_cuda(x.bfloat16(), x.bfloat16(), g, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tops.correlation_cuda(x.half(), x.half(), 2)
+    with pytest.raises(TypeError, match="float32 only"):
+        tops.warp_features_cuda(x.bfloat16(), torch.zeros(1, 1, 3, 8, device=dev), 8, 4)
+    with pytest.raises(TypeError, match="float32 only"):
+        tops.warp_image_mxu(x[:, :3].bfloat16(), torch.zeros(1, 1, 3, 8, device=dev), 8)
+
+
+@pytest.mark.parametrize("name", ["MADNet", "Dispnet"])
+def test_models_under_bf16_act_launch_the_bf16_instances(dev, name):
+    """A forward and backward of each model under 'bf16_act': every
+    correlation runs a bf16 instance, none an fp32 one; the feature warps
+    run their fp32 kernels on the widened features; MADNet's disparities
+    are fp32, DispNet's bf16, as the reference's."""
+    left = _uniform((1, 128, 256, 3), 48, dev, 0.0, 255.0)
+    right = torch.roll(left, -4, dims=2)
+    with tops.conv_precision("bf16_act"):
+        assert not torch.backends.cudnn.allow_tf32
+        model = get_stereo_net(name, seed=0)
+        cuda_lib.reset_launches()
+        out = model(left, right)
+        sum(d.float().mean() for d in out["disparities"]).backward()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    if name == "MADNet":
+        assert launched == {"corr_fwd_bf16": 5, "corr_bwd_bf16": 5, "warp_features_fwd": 4, "warp_features_bwd": 4}
+        assert all(d.dtype == torch.float32 for d in out["disparities"])
+    else:
+        assert launched == {"corr_fwd_wide_bf16": 1, "corr_bwd_wide_bf16": 1}
+        assert all(d.dtype == torch.bfloat16 for d in out["disparities"])
+    assert all(bool(torch.isfinite(d.float()).all()) for d in out["disparities"])
+    assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in model.parameters())
+
+
+def test_fused_session_under_bf16_act_refuses_a_changed_mode(dev):
+    """A fused session captured under 'bf16_act' replays that mode, so a
+    step under another mode raises instead of replaying a stale graph."""
+    from real_time_self_adaptive_deep_stereo_torch.adapt import AdaptationEngine, FusedOnlineSession
+
+    frames = _smooth_frames(3, 128, 256, 32)
+    with tops.conv_precision("bf16_act"):
+        eng = AdaptationEngine(get_stereo_net("MADNet", warp_mode="mxu", seed=0), warp_mode="mxu")
+        sess = FusedOnlineSession(eng, mode="NONE", compute_metrics=False)
+        cuda_lib.reset_launches()
+        sess.step(frames[0])  # eager, then the capture
+        sess.step(frames[1])  # a replay
+        torch.cuda.synchronize()
+        assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+            "corr_fwd_bf16": 10, "warp_tile_features_fwd": 8}
+    with pytest.raises(RuntimeError, match="bf16_act"):
+        sess.step(frames[2])
+    assert not torch.backends.cudnn.allow_tf32

@@ -340,7 +340,7 @@ def test_kernel_c_signatures_match_ctypes():
             assert [ctype(p) for p in params] == argtypes, fn
             declared += 1
     assert set(cuda_lib.LAUNCHES) == {fn for fns in cuda_lib._SIGNATURES.values() for fn in fns}
-    assert declared == 12  # correlation 4 (register and wide, each way), warp 4, warp_tile 4
+    assert declared == 16  # correlation 8 (register and wide, each way, fp32 and bf16), warp 4, warp_tile 4
 
 
 def test_warp_grid_checks_follow_the_kernels_grids():
