@@ -10,7 +10,8 @@ Phases, each of which raises on failure (nothing is caught):
    ``highest``, fp32.
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report, and
-   apart the registers and spills of the two tiled forwards.
+   apart the registers and spills of the two tiled forwards, the tiled
+   offset gradient and the wide correlation pair.
 3. Each of the sixteen kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
    windows: the six forward kernels, and the six backward kernels
@@ -30,10 +31,12 @@ Phases, each of which raises on failure (nothing is caught):
    that the port never calls, timed from a CUDA graph too:
    ``F.grid_sample`` (forward) or its backward op
    ``aten.grid_sampler_2d_backward`` on the same sampling. A warp backward
-   is timed twice, with both gradients and with the one the main path
-   asks for, each beside the op with the same output mask. Per kernel it
-   prints its time summed over its shapes as a ratio to that yardstick's
-   sum, for a backward kernel also the main path's variant's.
+   is timed in each variant, the gradients it is asked for: both, the
+   offset's alone, and each mode's (MAD's and FULL's), each beside the op
+   with the same output mask and its own byte bound, and each bit-identical
+   to both gradients together. Per kernel it prints its time summed over
+   its shapes as a ratio to that yardstick's sum, for a backward kernel
+   that of every variant.
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -269,6 +272,13 @@ def grid_for(shift: torch.Tensor, sign: float) -> torch.Tensor:
 
 
 PADDING_MODES = {"zeros": 0, "border": 1}  # aten's codes of grid_sample's padding_mode
+# the variants of a warp backward: the gradients (dsrc, doff) asked for
+VARIANTS = {"both": (True, True), "doff": (False, True), "dsrc": (True, False)}
+# the variant each mode that runs a backward asks of a warp (NONE runs
+# none): the right image never takes a gradient; the feature warp's offset
+# takes none with MAD's bulkhead, and one in FULL, which has no bulkhead
+IMAGE_MODES = {"MAD": "doff", "FULL": "doff"}
+FEATURE_MODES = {"MAD": "dsrc", "FULL": "both"}
 
 
 def grid_sample_bwd(g, src, grid, padding: str, mask):
@@ -366,7 +376,7 @@ def check_kernels(ops):
         "warp_image_bwd", img, disp, 70, grid, "border",
         lambda s, o, g, need=(True, True): ops.warp_image_bwd_cuda(s, o, g, MAX_DISP, *need),
         lambda s, o: ops.warp_image_clamped(s, o, MAX_DISP),
-        main_path=(False, True),  # ddisp alone: the right image takes no gradient
+        IMAGE_MODES,
     ))
 
     # the tiled one-hot image warp: against its plain version (the one-hot
@@ -391,7 +401,7 @@ def check_kernels(ops):
         "warp_tile_image_bwd", img, disp, 70, grid, "border",
         lambda s, o, g, need=(True, True): ops.warp_image_mxu_bwd(s, o, g, MAX_DISP, *need),
         lambda s, o: ops.warp_image_onehot(s, o, MAX_DISP, align=128),
-        main_path=(False, True),
+        IMAGE_MODES,
         same_as=lambda s, o, g: ops.warp_image_bwd_cuda(s, o, g, MAX_DISP),
     ))
 
@@ -421,7 +431,7 @@ def check_kernels(ops):
             lambda s, o, g, need=(True, True), neg=neg: ops.warp_features_bwd_cuda(
                 s, o, g, neg, MAX_POS, *need),
             lambda s, o, neg=neg: ops.warp_features_clamped(s, o, neg, MAX_POS),
-            main_path=(True, False),  # dfeats alone: with the bulkhead the offset takes no gradient
+            FEATURE_MODES,
         ))
 
         got = ops.warp_features_mxu(feats, dx, neg, MAX_POS)
@@ -443,7 +453,7 @@ def check_kernels(ops):
             lambda s, o, g, need=(True, True), neg=neg: ops.warp_features_mxu_bwd(
                 s, o, g, neg, MAX_POS, *need),
             lambda s, o, neg=neg: ops.warp_features_onehot(s, o, neg, MAX_POS, align=128),
-            main_path=(True, False),
+            FEATURE_MODES,
             same_as=lambda s, o, g, neg=neg: ops.warp_features_bwd_cuda(s, o, g, neg, MAX_POS),
         ))
 
@@ -454,10 +464,11 @@ def check_kernels(ops):
     for name, rs in rows.items():  # summed over the main-path shapes
         ms, lib_ms = sum(r["ms"] for r in rs), [r["library_ms"] for r in rs]
         ratio = "no library call" if None in lib_ms else f"{ms / sum(lib_ms):.3f} of the library's {sum(lib_ms):.5f} ms"
-        if "main_path_ms" in rs[0]:
-            mp, mp_lib = sum(r["main_path_ms"] for r in rs), sum(r["main_path_library_ms"] for r in rs)
-            ratio += (f"; the main path's variant {rs[0]['main_path_mask']} {mp:.5f} ms, "
-                      f"{mp / mp_lib:.3f} of the library's {mp_lib:.5f} ms")
+        for v, var in summed_variants(rs).items():
+            modes = [m for m, mv in rs[0]["modes"].items() if mv == v]
+            ratio += (f"; {v}{' (' + ', '.join(modes) + ')' if modes else ''} {var['ms']:.5f} ms, "
+                      f"{var['ms'] / var['library_ms']:.3f} of the library's {var['library_ms']:.5f} ms, "
+                      f"bound {var['bound_ms']:.5f}")
         log(f"kernel {name}: {ms:.5f} ms over {len(rs)} shape(s), {ratio}")
     return rows
 
@@ -602,13 +613,16 @@ def check_bf16_kernels(ops, rows):
         ))
 
 
-def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, main_path, same_as=None):
+def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes, same_as=None):
     """One warp backward kernel at one shape: both gradients against
     autograd through the plain version (and against ``same_as``, another
     kernel of the same function, where given), two runs bit-identical,
     times. ``kernel(src, off, g, need)`` takes the pair (dsrc, doff) of
-    gradients asked for; ``main_path`` is the pair the main path asks for,
-    and the yardstick ``grid_sample_bwd`` is timed with the same mask."""
+    gradients asked for; ``modes`` names the variant (``VARIANTS``) each
+    mode asks for. Every variant (both gradients, the offset's alone and
+    each mode's) must give the bits of both gradients together in two
+    runs, and is timed beside the yardstick ``grid_sample_bwd`` with the
+    same mask and beside its own bound."""
     _, c, h, w = src.shape
     g = seeded(tuple(src.shape), seed)
     got = kernel(src, off, g)
@@ -624,29 +638,48 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, main_
     if same_as is not None:
         for a, b, nm in zip(got, same_as(src, off, g), ("dsrc", "doff")):
             assert_grad_close(a, b, f"{name} {tuple(src.shape)} {nm} against the other kernel")
-    # the variant the main path runs: one gradient only
-    part = kernel(src, off, g, main_path)
-    for a, b, asked in zip(part, got, main_path):
-        if (a is not None) != asked or (a is not None and not torch.equal(a, b)):
-            raise AssertionError(f"{name}: one gradient alone differs from both together")
+    n = h * w
+    variants = {}
+    for v in dict.fromkeys(["both", "doff", *modes.values()]):
+        mask = VARIANTS[v]
+        for _ in range(2):
+            part = kernel(src, off, g, mask)
+            for a, b, asked in zip(part, got, mask):
+                if (a is not None) != asked or (a is not None and not torch.equal(a, b)):
+                    raise AssertionError(f"{name} {tuple(src.shape)}: variant {v} differs from both gradients together")
+        # reads source (doff only), g and the offset once, writes what is
+        # asked; per pixel and channel 4 flops in each gradient
+        var_bound = bound(4.0 * n * ((mask[1] + 1) * c + mask[0] * c + 1 + mask[1]),
+                          4.0 * c * n * (mask[0] + mask[1]))
+        variants[v] = dict(
+            ms=time_ms(lambda: kernel(src, off, g, mask)),
+            library_ms=time_ms(lambda: grid_sample_bwd(g, src, grid, padding, mask)),
+            bound_ms=var_bound[0], bound_by=var_bound[1],
+        )
     # whether the yardstick's op skips the grid's gradient that is not asked for
     unasked_grid = torch.ops.aten.grid_sampler_2d_backward(
         g, src, grid, 0, PADDING_MODES[padding], True, [True, False])[1] is not None
-    n = h * w
+    both = variants["both"]
     return dict(
         shape=list(src.shape), err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
-        ms=time_ms(lambda: kernel(src, off, g)),
+        ms=both["ms"],
         call_ms=call_ms(lambda: kernel(src, off, g)),
-        main_path_ms=time_ms(lambda: kernel(src, off, g, main_path)),
-        main_path_mask=list(main_path),  # (dsrc, doff) asked for
         plain_ms=call_ms(plain, 50),
-        library_ms=time_ms(lambda: grid_sample_bwd(g, src, grid, padding, (True, True))),
-        main_path_library_ms=time_ms(lambda: grid_sample_bwd(g, src, grid, padding, main_path)),
+        library_ms=both["library_ms"],
+        variants=variants,
+        modes=dict(modes),  # the variant each mode asks for
         library_grid_grad_unasked=unasked_grid,
-        # reads source, offset, g once, writes both gradients; per pixel and
-        # channel 4 flops in the offset gradient, 4 in the source gradient
-        bound=bound(4.0 * n * (3 * c + 2), 8.0 * c * n),
+        bound=(both["bound_ms"], both["bound_by"]),
     )
+
+
+def summed_variants(rs):
+    """A warp backward's variants, each summed over the shapes of ``rs``;
+    {} for any other kernel."""
+    if "variants" not in rs[0]:
+        return {}
+    return {v: {k: sum(r["variants"][v][k] for r in rs) for k in ("ms", "library_ms", "bound_ms")}
+            for v in rs[0]["variants"]}
 
 
 # ------------------------------------------------------------- phases 4 and 5
@@ -1713,6 +1746,13 @@ def run_precision(state, profile_dir):
 
             _, launches[f"{tag}_FUSED_FULL"], frame_ms[f"{tag}_FUSED_FULL"] = fused_full_in(
                 state, frames[:N_FRAMES_FULL + 3], in_precision(TILE_FULL, mode), "bf16_act fused FULL")
+            if profile_dir:
+                session = make_session(state, "FULL", warp="mxu", fused=True, ssim_th=1e9)
+                for f in frames[:2]:
+                    session.step(f)  # the branch captured and replayed once
+                torch.cuda.synchronize()
+                profile_frames(session, frames[2:7], Path(profile_dir), "fused_full_bf16_act")
+                del session
 
             # DispNet-Corr1D: host MAD over dispnet_full_6.json, fused NONE serving
             session = make_session(dn_state, "MAD", model_name="Dispnet", **MAD_KW)
@@ -1767,12 +1807,17 @@ def summarise_trace(trace: Path, tag: str, n_frames: int):
     """Device time a frame by kind of kernel, and the host's side, from the
     Chrome trace that torch.profiler wrote."""
     events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
-    groups = {}
+    groups, ours = {}, {}
     for e in events:
         if e.get("cat") in ("gpu_memcpy", "gpu_memset"):
             name = "memcpy and memset (the frame's upload from pageable memory)"
         elif e.get("cat") == "kernel":
             name = next(g for g, pat in _GROUPS if re.search(pat, e["name"]))
+            if name == _GROUPS[0][0]:  # the port's kernels, by kernel and instance
+                m = re.search(r"(\w+_kernel)(<[^(]*>)?", e["name"])
+                kernel = m.group(0) if m else e["name"]
+                n, dur = ours.get(kernel, (0, 0.0))
+                ours[kernel] = (n + 1, dur + e["dur"])
         else:
             continue
         n, dur = groups.get(name, (0, 0.0))
@@ -1783,6 +1828,8 @@ def summarise_trace(trace: Path, tag: str, n_frames: int):
     for name, (n, dur) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         log(f"profile {tag}: {dur / 1e3 / n_frames:8.3f} ms/frame {100 * dur / total:5.1f}% "
             f"{n / n_frames:7.1f} launches/frame  {name}")
+    for name, (n, dur) in sorted(ours.items(), key=lambda kv: -kv[1][1]):
+        log(f"profile {tag}:   {dur / 1e3 / n_frames:8.4f} ms/frame {n / n_frames:5.1f} launches/frame  {name}")
     cpu = [e for e in events if e.get("cat") == "cpu_op"]
     span = max(e["ts"] + e["dur"] for e in cpu) - min(e["ts"] for e in cpu)
     by_thread = {}
@@ -1842,6 +1889,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     for lib, kernel in (("warp_tile", "tile_image_fwd_kernel"), ("warp_tile", "tile_feat_fwd_kernel"),
+                        ("warp_tile", "tile_bwd_offset_kernel"),
                         ("correlation", "corr_fwd_wide_kernel"), ("correlation", "corr_bwd_wide_kernel")):
         usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get(lib, ""), kernel) or ["cached build, no report"]
         log(f"ptxas {kernel}: {'; '.join(usage)}")
@@ -1887,7 +1935,7 @@ def main() -> int:
     for name, rs in rows.items():
         lib_ms = [r["library_ms"] for r in rs]
         shape_keys = ("shape", "radius", "ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms", "library_ms",
-                      "main_path_ms", "main_path_library_ms", "wide_ms")
+                      "variants", "wide_ms")
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1904,9 +1952,9 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rs) else "operations",
             "library_ms": None if None in lib_ms else sum(lib_ms),
-            # backward kernels: the gradients the main path asks for alone
-            **({k: sum(r[k] for r in rs) for k in ("main_path_ms", "main_path_library_ms")}
-               if "main_path_ms" in rs[0] else {}),
+            # warp backward kernels: each variant (the gradients asked for)
+            # summed over the shapes, and the variant each mode runs
+            **({"variants": summed_variants(rs), "modes": rs[0]["modes"]} if "variants" in rs[0] else {}),
             # bf16 instances: the fp32 instance's time at the same shapes
             **({"fp32_ms": sum(r["fp32_ms"] for r in rs)} if "fp32_ms" in rs[0] else {}),
             "shapes": [{k: r[k] for k in shape_keys if k in r} for r in rs],

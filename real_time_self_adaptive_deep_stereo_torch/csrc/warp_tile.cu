@@ -46,30 +46,40 @@
 //
 // Why gathers. Earlier forms staged the source in shared memory, the image
 // warp a window per 128-column tile, the feature warp a whole row per
-// chunk of channels with `cp.async`. Measured on the H100 (PERF.md, §6),
+// chunk of channels with `cp.async`, and the offset gradient a window per
+// tile and chunk of 16 channels. Measured on the H100 (PERF.md, §6),
 // staging lost to `grid_sample` and to the gathers: each block waits for
 // its stage, a barrier, its taps and another barrier before its first
 // store, and at MADNet's shapes those phases lie on the critical path,
 // 0.6-1.3 us a call more than a gather. No MADNet row is long enough for
 // the reuse of a staged column to pay that back, and a gather has no
-// row-length limit.
+// row-length or window limit.
 //
 // What bounds them: by count, memory: (2C + 1) * 4 bytes per pixel
 // forward, a handful of operations per element; in practice at scales 5
 // and 4 (380 and 1,520 pixels) the launch, about 2.2 us a call in a CUDA
-// graph. The backward reads the incoming gradient too and writes both
-// gradients.
+// graph, and the latency of a chain of dependent loads. The backward
+// reads the incoming gradient too and writes the gradients asked for.
 //
 // The backward is two kernels behind one entry point, each skipped when
 // its gradient is not asked for:
 //
-// * the offset gradient: a block owns (batch, row, tile) and walks the
-//   channel chunks, staging each chunk's window (`back` columns left of the
-//   tile, `ahead` right of it, from the clip bounds) in shared memory; the
-//   thread of output column x takes v0 and v1 from the staged window and
-//   sums g * (v0 - v1) (image) or g * (in1*v1 - in0*v0) (features) over
-//   the channels in order, zeroed where the unclipped offset lies outside
-//   its window (inclusive bounds);
+// * the offset gradient (`tile_bwd_offset_kernel`), a gather: a thread
+//   owns (pixel of the H*W plane, slice of channels), consecutive threads
+//   on consecutive pixels across row ends, so that the loads of g and of
+//   the offset and the store stay coalesced on rows of 38 floats. It
+//   computes its taps once and sums g * (v0 - v1) (image) or
+//   g * (in1*v1 - in0*v0) (features) over its slice's channels in order,
+//   gathering v0 and v1 through the read-only cache. The host cuts the
+//   channels into as many slices (threadIdx.y, at most 32) as it takes
+//   to put some 1,024 threads on each SM: the image warp (3 channels,
+//   389,120 pixels) keeps one slice, as csrc/warp.cu's offset gradient
+//   has it, and MADNet's scale-5 features [128, 10, 38] take 32 slices of
+//   4 channels, where one thread a pixel would leave 380 threads to walk
+//   128 channels each. The slices' partial sums meet in static shared
+//   memory and the first slice's thread adds them in slice order, so the
+//   order of the sum is fixed and two runs agree bit for bit. The result
+//   is zeroed where the unclipped offset lies outside [lo, hi];
 // * the source gradient, dwin = g * M summed over overlapping tile
 //   windows: a block owns (batch, row, chunk of channels) and keeps the
 //   row's gradient in a shared-memory row buffer. It walks the row's
@@ -86,11 +96,11 @@
 //   of sums) or csrc/warp.cu's walk, which recomputes every tap a column
 //   can be reached from. So it keeps its row buffer.
 //
-// Shared memory is dynamic and only the backward uses it. `warp_tile_init`
-// raises each backward kernel's limit to the card's 227 KB once, when the
+// Dynamic shared memory is used by the source gradient alone.
+// `warp_tile_init` raises its limit to the card's 227 KB once, when the
 // library is loaded, so that no launch changes a function attribute (a
-// launch may be under stream capture); an entry point refuses a shape that
-// needs more.
+// launch may be under stream capture); the entry point refuses a row that
+// needs more. The offset gradient's 4 KB are static.
 
 #include <cuda_runtime.h>
 
@@ -102,7 +112,12 @@ namespace {
 constexpr int kTile = 128;          // output columns per tile
 constexpr int kGatherThreads = 128; // threads of a forward block
 constexpr int kGatherChannels = 4;  // channels per thread, feature forward
-constexpr int kFwdChunk = 16;       // channels per staged window (offset gradient)
+constexpr int kWarp = 32;
+constexpr int kOffMaxThreads = 1024;  // threads of an offset-gradient block, at most
+constexpr int kOffMaxSlices = kOffMaxThreads / kWarp;  // channel slices a pixel, at most
+// threads an offset-gradient launch aims for: 1,024 on each of the H100's
+// 132 SMs, where the channels allow
+constexpr long long kOffFillThreads = 132LL * 1024;
 constexpr int kBwdChunk = 8;        // channels per row buffer
 constexpr int kBwdThreads = 256;    // threads of the source-gradient block
 constexpr int kMaxSmem = 232448;    // bytes a block can use on sm_90
@@ -147,27 +162,6 @@ __device__ __forceinline__ Tap tile_tap(float off, int x, int wp, float lo,
   t.i0 = static_cast<int>(fminf(fmaxf(x0, 0.f), last));
   t.i1 = static_cast<int>(fminf(fmaxf(x1, 0.f), last));
   return t;
-}
-
-// Columns [col0, col0 + vlen) of `nc` channel rows into `win`
-// ([nc][vlen]); zero outside the real row [0, W). `rows` points at
-// column 0 of the first channel's row.
-__device__ __forceinline__ void stage_window(const float* __restrict__ rows,
-                                             size_t plane, int nc, int W,
-                                             int col0, int vlen, float* win) {
-  for (int j = 0; j < nc; ++j) {
-    const float* r = rows + j * plane;
-    for (int v = threadIdx.x; v < vlen; v += blockDim.x) {
-      const int col = col0 + v;
-      win[j * vlen + v] = (col >= 0 && col < W) ? __ldg(r + col) : 0.f;
-    }
-  }
-}
-
-// Window index of a clamped sample column; the clip bounds keep it inside
-// [0, vlen), the min/max only guards the shared-memory read.
-__device__ __forceinline__ int window_index(int col, int col0, int vlen) {
-  return min(max(col - col0, 0), vlen - 1);
 }
 
 // Column `col` of a row of the padded source: the real row [0, W) read
@@ -245,51 +239,53 @@ __global__ void __launch_bounds__(kGatherThreads)
   }
 }
 
-// Gradient of the offset: one block per (tile, row, batch), 128 threads,
-// one per output column; the channel chunks are walked in order.
+// Gradient of the offset: a thread per (pixel of the plane, slice of
+// channels). blockDim = (pixels, slices), blockIdx.x the block of pixels,
+// blockIdx.y the batch; slice y sums channels [y * cps, (y + 1) * cps).
 template <bool kImage>
-__global__ void tile_bwd_offset_kernel(const float* __restrict__ src,
-                                       const float* __restrict__ off,
-                                       const float* __restrict__ g,
-                                       float* __restrict__ doff, int C, int H,
-                                       int W, int wp, float lo, float hi,
-                                       int back, int vlen) {
-  extern __shared__ float win[];
-  const int x0c = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const size_t row = static_cast<size_t>(h) * W;
-  const int col0 = x0c - back;
-  const int x = x0c + threadIdx.x;
-  const bool active = x < W;
-  const size_t pix = static_cast<size_t>(b) * plane + row + (active ? x : 0);
-
+__global__ void __launch_bounds__(kOffMaxThreads)
+    tile_bwd_offset_kernel(const float* __restrict__ src,
+                           const float* __restrict__ off,
+                           const float* __restrict__ g,
+                           float* __restrict__ doff, int C, int W, int wp,
+                           size_t plane, int cps, float lo, float hi) {
+  __shared__ float part[kOffMaxThreads];
+  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool active = p < plane;  // an idle thread still meets the barrier
+  const size_t pix = static_cast<size_t>(blockIdx.y) * plane + (active ? p : 0);
+  const int x = !active            ? 0
+                : plane <= UINT_MAX ? static_cast<int>(static_cast<unsigned>(p) %
+                                                       static_cast<unsigned>(W))
+                                    : static_cast<int>(p % W);
   const float raw = __ldg(off + pix);
-  const Tap t = tile_tap<kImage>(raw, active ? x : 0, wp, lo, hi);
-  const int r0 = window_index(t.i0, col0, vlen);
-  const int r1 = window_index(t.i1, col0, vlen);
+  const Tap t = tile_tap<kImage>(raw, x, wp, lo, hi);
 
+  const int c0 = threadIdx.y * cps;
+  const int c1 = min(C, c0 + cps);
   float acc = 0.f;
-  for (int c0 = 0; c0 < C; c0 += kFwdChunk) {
-    const int nc = min(kFwdChunk, C - c0);
-    const size_t chan0 = (static_cast<size_t>(b) * C + c0) * plane + row;
-    __syncthreads();  // the previous chunk's window has been read
-    stage_window(src + chan0, plane, nc, W, col0, vlen, win);
-    __syncthreads();
-    if (active) {
-      const float* gp = g + chan0 + x;
-      for (int j = 0; j < nc; ++j) {
-        const float v0 = win[j * vlen + r0];
-        const float v1 = win[j * vlen + r1];
-        // image: d out / d disp = v0 - v1 (the sample moves left as disp
-        // grows); features: d out / d dx = in1 * v1 - in0 * v0
-        const float diff =
-            kImage ? __fsub_rn(v0, v1)
-                   : __fsub_rn(__fmul_rn(t.in1, v1), __fmul_rn(t.in0, v0));
-        acc = __fadd_rn(acc, __fmul_rn(__ldg(gp + j * plane), diff));
-      }
+  if (active) {
+    const size_t first = (static_cast<size_t>(blockIdx.y) * C + c0) * plane;
+    const float* r = src + first + (p - x);  // column 0 of the pixel's row
+    const float* gp = g + first + p;
+#pragma unroll 4
+    for (int c = c0; c < c1; ++c, r += plane, gp += plane) {
+      // image: i0 = floor(x - d) <= x < W, only the second tap can reach the pad
+      const float v0 = kImage ? __ldg(r + t.i0) : padded_load(r, t.i0, W);
+      const float v1 = padded_load(r, t.i1, W);
+      // image: d out / d disp = v0 - v1 (the sample moves left as disp
+      // grows); features: d out / d dx = in1 * v1 - in0 * v0
+      const float diff =
+          kImage ? __fsub_rn(v0, v1)
+                 : __fsub_rn(__fmul_rn(t.in1, v1), __fmul_rn(t.in0, v0));
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(gp), diff));
     }
+  }
+  if (blockDim.y > 1) {  // the slices' partial sums, added in slice order
+    part[threadIdx.y * blockDim.x + threadIdx.x] = acc;
+    __syncthreads();
+    if (threadIdx.y != 0) return;
+    for (unsigned s = 1; s < blockDim.y; ++s)
+      acc = __fadd_rn(acc, part[s * blockDim.x + threadIdx.x]);
   }
   if (active) doff[pix] = (raw >= lo && raw <= hi) ? acc : 0.f;
 }
@@ -431,24 +427,43 @@ int launch_features_fwd(const float* src, const float* off, float* out, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The offset gradient's launch: as many channel slices as it takes to put
+// kOffFillThreads threads on the card, at most one a channel and
+// kOffMaxSlices; each slice a warp of consecutive pixels, and up to 4 warps
+// of pixels a block where the slices are fewer than 4.
+template <bool kImage>
+int launch_bwd_offset(const float* src, const float* off, const float* g,
+                      float* doff, int B, int C, int H, int W, float lo,
+                      float hi, cudaStream_t stream) {
+  const size_t plane = static_cast<size_t>(H) * W;
+  const long long pixels = static_cast<long long>(B) * static_cast<long long>(plane);
+  long long want = pixels > 0 ? (kOffFillThreads + pixels - 1) / pixels : 1;
+  want = want < kOffMaxSlices ? want : kOffMaxSlices;
+  want = want < C ? want : C;
+  const int slices0 = want > 1 ? static_cast<int>(want) : 1;
+  const int cps = C > slices0 ? (C + slices0 - 1) / slices0 : 1;
+  const int slices = C > cps ? (C + cps - 1) / cps : 1;  // none empty
+  const int pix = kWarp * (slices < 4 ? 4 / slices : 1);
+  const long long blocks = (static_cast<long long>(plane) + pix - 1) / pix;
+  if (blocks > INT_MAX || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  tile_bwd_offset_kernel<kImage>
+      <<<dim3(static_cast<unsigned>(blocks), B), dim3(pix, slices), 0, stream>>>(
+          src, off, g, doff, C, W, padded_width(W), plane, cps, lo, hi);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kImage>
 int launch_bwd(const float* src, const float* off, const float* g, float* dsrc,
                float* doff, int B, int C, int H, int W, float lo, float hi,
                int need_dsrc, int need_doff, cudaStream_t stream) {
-  int back, ahead;
-  window_of<kImage>(lo, hi, &back, &ahead);
-  const int wp = padded_width(W);
   if (need_doff) {
-    const int vlen = back + kTile + ahead;
-    const size_t smem = sizeof(float) * (C < kFwdChunk ? C : kFwdChunk) * vlen;
-    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((W + kTile - 1) / kTile, H, B);
-    tile_bwd_offset_kernel<kImage><<<grid, kTile, smem, stream>>>(
-        src, off, g, doff, C, H, W, wp, lo, hi, back, vlen);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int err =
+        launch_bwd_offset<kImage>(src, off, g, doff, B, C, H, W, lo, hi, stream);
+    if (err != 0) return err;
   }
   if (need_dsrc) {
+    int back, ahead;
+    window_of<kImage>(lo, hi, &back, &ahead);
     const int n_chunks = (C + kBwdChunk - 1) / kBwdChunk;
     const size_t smem =
         sizeof(float) * (static_cast<size_t>(kBwdChunk) * W +
@@ -457,7 +472,7 @@ int launch_bwd(const float* src, const float* off, const float* g, float* dsrc,
     if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(H, B * n_chunks);
     tile_bwd_source_kernel<kImage><<<grid, kBwdThreads, smem, stream>>>(
-        off, g, dsrc, C, H, W, wp, lo, hi, back, ahead, n_chunks);
+        off, g, dsrc, C, H, W, padded_width(W), lo, hi, back, ahead, n_chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -472,12 +487,11 @@ cudaError_t allow_max_smem(Kernel kernel) {
 
 extern "C" {
 
-// Raises the dynamic shared-memory limit of every backward kernel here,
-// on the current device. Called once when the library is loaded.
+// Raises the dynamic shared-memory limit of the source-gradient kernels,
+// the only ones here that use it, on the current device. Called once when
+// the library is loaded.
 int warp_tile_init() {
-  cudaError_t err = allow_max_smem(tile_bwd_offset_kernel<true>);
-  if (err == cudaSuccess) err = allow_max_smem(tile_bwd_offset_kernel<false>);
-  if (err == cudaSuccess) err = allow_max_smem(tile_bwd_source_kernel<true>);
+  cudaError_t err = allow_max_smem(tile_bwd_source_kernel<true>);
   if (err == cudaSuccess) err = allow_max_smem(tile_bwd_source_kernel<false>);
   return static_cast<int>(err);
 }

@@ -76,10 +76,12 @@ __all__ = [
 ]
 
 # The launch grid's y and z axes take at most 65535 blocks each. Per entry
-# point: whether a grid axis runs over the rows H, and the channels per
+# point: whether a y or z axis runs over the rows H, and the channels per
 # block where an axis runs over B times the channel chunks (csrc/warp.cu:
 # kChunk; csrc/warp_tile.cu: kBwdChunk), None where it runs over B alone.
-# The feature forwards put their channel groups on the x axis.
+# The feature forwards put their channel groups on the x axis; the tiled
+# backward puts the rows (source gradient) and the pixels of the plane
+# (offset gradient) there.
 _GRID = {
     "warp_image_fwd": (True, None),
     "warp_features_fwd": (False, None),
@@ -87,8 +89,8 @@ _GRID = {
     "warp_features_bwd": (True, 4),
     "warp_tile_image_fwd": (True, None),
     "warp_tile_features_fwd": (False, None),
-    "warp_tile_image_bwd": (True, 8),
-    "warp_tile_features_bwd": (True, 8),
+    "warp_tile_image_bwd": (False, 8),
+    "warp_tile_features_bwd": (False, 8),
 }
 
 

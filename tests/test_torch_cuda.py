@@ -350,9 +350,9 @@ def test_tiled_image_warp_matches_plain_and_clamped_kernels(dev, shape, max_disp
     """Forward and both gradients against the one-hot product over the
     padded row (its plain version) and against the clamped-window kernels,
     which compute the same function: widths that are no multiple of 128,
-    one that is, a row narrower than the window, 17 channels across the
-    offset gradient's chunk of 16, a window wider than the row; offsets beyond both
-    bounds, on them, and exactly 0."""
+    one that is, a row narrower than the window, 17 channels (the offset
+    gradient's slices of one channel each), a window wider than the row;
+    offsets beyond both bounds, on them, and exactly 0."""
     img = _normal(shape, 24, dev)
     disp = _uniform((shape[0], 1, *shape[2:]), 25, dev, -20.0, max_disp + 40.0)
     disp[..., 3::11] = float(max_disp)
@@ -432,6 +432,66 @@ def test_tiled_feature_warp_matches_plain_and_clamped_kernels(dev, shape, max_ne
     assert not bool(ddx[(dx < -max_neg) | (dx > 4)].any())
     (only_f,) = torch.autograd.grad(tops.warp_features_mxu(fg, dx, max_neg, 4), (fg,), g)
     assert torch.equal(only_f, dfeats)
+
+
+# the tiled offset gradient's slices of channels: MADNet's four feature
+# shapes at 320x1216, channel counts that the slices do not divide (1, 3,
+# 17, 33, 130), and a batch of 2
+@pytest.mark.parametrize(
+    "shape,max_neg",
+    [
+        ((1, 128, 10, 38), 6), ((1, 96, 20, 76), 12), ((1, 64, 40, 152), 24), ((1, 32, 80, 304), 48),
+        ((1, 1, 6, 38), 6), ((1, 3, 6, 38), 6), ((2, 17, 5, 33), 12), ((1, 33, 4, 76), 12),
+        ((1, 130, 10, 38), 6),
+    ],
+)
+def test_tiled_offset_gradient_matches_plain_and_clamped_kernels(dev, shape, max_neg):
+    """Both gradients of the tiled feature warp, as FULL asks for them,
+    against the plain version and against ``warp_features_bwd``; the
+    offset's alone gives the same bits; two runs agree bit for bit; one
+    launch a call."""
+    feats = _normal(shape, 32, dev)
+    dx = _uniform((shape[0], 1, *shape[2:]), 33, dev, -max_neg - 10.0, 10.0)
+    dx[..., 2::7] = -float(max_neg)
+    dx[..., 4::9] = 4.0
+    dx[..., -3:] = 2.5  # samples right of the row: a weight on a pad column
+    g = _normal(shape, 34, dev)
+    before = cuda_lib.LAUNCHES["warp_tile_features_bwd"]
+    got = tops.warp_features_mxu_bwd(feats, dx, g, max_neg, 4)
+    again = tops.warp_features_mxu_bwd(feats, dx, g, max_neg, 4)
+    none, only_dx = tops.warp_features_mxu_bwd(feats, dx, g, max_neg, 4, need_feats=False)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["warp_tile_features_bwd"] == before + 3
+    want = tops.warp_features_onehot_bwd(feats, dx, g, max_neg, 4)
+    other = tops.warp_features_bwd_cuda(feats, dx, g, max_neg, 4)
+    for a, b, c, name in zip(got, want, other, ("dfeats", "ddx")):
+        _close(a, b, name)
+        _close(a, c, f"{name} against warp_features_bwd")
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert none is None and torch.equal(only_dx, got[1])
+    assert not bool(got[1][(dx < -max_neg) | (dx > 4)].any())
+
+
+@pytest.mark.parametrize("kind", ["image", "features"])
+def test_tiled_offset_gradient_has_no_window_limit(dev, kind):
+    """An offset gradient alone whose clip window the earlier, staged
+    kernel refused: 16 channels of (4,000 + 128 + 1 or 5) columns, 264 KB,
+    over the 227 KB of shared memory a block can use. It runs and matches
+    the plain version."""
+    shape, bound = ((1, 16, 2, 5000), 4000) if kind == "image" else ((1, 16, 2, 7000), 4000)
+    src = _normal(shape, 35, dev)
+    g = _normal(shape, 36, dev)
+    if kind == "image":
+        off = _uniform((1, 1, *shape[2:]), 37, dev, -20.0, bound + 40.0)
+        none, got = tops.warp_image_mxu_bwd(src, off, g, bound, need_img=False)
+        want = tops.warp_image_onehot_bwd(src, off, g, bound)[1]
+    else:
+        off = _uniform((1, 1, *shape[2:]), 37, dev, -bound - 10.0, 10.0)
+        none, got = tops.warp_features_mxu_bwd(src, off, g, bound, 4, need_feats=False)
+        want = tops.warp_features_onehot_bwd(src, off, g, bound, 4)[1]
+    torch.cuda.synchronize()
+    assert none is None
+    _close(got, want, f"{kind} offset gradient")
 
 
 def test_tiled_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -130,6 +130,25 @@ def test_features_mxu_route_matches_jax_mxu_interpret(w):
     assert not got[2][dx < -n].any() and not got[2][dx > p].any()
 
 
+def test_features_mxu_route_matches_jax_mxu_interpret_on_a_deep_row():
+    """A narrow, deep row as MADNet's scale 5 has it, 130 channels of 38
+    columns (no multiple of the tiled offset gradient's slices of
+    channels), both gradients, offsets beyond, on and inside the window
+    [-6, 4] and right of the row."""
+    r = np.random.default_rng(238)
+    feats = r.normal(size=(1, 3, 38, 130)).astype(np.float32)
+    dx = (r.random((1, 3, 38, 1)) * 20 - 13).astype(np.float32)
+    dx[0, 0, 2::7] = -6.0
+    dx[0, 1, 3::5] = 4.0
+    dx[0, 2, -3:] = 2.5
+    g = r.normal(size=feats.shape).astype(np.float32)
+    want = _jax_vjp(lambda f, d: jpallas.warp_features_mxu(f, d, 6, 4, True), feats, dx, g)
+    got = _torch_vjp(lambda f, d: tops.warp_features_mxu(f, d, 6, 4), feats, dx, g)
+    _assert_triple(got, want, "features C=130 W=38")
+    assert np.abs(got[2][0, 0, 2::7, 0]).max() > 0 and np.abs(got[2][0, 1, 3::5, 0]).max() > 0
+    assert not got[2][dx < -6].any() and not got[2][dx > 4].any()
+
+
 @pytest.mark.parametrize("w", [200, 140, 256])
 def test_onehot_matches_jax_onehot_and_clamped(w):
     """The one-hot functions (real width) against the JAX one-hot

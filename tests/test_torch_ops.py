@@ -347,9 +347,11 @@ def test_warp_grid_checks_follow_the_kernels_grids():
     """The wrappers' check of the launch grid, whose y and z axes hold at
     most 65535 blocks: the feature forwards put their channel groups on the
     x axis, so the batch alone bounds them; the image forwards walk the
-    channels in a thread, so rows and batch bound them; the backward kernels
-    keep their bounds. Each tiled forward has its clamped-window
-    counterpart's grid, since it is a gather of the same form."""
+    channels in a thread, so rows and batch bound them; the clamped-window
+    backward kernels keep their bounds, and the tiled backward has its rows
+    and pixels on the x axis, so batch and channel chunks alone bound it.
+    Each tiled forward has its clamped-window counterpart's grid, since it
+    is a gather of the same form."""
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
     from real_time_self_adaptive_deep_stereo_torch.ops import warp_kernels as wk
 
@@ -360,6 +362,8 @@ def test_warp_grid_checks_follow_the_kernels_grids():
         wk._check_grid(fn, (65535, 10**6, 70000, 2))
     for fn in ("warp_image_fwd", "warp_tile_image_fwd"):
         wk._check_grid(fn, (65535, 10**6, 65535, 2))
+    for fn in ("warp_tile_image_bwd", "warp_tile_features_bwd"):
+        wk._check_grid(fn, (1, 3, 65536, 1))
     for fn, shape in [
         ("warp_features_fwd", (65536, 1, 1, 1)),
         ("warp_tile_features_fwd", (65536, 1, 1, 1)),
@@ -367,7 +371,8 @@ def test_warp_grid_checks_follow_the_kernels_grids():
         ("warp_tile_image_fwd", (1, 3, 65536, 1)),
         ("warp_tile_image_fwd", (65536, 3, 1, 1)),
         ("warp_features_bwd", (1, 4 * 65535 + 1, 1, 1)),
-        ("warp_tile_image_bwd", (1, 3, 65536, 1)),
+        ("warp_image_bwd", (1, 3, 65536, 1)),
+        ("warp_tile_image_bwd", (65536, 3, 1, 1)),
         ("warp_tile_features_bwd", (1, 8 * 65535 + 1, 1, 1)),
     ]:
         with pytest.raises(ValueError, match="exceeds the launch grid"):
