@@ -10,8 +10,8 @@ Phases, each of which raises on failure (nothing is caught):
    ``highest``, fp32.
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report, and
-   apart the registers and spills of the two tiled forwards, the tiled
-   offset gradient and the wide correlation pair.
+   apart the registers and spills of ``corr_fwd``, the two tiled forwards,
+   the tiled offset and source gradients and the wide correlation pair.
 3. Each of the sixteen kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
    windows: the six forward kernels, and the six backward kernels
@@ -28,7 +28,12 @@ Phases, each of which raises on failure (nothing is caught):
    time (median of CUDA-event-timed replays of a CUDA graph), its bound
    (bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever
    is larger), the plain version's time and, for the warps, a yardstick
-   that the port never calls, timed from a CUDA graph too:
+   that the port never calls, timed from a CUDA graph too. K1
+   (``corr_fwd``, ``corr_fwd_bf16``) and the tiled backward (every variant
+   of ``warp_tile_*_bwd``, the source gradient's included) are also timed
+   with the L2 cold (``cold_ms``): each call in the graph follows a write
+   over a buffer twice the card's 50 MB L2, whose own time, taken the same
+   way, is subtracted. The yardsticks are
    ``F.grid_sample`` (forward) or its backward op
    ``aten.grid_sampler_2d_backward`` on the same sampling. A warp backward
    is timed in each variant, the gradients it is asked for: both, the
@@ -235,6 +240,19 @@ def time_ms(fn, reps: int = 20, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+L2_FLUSH_BYTES = 100 * 2**20  # twice the H100's 50 MB L2
+
+
+def cold_ms(fn) -> float:
+    """Device time of one call of ``fn`` with the L2 cold, as a call in a
+    frame finds it after other kernels: :func:`time_ms` of a write over
+    ``L2_FLUSH_BYTES`` followed by the call, less :func:`time_ms` of the
+    write alone."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    flush = lambda: buf.fill_(1.0)  # noqa: E731
+    return time_ms(lambda: (flush(), fn())) - time_ms(flush)
+
+
 def call_ms(fn, reps: int = 200) -> float:
     """Time of one eager call as the main path makes it, launch cost
     included: ``reps`` calls between two CUDA events, per call."""
@@ -327,6 +345,7 @@ def check_kernels(ops):
         rows["corr_fwd"].append(dict(
             shape=list(shape), err=float((got - want).abs().max()), tol=CORR_TOL,
             ms=time_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
+            cold_ms=cold_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
             call_ms=call_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
             plain_ms=time_ms(lambda: ops.correlation_torch(x, y, RADIUS)),
             library_ms=None,
@@ -403,6 +422,7 @@ def check_kernels(ops):
         lambda s, o: ops.warp_image_onehot(s, o, MAX_DISP, align=128),
         IMAGE_MODES,
         same_as=lambda s, o, g: ops.warp_image_bwd_cuda(s, o, g, MAX_DISP),
+        cold=True,
     ))
 
     for i, (c, f) in enumerate(FEAT_LEVELS):
@@ -455,6 +475,7 @@ def check_kernels(ops):
             lambda s, o, neg=neg: ops.warp_features_onehot(s, o, neg, MAX_POS, align=128),
             FEATURE_MODES,
             same_as=lambda s, o, g, neg=neg: ops.warp_features_bwd_cuda(s, o, g, neg, MAX_POS),
+            cold=True,
         ))
 
     for name, rs in rows.items():
@@ -464,9 +485,12 @@ def check_kernels(ops):
     for name, rs in rows.items():  # summed over the main-path shapes
         ms, lib_ms = sum(r["ms"] for r in rs), [r["library_ms"] for r in rs]
         ratio = "no library call" if None in lib_ms else f"{ms / sum(lib_ms):.3f} of the library's {sum(lib_ms):.5f} ms"
+        if rs and "cold_ms" in rs[0]:
+            ratio += f"; cold {sum(r['cold_ms'] for r in rs):.5f} ms"
         for v, var in summed_variants(rs).items():
             modes = [m for m, mv in rs[0]["modes"].items() if mv == v]
-            ratio += (f"; {v}{' (' + ', '.join(modes) + ')' if modes else ''} {var['ms']:.5f} ms, "
+            ratio += (f"; {v}{' (' + ', '.join(modes) + ')' if modes else ''} {var['ms']:.5f} ms"
+                      f"{(' (cold ' + format(var['cold_ms'], '.5f') + ')') if 'cold_ms' in var else ''}, "
                       f"{var['ms'] / var['library_ms']:.3f} of the library's {var['library_ms']:.5f} ms, "
                       f"bound {var['bound_ms']:.5f}")
         log(f"kernel {name}: {ms:.5f} ms over {len(rs)} shape(s), {ratio}")
@@ -596,6 +620,7 @@ def check_bf16_kernels(ops, rows):
         rows[fwd_name].append(dict(
             fwd,
             ms=time_ms(lambda: ops.correlation_cuda(x, y, radius)),
+            **({} if wide else {"cold_ms": cold_ms(lambda: ops.correlation_cuda(x, y, radius))}),
             call_ms=call_ms(lambda: ops.correlation_cuda(x, y, radius)),
             fp32_ms=time_ms(lambda: ops.correlation_cuda(xf, yf, radius)),
             plain_ms=time_ms(lambda: ops.correlation_torch(x, y, radius), inner=inner),
@@ -613,7 +638,7 @@ def check_bf16_kernels(ops, rows):
         ))
 
 
-def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes, same_as=None):
+def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes, same_as=None, cold=False):
     """One warp backward kernel at one shape: both gradients against
     autograd through the plain version (and against ``same_as``, another
     kernel of the same function, where given), two runs bit-identical,
@@ -622,7 +647,8 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes
     mode asks for. Every variant (both gradients, the offset's alone and
     each mode's) must give the bits of both gradients together in two
     runs, and is timed beside the yardstick ``grid_sample_bwd`` with the
-    same mask and beside its own bound."""
+    same mask and beside its own bound; with ``cold``, also with the L2
+    cold (:func:`cold_ms`)."""
     _, c, h, w = src.shape
     g = seeded(tuple(src.shape), seed)
     got = kernel(src, off, g)
@@ -653,6 +679,7 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes
                           4.0 * c * n * (mask[0] + mask[1]))
         variants[v] = dict(
             ms=time_ms(lambda: kernel(src, off, g, mask)),
+            **({"cold_ms": cold_ms(lambda: kernel(src, off, g, mask))} if cold else {}),
             library_ms=time_ms(lambda: grid_sample_bwd(g, src, grid, padding, mask)),
             bound_ms=var_bound[0], bound_by=var_bound[1],
         )
@@ -663,6 +690,7 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes
     return dict(
         shape=list(src.shape), err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
         ms=both["ms"],
+        **({"cold_ms": both["cold_ms"]} if cold else {}),
         call_ms=call_ms(lambda: kernel(src, off, g)),
         plain_ms=call_ms(plain, 50),
         library_ms=both["library_ms"],
@@ -678,8 +706,8 @@ def summed_variants(rs):
     {} for any other kernel."""
     if "variants" not in rs[0]:
         return {}
-    return {v: {k: sum(r["variants"][v][k] for r in rs) for k in ("ms", "library_ms", "bound_ms")}
-            for v in rs[0]["variants"]}
+    keys = [k for k in ("ms", "cold_ms", "library_ms", "bound_ms") if k in next(iter(rs[0]["variants"].values()))]
+    return {v: {k: sum(r["variants"][v][k] for r in rs) for k in keys} for v in rs[0]["variants"]}
 
 
 # ------------------------------------------------------------- phases 4 and 5
@@ -1888,8 +1916,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    for lib, kernel in (("warp_tile", "tile_image_fwd_kernel"), ("warp_tile", "tile_feat_fwd_kernel"),
-                        ("warp_tile", "tile_bwd_offset_kernel"),
+    for lib, kernel in (("correlation", "corr_fwd_kernel"),
+                        ("warp_tile", "tile_image_fwd_kernel"), ("warp_tile", "tile_feat_fwd_kernel"),
+                        ("warp_tile", "tile_bwd_offset_kernel"), ("warp_tile", "tile_bwd_source_kernel"),
                         ("correlation", "corr_fwd_wide_kernel"), ("correlation", "corr_bwd_wide_kernel")):
         usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get(lib, ""), kernel) or ["cached build, no report"]
         log(f"ptxas {kernel}: {'; '.join(usage)}")
@@ -1934,8 +1963,8 @@ def main() -> int:
     kernels = []
     for name, rs in rows.items():
         lib_ms = [r["library_ms"] for r in rs]
-        shape_keys = ("shape", "radius", "ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms", "library_ms",
-                      "variants", "wide_ms")
+        shape_keys = ("shape", "radius", "ms", "cold_ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms",
+                      "library_ms", "variants", "wide_ms")
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1948,6 +1977,8 @@ def main() -> int:
             "max_abs_err": max(r["err"] for r in rs),
             # one call at each main-path shape: the sums over the shapes
             "ms": sum(r["ms"] for r in rs),
+            # K1 and the tiled backward: the same with the L2 cold
+            **({"cold_ms": sum(r["cold_ms"] for r in rs)} if "cold_ms" in rs[0] else {}),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rs) else "operations",

@@ -10,16 +10,25 @@
 //
 // What bounds it: memory. Each output element costs 2C(2R+1) flops for
 // (2C + 2R + 1) * 4 bytes of compulsory traffic, about one flop per byte
-// at R = 2, far below the card's fp32 ridge point. The design reads x and
-// y once from device memory: one thread per output pixel (b, h, w),
-// consecutive threads on consecutive w, so every load of x and of the
-// 2R+1 shifted y values is coalesced and the shifted reads of neighbouring
-// threads hit the same cache lines. The 2R+1 partial sums stay in
-// registers (R is a template parameter), the bounds check replaces the
-// TPU kernel's zero-padded copy of y, and each output plane is written
-// once, coalesced. At MADNet's coarse scales the calls hold too few
-// pixels to approach the card's bandwidth (95 threads at scale 6): there
-// the latency of the loads down the channel loop sets the time.
+// at R = 2, far below the card's fp32 ridge point. At MADNet's shapes the
+// bytes are few (3.5 us over the five calls), and what set the time of a
+// form with one thread per output pixel was the latency of its loads down
+// the channel loop: at scale 6, [1,192,5,19], 95 threads each walked 192
+// channels (0.033 ms of the five calls' 0.090 on the H100). So a thread
+// owns one pixel of the flattened H*W plane and one slice of channels, as
+// the tiled warp's offset gradient does (csrc/warp_tile.cu): consecutive
+// threads on consecutive pixels across row ends, so that the loads of x
+// and of the 2R+1 shifted y values stay coalesced on rows of 19 floats and
+// the shifted reads of neighbouring threads share cache lines. The host
+// cuts the channels into as many slices (threadIdx.y, at most 32, none
+// empty) as it takes to put some 1,024 threads on each SM: scale 6 takes
+// 32 slices of 6 channels, scale 2 ([1,32,80,304]) 6 of 6. Each thread
+// keeps its 2R+1 partial sums in registers (R is a template parameter) and
+// checks the bounds once (y is read as zero outside [0, W-1], the TPU
+// kernel's zero-padded copy of y); the slices' sums meet in static shared
+// memory, where the thread of slice k adds shift k's in slice order and
+// makes the output's one store. The order of every sum is fixed, so two
+// runs agree bit for bit.
 //
 // corr_bwd is the backward of the same function. The JAX package has no
 // TPU kernel for it: `_corr_pallas_bwd`, the backward of the
@@ -89,9 +98,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // threads of a corr_bwd block
+constexpr int kWarp = 32;
+constexpr int kFwdMaxThreads = 1024;  // threads of a corr_fwd block, at most
+constexpr int kFwdMaxSlices = kFwdMaxThreads / kWarp;  // channel slices a pixel, at most
+// threads a corr_fwd launch aims for: 1,024 on each of the H100's 132 SMs,
+// where the channels allow
+constexpr long long kFwdFill = 132LL * 1024;
 
 // one element of T from device memory through the read-only path, as fp32
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
@@ -112,27 +129,30 @@ __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// One thread per (pixel of the H*W plane, slice of channels): blockDim =
+// (pixels, slices), blockIdx.x the block of pixels, blockIdx.y the batch;
+// slice y sums channels [y * cps, (y + 1) * cps). The slices' K partial
+// sums meet in static shared memory, and thread (x, y) adds those of
+// shifts y, y + slices, ... in slice order and stores them.
 template <int R, typename T>
-__global__ void corr_fwd_kernel(const T* __restrict__ x,
-                                const T* __restrict__ y,
-                                T* __restrict__ out, int C, int H, int W,
-                                float inv_c) {
+__global__ void __launch_bounds__(kFwdMaxThreads)
+    corr_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                    T* __restrict__ out, int C, int W, size_t plane, int cps,
+                    float inv_c) {
   constexpr int K = 2 * R + 1;
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  if (w >= W) return;
-
-  const size_t plane = static_cast<size_t>(H) * W;
-  const size_t row = static_cast<size_t>(h) * W;
-  const T* xp = x + static_cast<size_t>(b) * C * plane + row;
-  const T* yp = y + static_cast<size_t>(b) * C * plane + row;
+  __shared__ float part[K][kFwdMaxThreads];
+  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool active = p < plane;  // an idle thread still meets the barrier
+  const int b = blockIdx.y;
+  const int w = !active            ? 0
+                : plane <= UINT_MAX ? static_cast<int>(static_cast<unsigned>(p) %
+                                                       static_cast<unsigned>(W))
+                                    : static_cast<int>(p % W);
 
   // The bounds check is made once per thread: every load in the channel
   // loop is unconditional (at a clamped column) and an out-of-range shift
   // keeps its sum unchanged, so the unrolled loop can put several
-  // channels' loads in flight at once. At the coarse scales few threads
-  // walk many channels, and load latency, not bandwidth, sets the time.
+  // channels' loads in flight at once.
   float acc[K];
   int col[K];
   bool inside[K];
@@ -144,20 +164,42 @@ __global__ void corr_fwd_kernel(const T* __restrict__ x,
     col[k] = min(max(wy, 0), W - 1);
   }
 
+  const int c0 = threadIdx.y * cps;
+  const int c1 = min(C, c0 + cps);
+  if (active) {
+    const size_t first = (static_cast<size_t>(b) * C + c0) * plane;
+    const T* xp = x + first + p;
+    const T* yr = y + first + (p - w);  // column 0 of the pixel's row
 #pragma unroll 4
-  for (int c = 0; c < C; ++c) {
-    const float xv = load(xp + c * plane + w);
-    const T* yr = yp + c * plane;
+    for (int c = c0; c < c1; ++c, xp += plane, yr += plane) {
+      const float xv = load(xp);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float yv = load(yr + col[k]);
-      acc[k] = inside[k] ? fmaf(xv, yv, acc[k]) : acc[k];
+      for (int k = 0; k < K; ++k) {
+        const float yv = load(yr + col[k]);
+        acc[k] = inside[k] ? fmaf(xv, yv, acc[k]) : acc[k];
+      }
     }
   }
 
-  T* op = out + static_cast<size_t>(b) * K * plane + row + w;
+  T* op = out + static_cast<size_t>(b) * K * plane + p;
+  if (blockDim.y == 1) {
+    if (active) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) op[k * plane] = store_as<T>(acc[k] * inv_c);
+      for (int k = 0; k < K; ++k) op[k * plane] = store_as<T>(acc[k] * inv_c);
+    }
+    return;
+  }
+  const int slot = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < K; ++k) part[k][slot] = acc[k];
+  __syncthreads();
+  if (!active) return;
+  for (int k = threadIdx.y; k < K; k += blockDim.y) {
+    float s = part[k][threadIdx.x];
+    for (unsigned sl = 1; sl < blockDim.y; ++sl)
+      s = __fadd_rn(s, part[k][sl * blockDim.x + threadIdx.x]);
+    op[k * plane] = store_as<T>(s * inv_c);
+  }
 }
 
 template <int R, typename T>
@@ -206,12 +248,28 @@ void launch_bwd(const T* x, const T* y, const T* g, T* dx, T* dy, int B, int C,
                                                        W, 1.0f / C);
 }
 
+// corr_fwd's launch: as many channel slices as it takes to put kFwdFill
+// threads on the card, at most one a channel and kFwdMaxSlices; each slice
+// a warp of consecutive pixels, and up to 4 warps of pixels a block where
+// the slices are fewer than 4.
 template <int R, typename T>
-void launch(const T* x, const T* y, T* out, int B, int C, int H, int W,
-            cudaStream_t stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, H, B);
-  corr_fwd_kernel<R, T><<<grid, kThreads, 0, stream>>>(x, y, out, C, H, W,
-                                                       1.0f / C);
+int launch(const T* x, const T* y, T* out, int B, int C, int H, int W,
+           cudaStream_t stream) {
+  const size_t plane = static_cast<size_t>(H) * W;
+  const long long pixels = static_cast<long long>(B) * static_cast<long long>(plane);
+  long long want = pixels > 0 ? (kFwdFill + pixels - 1) / pixels : 1;
+  want = want < kFwdMaxSlices ? want : kFwdMaxSlices;
+  want = want < C ? want : C;
+  const int slices0 = want > 1 ? static_cast<int>(want) : 1;
+  const int cps = C > slices0 ? (C + slices0 - 1) / slices0 : 1;
+  const int slices = C > cps ? (C + cps - 1) / cps : 1;  // none empty
+  const int pix = kWarp * (slices < 4 ? 4 / slices : 1);
+  const long long blocks = (static_cast<long long>(plane) + pix - 1) / pix;
+  if (blocks > INT_MAX || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  corr_fwd_kernel<R, T>
+      <<<dim3(static_cast<unsigned>(blocks), B), dim3(pix, slices), 0, stream>>>(
+          x, y, out, C, W, plane, cps, 1.0f / C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------- any radius
@@ -372,13 +430,12 @@ template <typename T>
 int corr_fwd_impl(const T* x, const T* y, T* out, int B, int C, int H, int W,
                   int radius, cudaStream_t stream) {
   switch (radius) {
-    case 1: launch<1, T>(x, y, out, B, C, H, W, stream); break;
-    case 2: launch<2, T>(x, y, out, B, C, H, W, stream); break;
-    case 3: launch<3, T>(x, y, out, B, C, H, W, stream); break;
-    case 4: launch<4, T>(x, y, out, B, C, H, W, stream); break;
+    case 1: return launch<1, T>(x, y, out, B, C, H, W, stream);
+    case 2: return launch<2, T>(x, y, out, B, C, H, W, stream);
+    case 3: return launch<3, T>(x, y, out, B, C, H, W, stream);
+    case 4: return launch<4, T>(x, y, out, B, C, H, W, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>

@@ -81,26 +81,42 @@
 //   order of the sum is fixed and two runs agree bit for bit. The result
 //   is zeroed where the unclipped offset lies outside [lo, hi];
 // * the source gradient, dwin = g * M summed over overlapping tile
-//   windows: a block owns (batch, row, chunk of channels) and keeps the
-//   row's gradient in a shared-memory row buffer. It walks the row's
-//   tiles in increasing order; for each it stages the tile's 128 tap
-//   records and its slice of g, then the thread of each window column v
-//   walks the records of the outputs x that can reach v, in increasing x,
-//   and adds w * g where a tap's column equals v: first into registers,
-//   then once into the row buffer. Each column has one owner per tile and
-//   tiles come in order, so there are no atomics, in shared memory
-//   either, and two runs agree bit for bit. The row is written once,
-//   cropped to the real width. This is the transpose of a gather; done as
-//   a gather from device memory it would need atomics (whose order changes
-//   from run to run, and the adaptation's trajectory depends on the order
-//   of sums) or csrc/warp.cu's walk, which recomputes every tap a column
-//   can be reached from. So it keeps its row buffer.
+//   windows (`tile_bwd_source_kernel`): the transpose of a gather. As a
+//   scatter it would need atomics, whose order changes from run to run
+//   (and the adaptation's trajectory depends on the order of sums). The
+//   earlier form summed the tile windows into a row buffer in shared
+//   memory, as the reference sums them: a block per (row, chunk of 8
+//   channels) searched, for every window column and every chunk, the tap
+//   records of the outputs that can reach it, with two barriers a tile:
+//   0.039 ms at scale 2 ([1,32,80,304], window [-48, 4]) on the H100,
+//   where `grid_sampler_2d_backward` takes 0.029 (this form: 0.0079). Here
+//   the question of which outputs reach a column is asked once for all
+//   channels: a thread owns (column of the H*W plane, slice of channels),
+//   consecutive threads on consecutive columns across row ends, slices as
+//   the offset gradient's but of at most 4 channels, kept in registers. A
+//   block computes the taps of the outputs that can reach its columns
+//   ([p - ahead, p + back] of p's row) once, into static shared memory;
+//   the slices of a column build, a word of 32 outputs each, the bit mask
+//   of the outputs whose tap lands on it; then each thread walks its
+//   column's bits in increasing x and adds w * g[c, x] for its channels
+//   (w = w0 + w1 where both taps land on the column, at a clamp). Each
+//   dsrc value has one owner and one order of sum, fixed by x: no atomics,
+//   two runs agree bit for bit, and each is written once. Taps that land
+//   on the pad columns [W, wp) are cropped, and so are taps of weight 0,
+//   which add nothing: a feature tap outside the padded row, and the
+//   second tap of a sample on a whole column. Kept, the feature taps left
+//   of the row, which all clamp to column 0, piled up there, and the one
+//   thread that walks a column walked them in series: the scale-2 call
+//   took 0.0156 ms with them and 0.0092 without (`chip_smoke.py`, H100).
+//   The image warp's taps left of the row keep their weights (clamp to
+//   edge), so its column 0 still takes every such output in series. A
+//   window of more than 256 outputs is taken in passes of 256, so no row
+//   length or window is refused.
 //
-// Dynamic shared memory is used by the source gradient alone.
-// `warp_tile_init` raises its limit to the card's 227 KB once, when the
-// library is loaded, so that no launch changes a function attribute (a
-// launch may be under stream capture); the entry point refuses a row that
-// needs more. The offset gradient's 4 KB are static.
+// No kernel here uses dynamic shared memory: the offset gradient keeps 4
+// KB of partial sums, the source gradient 10 KB of tap records and masks,
+// both static, so no launch sets a function attribute (a launch may be
+// under stream capture).
 
 #include <cuda_runtime.h>
 
@@ -113,14 +129,16 @@ constexpr int kTile = 128;          // output columns per tile
 constexpr int kGatherThreads = 128; // threads of a forward block
 constexpr int kGatherChannels = 4;  // channels per thread, feature forward
 constexpr int kWarp = 32;
-constexpr int kOffMaxThreads = 1024;  // threads of an offset-gradient block, at most
+constexpr int kOffMaxThreads = 1024;  // threads of a backward block, at most
 constexpr int kOffMaxSlices = kOffMaxThreads / kWarp;  // channel slices a pixel, at most
-// threads an offset-gradient launch aims for: 1,024 on each of the H100's
-// 132 SMs, where the channels allow
+// threads a backward launch aims for: 1,024 on each of the H100's 132 SMs,
+// where the channels allow
 constexpr long long kOffFillThreads = 132LL * 1024;
-constexpr int kBwdChunk = 8;        // channels per row buffer
-constexpr int kBwdThreads = 256;    // threads of the source-gradient block
-constexpr int kMaxSmem = 232448;    // bytes a block can use on sm_90
+constexpr int kSrcMaxCps = 4;  // channels a source-gradient thread sums, at most
+constexpr int kSrcMaxPix = 4 * kWarp;  // columns of a source-gradient block, at most
+constexpr int kMaskWords = 8;  // 32-output words of a column's mask a pass
+constexpr int kPassCands = kMaskWords * kWarp;  // outputs a column tests a pass
+constexpr int kSrcStage = kSrcMaxPix + kPassCands - 1;  // tap records a pass
 
 // w0*a + w1*b with every product and sum rounded on its own, as the TPU
 // kernel's fp32 product and the plain PyTorch version compute it.
@@ -290,99 +308,106 @@ __global__ void __launch_bounds__(kOffMaxThreads)
   if (active) doff[pix] = (raw >= lo && raw <= hi) ? acc : 0.f;
 }
 
-// Gradient of the source: one block per (row, batch, chunk of channels);
-// the row's tiles are walked in order into a shared-memory row buffer.
-// Shared memory: rowbuf [kBwdChunk][W], g tile [kBwdChunk][kTile], the
-// tile's tap records w0, w1 [kTile] floats and i0, i1 [kTile] ints.
+// Gradient of the source: a thread per (column of the H*W plane, slice of
+// channels). blockDim = (columns, slices), blockIdx.x the block of
+// columns, blockIdx.y = batch * groups + group of channels; slice y of
+// group n sums channels [(n * slices + y) * cps, ... + cps). Column p can
+// be reached by the outputs [p - ahead, p + back] of its row alone; a
+// pass takes kPassCands of them, in increasing order:
+//   1. the block computes the taps of the pass's outputs once, into shared
+//      memory, each tap as a plane column relative to the block's first
+//      column (INT_MIN where it is cropped: outside the plane, on a pad
+//      column of [W, wp), or of weight 0);
+//   2. the column's slices build, a 32-output word each, the mask of the
+//      outputs whose tap i0 or i1 is the column (one test an output and
+//      column, for every channel of the block);
+//   3. each thread walks its column's set bits in increasing order and adds
+//      w * g[c, x] for its channels, w = w0 + w1 where both taps land.
 template <bool kImage>
-__global__ void tile_bwd_source_kernel(const float* __restrict__ off,
-                                       const float* __restrict__ g,
-                                       float* __restrict__ dsrc, int C, int H,
-                                       int W, int wp, float lo, float hi,
-                                       int back, int ahead, int n_chunks) {
-  extern __shared__ float smem[];
-  float* rowbuf = smem;
-  float* gt = rowbuf + static_cast<size_t>(kBwdChunk) * W;
-  float* tw0 = gt + kBwdChunk * kTile;
-  float* tw1 = tw0 + kTile;
-  int* ti0 = reinterpret_cast<int*>(tw1 + kTile);
-  int* ti1 = ti0 + kTile;
+__global__ void __launch_bounds__(kOffMaxThreads)
+    tile_bwd_source_kernel(const float* __restrict__ off,
+                           const float* __restrict__ g,
+                           float* __restrict__ dsrc, int C, int W, int wp,
+                           size_t plane, int cps, int groups, float lo,
+                           float hi, int back, int ahead) {
+  __shared__ int tap0[kSrcStage], tap1[kSrcStage];
+  __shared__ float wt0[kSrcStage], wt1[kSrcStage];
+  __shared__ unsigned mask[kMaskWords][kSrcMaxPix];
 
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y / n_chunks;
-  const int c0 = (blockIdx.y % n_chunks) * kBwdChunk;
-  const int nc = min(kBwdChunk, C - c0);
-  const size_t plane = static_cast<size_t>(H) * W;
-  const size_t row = static_cast<size_t>(h) * W;
-  const float* offr = off + static_cast<size_t>(b) * plane + row;
-  const size_t chan0 = (static_cast<size_t>(b) * C + c0) * plane + row;
+  const int j = threadIdx.x;  // the column, relative to the block's first
+  const int tid = threadIdx.y * blockDim.x + j;
+  const int n_threads = blockDim.x * blockDim.y;
+  const size_t p0 = static_cast<size_t>(blockIdx.x) * blockDim.x;
+  const size_t p = p0 + j;
+  const bool active = p < plane;  // an idle thread still builds and meets barriers
+  const int b = blockIdx.y / groups;
+  const int c0 = ((blockIdx.y - b * groups) * blockDim.y + threadIdx.y) * cps;
+  const int nc = max(0, min(cps, C - c0));
+  const float* offb = off + static_cast<size_t>(b) * plane;
+  const float* gp = g + (static_cast<size_t>(b) * C + c0) * plane;
+  const int n_words = (back + ahead + kWarp) / kWarp;  // 32-output words a column
 
-  for (int i = tid; i < nc * W; i += kBwdThreads) rowbuf[i] = 0.f;
+  float acc[kSrcMaxCps];
+#pragma unroll
+  for (int c = 0; c < kSrcMaxCps; ++c) acc[c] = 0.f;
 
-  const int n_tiles = (W + kTile - 1) / kTile;
-  for (int k = 0; k < n_tiles; ++k) {
-    const int x0c = k * kTile;
-    __syncthreads();  // the previous tile's records have been walked
-    if (tid < kTile) {
-      const int x = x0c + tid;
-      if (x < W) {
-        const Tap t = tile_tap<kImage>(__ldg(offr + x), x, wp, lo, hi);
-        tw0[tid] = t.w0;
-        tw1[tid] = t.w1;
-        ti0[tid] = t.i0;
-        ti1[tid] = t.i1;
-      } else {  // a pad column: its gradient is zero
-        tw0[tid] = 0.f;
-        tw1[tid] = 0.f;
-        ti0[tid] = -1;
-        ti1[tid] = -1;
+  for (int w0 = 0; w0 < n_words; w0 += kMaskWords) {
+    const int nw = min(kMaskWords, n_words - w0);
+    // the plane index of record 0: column j's word k holds the outputs of
+    // records [j + 32k, j + 32k + 32)
+    const long long base = static_cast<long long>(p0) - ahead + kWarp * w0;
+    const int n_stage = blockDim.x + kWarp * nw - 1;
+    __syncthreads();  // the previous pass has been walked
+    for (int r = tid; r < n_stage; r += n_threads) {
+      const long long q = base + r;
+      int t0 = INT_MIN, t1 = INT_MIN;
+      float a0 = 0.f, a1 = 0.f;
+      if (q >= 0 && q < static_cast<long long>(plane)) {
+        const int x = plane <= UINT_MAX
+                          ? static_cast<int>(static_cast<unsigned>(q) % static_cast<unsigned>(W))
+                          : static_cast<int>(q % W);
+        const Tap t = tile_tap<kImage>(__ldg(offb + q), x, wp, lo, hi);
+        const int row = static_cast<int>(q - x - static_cast<long long>(p0));
+        if (t.i0 < W && t.w0 != 0.f) t0 = row + t.i0;
+        if (t.i1 < W && t.w1 != 0.f) t1 = row + t.i1;
+        a0 = t.w0;
+        a1 = t.w1;
       }
-    }
-    for (int i = tid; i < nc * kTile; i += kBwdThreads) {
-      const int j = i / kTile;
-      const int x = x0c + i % kTile;
-      gt[i] = x < W ? __ldg(g + chan0 + j * plane + x) : 0.f;
+      tap0[r] = t0;
+      tap1[r] = t1;
+      wt0[r] = a0;
+      wt1[r] = a1;
     }
     __syncthreads();
-
-    // the columns this tile can reach, cropped to the real row; an output
-    // x reaches columns [x - back, x + ahead] only
-    const int v_first = max(x0c - back, 0);
-    const int v_last = min(x0c + kTile - 1 + ahead, W - 1);
-    for (int v = v_first + tid; v <= v_last; v += kBwdThreads) {
-      const int x_lo = max(v - ahead, x0c) - x0c;
-      const int x_hi = min(min(v + back, x0c + kTile - 1), W - 1) - x0c;
-      float acc[kBwdChunk];
-#pragma unroll
-      for (int j = 0; j < kBwdChunk; ++j) acc[j] = 0.f;
-      for (int xx = x_lo; xx <= x_hi; ++xx) {
-        const bool hit0 = ti0[xx] == v;
-        const bool hit1 = ti1[xx] == v;
-        if (hit0 || hit1) {
-          const float w0 = tw0[xx];
-          const float w1 = tw1[xx];
-#pragma unroll
-          for (int j = 0; j < kBwdChunk; ++j) {
-            if (j < nc) {
-              const float gv = gt[j * kTile + xx];
-              if (hit0) acc[j] = __fadd_rn(acc[j], __fmul_rn(w0, gv));
-              if (hit1) acc[j] = __fadd_rn(acc[j], __fmul_rn(w1, gv));
-            }
-          }
-        }
+    for (int k = threadIdx.y; k < nw; k += blockDim.y) {
+      unsigned bits = 0;
+      const int r0 = j + kWarp * k;
+#pragma unroll 8
+      for (int i = 0; i < kWarp; ++i) {
+        const bool hit = tap0[r0 + i] == j || tap1[r0 + i] == j;
+        bits |= static_cast<unsigned>(hit) << i;
       }
+      mask[k][j] = bits;
+    }
+    __syncthreads();
+    if (!active || nc == 0) continue;
+    for (int k = 0; k < nw; ++k) {
+      for (unsigned bits = mask[k][j]; bits != 0; bits &= bits - 1) {
+        const int r = j + kWarp * k + __ffs(bits) - 1;
+        const float w = __fadd_rn(tap0[r] == j ? wt0[r] : 0.f, tap1[r] == j ? wt1[r] : 0.f);
+        const float* gx = gp + (base + r);
 #pragma unroll
-      for (int j = 0; j < kBwdChunk; ++j) {
-        if (j < nc) rowbuf[j * W + v] = __fadd_rn(rowbuf[j * W + v], acc[j]);
+        for (int c = 0; c < kSrcMaxCps; ++c) {
+          if (c < nc) acc[c] = __fadd_rn(acc[c], __fmul_rn(w, __ldg(gx + c * plane)));
+        }
       }
     }
   }
-  __syncthreads();
-
-  for (int i = tid; i < nc * W; i += kBwdThreads) {
-    const int j = i / W;
-    dsrc[chan0 + j * plane + i % W] = rowbuf[i];
+  if (!active) return;
+  float* dp = dsrc + (static_cast<size_t>(b) * C + c0) * plane + p;
+#pragma unroll
+  for (int c = 0; c < kSrcMaxCps; ++c) {
+    if (c < nc) dp[c * plane] = acc[c];
   }
 }
 
@@ -452,6 +477,38 @@ int launch_bwd_offset(const float* src, const float* off, const float* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The source gradient's launch: slices as the offset gradient's, with at
+// most kSrcMaxCps channels a thread; channels beyond kOffMaxSlices such
+// slices go to further groups on the grid's y axis (ceil(C / 128) a batch).
+template <bool kImage>
+int launch_bwd_source(const float* off, const float* g, float* dsrc, int B,
+                      int C, int H, int W, float lo, float hi,
+                      cudaStream_t stream) {
+  int back, ahead;
+  window_of<kImage>(lo, hi, &back, &ahead);
+  const size_t plane = static_cast<size_t>(H) * W;
+  const long long pixels = static_cast<long long>(B) * static_cast<long long>(plane);
+  long long want = pixels > 0 ? (kOffFillThreads + pixels - 1) / pixels : 1;
+  want = want < kOffMaxSlices ? want : kOffMaxSlices;
+  want = want < C ? want : C;
+  const int slices0 = want > 1 ? static_cast<int>(want) : 1;
+  int cps = C > slices0 ? (C + slices0 - 1) / slices0 : 1;
+  cps = cps < kSrcMaxCps ? cps : kSrcMaxCps;
+  const int total = C > cps ? (C + cps - 1) / cps : 1;
+  const int groups = (total + kOffMaxSlices - 1) / kOffMaxSlices;
+  const int slices = (total + groups - 1) / groups;
+  const int pix = kWarp * (slices < 4 ? 4 / slices : 1);
+  const long long blocks = (static_cast<long long>(plane) + pix - 1) / pix;
+  // a tap is kept as an int relative to the block's first column
+  const long long reach = static_cast<long long>(back) + ahead + W + kSrcStage;
+  if (blocks > INT_MAX || static_cast<long long>(B) * groups > 65535 || reach > INT_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tile_bwd_source_kernel<kImage>
+      <<<dim3(static_cast<unsigned>(blocks), B * groups), dim3(pix, slices), 0, stream>>>(
+          off, g, dsrc, C, W, padded_width(W), plane, cps, groups, lo, hi, back, ahead);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kImage>
 int launch_bwd(const float* src, const float* off, const float* g, float* dsrc,
                float* doff, int B, int C, int H, int W, float lo, float hi,
@@ -462,39 +519,14 @@ int launch_bwd(const float* src, const float* off, const float* g, float* dsrc,
     if (err != 0) return err;
   }
   if (need_dsrc) {
-    int back, ahead;
-    window_of<kImage>(lo, hi, &back, &ahead);
-    const int n_chunks = (C + kBwdChunk - 1) / kBwdChunk;
-    const size_t smem =
-        sizeof(float) * (static_cast<size_t>(kBwdChunk) * W +
-                         kBwdChunk * kTile + 2 * kTile) +
-        sizeof(int) * 2 * kTile;
-    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(H, B * n_chunks);
-    tile_bwd_source_kernel<kImage><<<grid, kBwdThreads, smem, stream>>>(
-        off, g, dsrc, C, H, W, padded_width(W), lo, hi, back, ahead, n_chunks);
+    return launch_bwd_source<kImage>(off, g, dsrc, B, C, H, W, lo, hi, stream);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename Kernel>
-cudaError_t allow_max_smem(Kernel kernel) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
 }
 
 }  // namespace
 
 extern "C" {
-
-// Raises the dynamic shared-memory limit of the source-gradient kernels,
-// the only ones here that use it, on the current device. Called once when
-// the library is loaded.
-int warp_tile_init() {
-  cudaError_t err = allow_max_smem(tile_bwd_source_kernel<true>);
-  if (err == cudaSuccess) err = allow_max_smem(tile_bwd_source_kernel<false>);
-  return static_cast<int>(err);
-}
 
 // img: [B, C, H, W] fp32 contiguous; disp: [B, 1, H, W]; out like img.
 // Returns cudaGetLastError() after the launch (0 on success).

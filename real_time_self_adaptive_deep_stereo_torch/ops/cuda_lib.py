@@ -71,12 +71,6 @@ _SIGNATURES = {
         "warp_tile_features_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     },
 }
-# Libraries with a ``<name>_init()`` entry point (no arguments, returns a
-# CUDA error code), run once when the library is loaded: it sets function
-# attributes such as the dynamic shared-memory limit, which must not
-# happen at a launch, since a launch may be under stream capture.
-_INIT = {"warp_tile": "warp_tile_init"}
-
 # Kernel launches since the last reset_launches(), by kernel name. Each
 # wrapper adds one where it launches its kernel, and nowhere else.
 LAUNCHES: Dict[str, int] = {fn: 0 for fns in _SIGNATURES.values() for fn in fns}
@@ -142,10 +136,6 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             lib.kernel_error_string.restype = ctypes.c_char_p
-            if name in _INIT:
-                init = getattr(lib, _INIT[name])
-                init.argtypes, init.restype = [], ctypes.c_int
-                check(lib, init(), _INIT[name])
             _libs[name] = lib
         return _libs[name]
 

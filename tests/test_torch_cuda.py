@@ -521,6 +521,86 @@ def test_tiled_wrappers_reject_what_the_kernels_do_not_take(dev):
     )
 
 
+# ------------------------------------------------ the tiled source gradient
+
+
+def _pile_up(dx, max_neg, max_pos):
+    """Row 0: every output lands on columns 3 and 4; row 1: on column 2
+    (its second tap, on column 3, has weight 0); row 2: on column 0 from
+    the left (tap 0 outside the row, both taps clamped to column 0)."""
+    xs = torch.arange(dx.shape[3], device=dx.device, dtype=torch.float32)
+    for row, at in ((0, 3.5), (1, 2.0), (2, -0.5)):
+        dx[:, 0, row] = (at - xs).clamp(-max_neg, max_pos)
+
+
+# a pile-up of a row's outputs on one or two columns; offsets on the
+# window's bounds, at 0 and right of the row at MADNet's scale 2; C = 1,
+# 17, 130 and 300 (two and three groups of 128 channels); B = 2; rows past the 227 KB
+# of shared memory the earlier row buffer could hold (W = 8,000 and 9,000,
+# the second with a window of 306 outputs, two passes of 256)
+_SOURCE_CASES = [
+    ((1, 8, 3, 60), 64, True), ((2, 5, 4, 140), 140, True), ((1, 32, 80, 304), 48, False),
+    ((1, 1, 6, 38), 6, False), ((1, 17, 5, 33), 12, False), ((1, 130, 10, 38), 6, False),
+    ((1, 300, 4, 38), 6, False), ((2, 17, 4, 76), 12, False), ((1, 9, 2, 8000), 20, False),
+    ((1, 16, 2, 9000), 300, False),
+]
+
+
+@pytest.mark.parametrize("shape,max_neg,pile", _SOURCE_CASES)
+def test_tiled_source_gradient_matches_plain_and_clamped_kernels(dev, shape, max_neg, pile):
+    """The source gradient alone (MAD's variant of the feature warp)
+    against the plain version and ``warp_features_bwd``; the same bits as
+    in both gradients together (FULL's variant); two runs agree bit for
+    bit; one launch a call."""
+    feats = _normal(shape, 50, dev)
+    dx = _uniform((shape[0], 1, *shape[2:]), 51, dev, -max_neg - 10.0, 10.0)
+    dx[..., 2::7] = -float(max_neg)
+    dx[..., 3::8] = 0.0
+    dx[..., 4::9] = 4.0
+    dx[..., -3:] = 2.5  # samples right of the row: a weight on a pad column
+    if pile:
+        _pile_up(dx, max_neg, 4)
+    g = _normal(shape, 52, dev)
+    before = cuda_lib.LAUNCHES["warp_tile_features_bwd"]
+    got, none = tops.warp_features_mxu_bwd(feats, dx, g, max_neg, 4, need_dx=False)
+    again, _ = tops.warp_features_mxu_bwd(feats, dx, g, max_neg, 4, need_dx=False)
+    both, _ = tops.warp_features_mxu_bwd(feats, dx, g, max_neg, 4)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["warp_tile_features_bwd"] == before + 3
+    assert none is None
+    want = tops.warp_features_onehot_bwd(feats, dx, g, max_neg, 4)[0]
+    _close(got, want, "dfeats")
+    _close(got, tops.warp_features_bwd_cuda(feats, dx, g, max_neg, 4)[0], "dfeats against warp_features_bwd")
+    assert torch.equal(got, again) and torch.equal(got, both)
+    if pile:  # the piled-up columns take every output of their rows
+        for row, cols in ((0, slice(3, 5)), (1, slice(2, 3)), (2, slice(0, 1))):
+            assert bool(want[:, :, row, cols].ne(0).all()) and bool(got[:, :, row, cols].ne(0).all())
+            rest = torch.ones(shape[3], dtype=torch.bool, device=dev)
+            rest[cols] = False
+            assert not bool(want[:, :, row, rest].any()) and not bool(got[:, :, row, rest].any())
+
+
+@pytest.mark.parametrize(
+    "shape,max_disp", [((1, 3, 320, 1216), 192), ((2, 3, 4, 200), 192), ((1, 5, 2, 8200), 192)]
+)
+def test_tiled_image_source_gradient_matches_plain_and_clamped_kernels(dev, shape, max_disp):
+    """The image instance of the source gradient, on no main path, at
+    ``max_disp`` 192: disparities beyond both bounds, on them and at 0,
+    against the plain version and ``warp_image_bwd``; bit-identical reruns."""
+    img = _normal(shape, 53, dev)
+    disp = _uniform((shape[0], 1, *shape[2:]), 54, dev, -20.0, max_disp + 40.0)
+    disp[..., 3::11] = float(max_disp)
+    disp[..., 5::13] = 0.0
+    g = _normal(shape, 55, dev)
+    got, none = tops.warp_image_mxu_bwd(img, disp, g, max_disp, need_disp=False)
+    again, _ = tops.warp_image_mxu_bwd(img, disp, g, max_disp, need_disp=False)
+    torch.cuda.synchronize()
+    assert none is None
+    _close(got, tops.warp_image_onehot_bwd(img, disp, g, max_disp)[0], "dimg")
+    _close(got, tops.warp_image_bwd_cuda(img, disp, g, max_disp)[0], "dimg against warp_image_bwd")
+    assert torch.equal(got, again)
+
+
 # ------------------------------------------------------- the fused session
 
 
@@ -738,3 +818,36 @@ def test_fused_session_under_bf16_act_refuses_a_changed_mode(dev):
     with pytest.raises(RuntimeError, match="bf16_act"):
         sess.step(frames[2])
     assert not torch.backends.cudnn.allow_tf32
+
+
+# ---------------------------------------------- corr_fwd's channel slices
+
+_MADNET_CORR = [(1, 192, 5, 19), (1, 128, 10, 38), (1, 96, 20, 76), (1, 64, 40, 152), (1, 32, 80, 304)]
+# MADNet's five calls at 320x1216, and the edges of the slices: C = 1, 3
+# and 1000 (one slice, three, 32 of 32 channels), W = 3 < 2R+1, H = 1 with B = 2
+_CORR_FWD_CASES = [(shape, 2) for shape in _MADNET_CORR] + [
+    ((1, 1, 5, 19), 2), ((1, 3, 4, 37), 3), ((1, 1000, 3, 11), 2), ((1, 8, 4, 3), 2), ((1, 8, 4, 3), 4),
+    ((2, 16, 1, 40), 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,radius", _CORR_FWD_CASES)
+def test_corr_fwd_slices_match_plain(dev, shape, radius, dtype):
+    """``corr_fwd`` and ``corr_fwd_bf16`` against the plain version (fp32:
+    1e-5; bf16: :func:`_assert_bf16_close`), one launch a call, two runs
+    bit for bit."""
+    x, y = _normal(shape, 56, dev).to(dtype), _normal(shape, 57, dev).to(dtype)
+    name = "corr_fwd_bf16" if dtype == torch.bfloat16 else "corr_fwd"
+    before = cuda_lib.LAUNCHES[name]
+    got = tops.correlation_cuda(x, y, radius)
+    again = tops.correlation_cuda(x, y, radius)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[name] == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = tops.correlation_torch(x, y, radius)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        terms = tops.correlation_torch(x.float().abs(), y.float().abs(), radius)
+        _assert_bf16_close(got, want, terms, shape[1], "forward")

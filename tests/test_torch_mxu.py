@@ -149,6 +149,40 @@ def test_features_mxu_route_matches_jax_mxu_interpret_on_a_deep_row():
     assert not got[2][dx < -6].any() and not got[2][dx > 4].any()
 
 
+def test_features_mxu_source_gradient_matches_jax_on_a_scale_2_row():
+    """The source gradient of the tiled feature warp at a row like MADNet's
+    scale 2: W = 304 over three tiles, window [-48, 4], H = 2, C = 8, with
+    offsets beyond, on and inside the window and right of the row in row
+    1, and in row 0 a pile-up: outputs 147-198 all land on columns 150 and
+    151, every other output on its own column. The
+    port's backward wrapper (its plain version here) against the Pallas
+    kernel's vjp in interpret mode; the offset's gradient as well."""
+    r = np.random.default_rng(304)
+    feats = r.normal(size=(1, 2, 304, 8)).astype(np.float32)
+    dx = (r.random((1, 2, 304, 1)) * 62 - 58).astype(np.float32)
+    dx[0, 1, 2::7] = -48.0
+    dx[0, 1, 4::9] = 4.0
+    dx[0, 1, 3::8] = 0.0
+    dx[0, 1, -3:] = 2.5
+    xs = np.arange(147, 199)
+    dx[0, 0] = 0.0
+    dx[0, 0, xs, 0] = 150.5 - xs
+    g = r.normal(size=feats.shape).astype(np.float32)
+    _, jdsrc, jddx = _jax_vjp(lambda f, d: jpallas.warp_features_mxu(f, d, 48, 4, True), feats, dx, g)
+    dfeats, ddx = tops.warp_features_mxu_bwd(_nchw(feats), _nchw(dx), _nchw(g), 48, 4)
+    np.testing.assert_allclose(_nhwc(dfeats), jdsrc, err_msg="dsrc", **GRAD_TOL)
+    # jnp.clip in the JAX one-hot path halves the offset's gradient on the
+    # bounds (module docstring): compare it off them
+    off_bounds = (dx != -48.0) & (dx != 4.0)
+    np.testing.assert_allclose(_nhwc(ddx)[off_bounds], jddx[off_bounds], err_msg="doff", **GRAD_TOL)
+    # the pile-up: columns 150 and 151 of row 0 take outputs 147-198 at
+    # weight 1/2 each, and nothing else
+    pile = 0.5 * g[0, 0, 147:199].sum(axis=0, dtype=np.float64)
+    for col in (150, 151):
+        np.testing.assert_allclose(_nhwc(dfeats)[0, 0, col], pile, **GRAD_TOL)
+        np.testing.assert_allclose(jdsrc[0, 0, col], pile, **GRAD_TOL)
+
+
 @pytest.mark.parametrize("w", [200, 140, 256])
 def test_onehot_matches_jax_onehot_and_clamped(w):
     """The one-hot functions (real width) against the JAX one-hot

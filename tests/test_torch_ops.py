@@ -72,6 +72,32 @@ def test_correlation_kernel_wrapper_matches_pallas_interpret():
     np.testing.assert_allclose(got_auto, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_correlation_matches_pallas_interpret_at_madnet_scale_6(dtype):
+    """MADNet's coarsest call, [1,192,5,19] at radius 2, where ``corr_fwd``
+    and ``corr_fwd_bf16`` spread the 192 channels over 32 slices: the
+    kernel wrapper on CPU tensors (its plain version) against the Pallas
+    kernel in interpret mode. fp32 within 1e-5 (measured 3.4e-8: sums over
+    C in another order); bf16 within one bf16 ulp of each entry (measured
+    0: both sum in fp32 and round once)."""
+    r = _rng(9)
+    x = r.normal(size=(1, 5, 19, 192)).astype(np.float32)
+    y = r.normal(size=(1, 5, 19, 192)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = correlation_pallas(jnp.asarray(x).astype(jdt), jnp.asarray(y).astype(jdt), 2, True)
+    assert want.dtype == jdt
+    want = np.asarray(want.astype(jnp.float32))
+    tx, ty = _t(x).to(getattr(torch, dtype)), _t(y).to(getattr(torch, dtype))
+    got = tops.correlation_cuda(tx, ty, 2)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (1, 5, 5, 19)
+    got = _nhwc(got.float())
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0**-126))) - 7)
+        assert np.all(np.abs(got - want) <= ulp)
+
+
 # DispNet-Corr1D's radius: 81 shifts, with W below and above 2R+1
 @pytest.mark.parametrize("w", [19, 100])
 def test_correlation_torch_matches_jnp_at_radius_40(w):
@@ -348,9 +374,10 @@ def test_warp_grid_checks_follow_the_kernels_grids():
     most 65535 blocks: the feature forwards put their channel groups on the
     x axis, so the batch alone bounds them; the image forwards walk the
     channels in a thread, so rows and batch bound them; the clamped-window
-    backward kernels keep their bounds, and the tiled backward has its rows
-    and pixels on the x axis, so batch and channel chunks alone bound it.
-    Each tiled forward has its clamped-window counterpart's grid, since it
+    backward kernels keep their bounds, and the tiled backward has the
+    pixels of the plane on the x axis, so batch and channel groups alone
+    bound it: the source gradient takes 128 channels a block (32 slices of
+    4). Each tiled forward has its clamped-window counterpart's grid, since it
     is a gather of the same form."""
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
     from real_time_self_adaptive_deep_stereo_torch.ops import warp_kernels as wk
@@ -364,6 +391,8 @@ def test_warp_grid_checks_follow_the_kernels_grids():
         wk._check_grid(fn, (65535, 10**6, 65535, 2))
     for fn in ("warp_tile_image_bwd", "warp_tile_features_bwd"):
         wk._check_grid(fn, (1, 3, 65536, 1))
+        wk._check_grid(fn, (1, 128 * 65535, 1, 1))
+        wk._check_grid(fn, (255, 128 * 257, 1, 1))
     for fn, shape in [
         ("warp_features_fwd", (65536, 1, 1, 1)),
         ("warp_tile_features_fwd", (65536, 1, 1, 1)),
@@ -373,7 +402,8 @@ def test_warp_grid_checks_follow_the_kernels_grids():
         ("warp_features_bwd", (1, 4 * 65535 + 1, 1, 1)),
         ("warp_image_bwd", (1, 3, 65536, 1)),
         ("warp_tile_image_bwd", (65536, 3, 1, 1)),
-        ("warp_tile_features_bwd", (1, 8 * 65535 + 1, 1, 1)),
+        ("warp_tile_features_bwd", (1, 128 * 65535 + 1, 1, 1)),
+        ("warp_tile_features_bwd", (256, 128 * 257, 1, 1)),
     ]:
         with pytest.raises(ValueError, match="exceeds the launch grid"):
             wk._check_grid(fn, shape)
