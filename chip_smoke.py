@@ -11,7 +11,9 @@ Phases, each of which raises on failure (nothing is caught):
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report, and
    apart the registers and spills of ``corr_fwd``, the two tiled forwards,
-   the tiled offset and source gradients and the wide correlation pair.
+   the tiled offset and source gradients, K5's offset and source gradients
+   (``feat_bwd_offset_kernel``, ``feat_bwd_source_kernel``) and the wide
+   correlation pair.
 3. Each of the sixteen kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
    windows: the six forward kernels, and the six backward kernels
@@ -29,8 +31,9 @@ Phases, each of which raises on failure (nothing is caught):
    (bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever
    is larger), the plain version's time and, for the warps, a yardstick
    that the port never calls, timed from a CUDA graph too. K1
-   (``corr_fwd``, ``corr_fwd_bf16``) and the tiled backward (every variant
-   of ``warp_tile_*_bwd``, the source gradient's included) are also timed
+   (``corr_fwd``, ``corr_fwd_bf16``), the tiled backward (every variant
+   of ``warp_tile_*_bwd``, the source gradient's included) and K5 (every
+   variant of ``warp_features_bwd``) are also timed
    with the L2 cold (``cold_ms``): each call in the graph follows a write
    over a buffer twice the card's 50 MB L2, whose own time, taken the same
    way, is subtracted. The yardsticks are
@@ -452,6 +455,7 @@ def check_kernels(ops):
                 s, o, g, neg, MAX_POS, *need),
             lambda s, o, neg=neg: ops.warp_features_clamped(s, o, neg, MAX_POS),
             FEATURE_MODES,
+            cold=True,
         ))
 
         got = ops.warp_features_mxu(feats, dx, neg, MAX_POS)
@@ -1417,12 +1421,16 @@ def run_fused(state, profile_dir):
     log("fused reset safeguard: arena restored on the device, optimizer state kept")
 
     if profile_dir:
-        for mode, kw in (("MAD", MAD_KW), ("FULL", full_kw), ("NONE", {})):
-            session = make_session(state, mode, warp="mxu", fused=True, **kw)
+        # the tiled warps (K6/K7), and FULL once more on the default route,
+        # warp_mode 'auto': the clamped-window warps (K2-K5) on the card
+        for mode, kw, warp, tag in (("MAD", MAD_KW, "mxu", "fused_mad"), ("FULL", full_kw, "mxu", "fused_full"),
+                                    ("NONE", {}, "mxu", "fused_none"),
+                                    ("FULL", full_kw, "auto", "fused_full_auto")):
+            session = make_session(state, mode, warp=warp, fused=True, **kw)
             for f in frames[:n_blocks]:
                 session.step(f)  # every branch captured
             torch.cuda.synchronize()
-            profile_frames(session, frames[n_blocks : 2 * n_blocks], Path(profile_dir), f"fused_{mode.lower()}")
+            profile_frames(session, frames[n_blocks : 2 * n_blocks], Path(profile_dir), tag)
     return launches, frame_ms
 
 
@@ -1823,7 +1831,8 @@ def profile_frames(session, frames, out: Path, tag: str):
 
 
 _GROUPS = (  # first match wins
-    ("the port's kernels", r"corr_fwd|corr_bwd|warp_fwd_kernel|feat_gather_fwd|warp_bwd_|tile_image_fwd|tile_feat_fwd|tile_bwd_"),
+    ("the port's kernels",
+     r"corr_fwd|corr_bwd|warp_fwd_kernel|feat_gather_fwd|warp_bwd_|feat_bwd_|tile_image_fwd|tile_feat_fwd|tile_bwd_"),
     ("cuDNN backward (dgrad, wgrad)", r"dgrad|wgrad"),
     ("cuDNN/cuBLAS convolutions and matmuls, incl. FFT and layout transforms",
      r"fprop|convolve|region_transform|fft|DSE::|gemm|gemv|cudnn|flip_filter|xmma|cutlass"),
@@ -1919,6 +1928,7 @@ def main() -> int:
     for lib, kernel in (("correlation", "corr_fwd_kernel"),
                         ("warp_tile", "tile_image_fwd_kernel"), ("warp_tile", "tile_feat_fwd_kernel"),
                         ("warp_tile", "tile_bwd_offset_kernel"), ("warp_tile", "tile_bwd_source_kernel"),
+                        ("warp", "feat_bwd_offset_kernel"), ("warp", "feat_bwd_source_kernel"),
                         ("correlation", "corr_fwd_wide_kernel"), ("correlation", "corr_bwd_wide_kernel")):
         usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get(lib, ""), kernel) or ["cached build, no report"]
         log(f"ptxas {kernel}: {'; '.join(usage)}")

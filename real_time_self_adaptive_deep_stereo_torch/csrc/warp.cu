@@ -49,28 +49,69 @@
 // floor, about 2.2 us.
 //
 // The backward is two kernels behind one entry point, each skipped when
-// its gradient is not asked for:
+// its gradient is not asked for. Floating-point atomics are out: their
+// order changes from run to run, and the adaptation's trajectory depends
+// on the order of sums. So both gradients are gathers, and every run adds
+// in the same order and agrees bit for bit.
 //
-// * the offset gradient is a gather like the forward: the thread of
-//   output pixel x sums g * v0 and g * v1 over the channels at its two
-//   taps, and the result is zeroed where the unclipped offset lies
-//   outside its window (inclusive bounds, as `torch.clamp` and the TPU
-//   kernel have it);
-// * the source gradient is the transpose of the sampling. The TPU kernel
-//   scatters with the inverse lane rotation; a scatter on the card would
-//   need float atomics, whose order changes from run to run, and the
-//   adaptation's trajectory depends on the summation order. So it is a
-//   gather too: the thread of source column v walks the outputs x that
-//   can sample v, in increasing x, recomputes their taps and adds w * g
-//   where a tap's clamped index equals v. The clipped offset bounds that
-//   walk: an image output x samples floor(x - d) and the column after it
-//   with 0 <= d <= S, so column v is reached only from x in [v - 1, v + S];
-//   a feature output samples floor(x + d) and the next with -N <= d <= P,
-//   so v is reached from x in [v - P - 1, v + N]. Clamped indices make
-//   the image warp's fold into column 0 (everything sampled left of the
-//   image) fall out of the same test, and column 0's walk [0, S] covers
-//   it. Every run adds in the same order, so two runs agree bit for bit.
-//   A thread keeps kChunk channels' sums so that one walk serves them.
+// The image warp's (`warp_bwd_offset_kernel<true>`,
+// `warp_bwd_source_kernel<true>`, [3, 320, 1216] on the main path):
+//
+// * the offset gradient: the thread of output pixel x sums g * v0 and
+//   g * v1 over the channels at its two taps, and the result is zeroed
+//   where the unclipped offset lies outside its window (inclusive bounds,
+//   as `torch.clamp` and the TPU kernel have it);
+// * the source gradient, the transpose of the sampling: the thread of
+//   source column v and a chunk of kChunk channels walks the outputs x
+//   that can sample v, in increasing x, recomputes their taps and adds
+//   w * g where a tap's clamped index equals v. An output x samples
+//   floor(x - d) and the column after it with 0 <= d <= S, so column v
+//   is reached only from x in [v - 1, v + S]. Clamped indices make the
+//   fold into column 0 (everything sampled left of the image) fall out of
+//   the same test, and column 0's walk [0, S] covers it.
+//
+// The feature warp's run on MADNet's short, deep rows, where that form
+// left most lanes idle and chained a load per channel (380 threads
+// walking 128 channels each at scale 5), and asked C / kChunk times the
+// channel-independent question of which outputs reach a column. They take
+// the forms of csrc/warp_tile.cu's tiled backward, with K5's own tap
+// (`feature_tap`: clamped to the row [0, W - 1], a corner outside it of
+// weight 0):
+//
+// * the offset gradient (`feat_bwd_offset_kernel`): a thread owns (pixel
+//   of the H*W plane, slice of channels), consecutive threads on
+//   consecutive pixels across row ends, so that the loads of g and of the
+//   offset and the store stay coalesced on rows of 38 floats. It computes
+//   its taps once and sums g * (in1 * v1 - in0 * v0) over its slice's
+//   channels in order. The host cuts the channels into as many slices
+//   (threadIdx.y, at most 32, none empty) as it takes to put some 1,024
+//   threads on each SM: scale 5 ([128, 10, 38]) takes 32 slices of 4
+//   channels. The slices' sums meet in static shared memory and the first
+//   slice's thread adds them in slice order. The result is zeroed where
+//   the unclipped offset lies outside [-max_neg, max_pos];
+// * the source gradient (`feat_bwd_source_kernel`): a thread owns
+//   (column of the H*W plane, slice of at most kSrcMaxCps channels kept
+//   in registers). An output x samples columns [x - ceil(max_neg),
+//   x + floor(max_pos) + 1], so column v is reached from the outputs
+//   [v - floor(max_pos) - 1, v + ceil(max_neg)] of its row alone. A block
+//   computes the taps of the outputs that can reach its columns once,
+//   into static shared memory; the slices of a column build, a word of 32
+//   outputs each, the bit mask of the outputs whose tap lands on it; then
+//   each thread walks its column's bits in increasing x and adds w * g[c,
+//   x] for its channels. Each dfeats value has one owner and one order of
+//   sum, fixed by x, as in the image warp's walk. Taps of weight 0 are
+//   cropped from the mask: every output that samples left of the row has
+//   a tap clamped to column 0 with weight 0, and every one that samples
+//   right of it a tap clamped to column W - 1; kept, they would pile up
+//   on those columns and one thread would walk the pile in series. A
+//   tap of non-zero weight lies in the row unclamped, so the window
+//   bounds every such tap. A window of more than 256 outputs is taken in
+//   passes of 256, so no window is refused.
+//
+// No kernel here uses dynamic shared memory (the offset gradient keeps 4
+// KB of partial sums, the source gradient 10 KB of tap records and masks),
+// so no launch sets a function attribute (a launch may be under stream
+// capture).
 
 #include <cuda_runtime.h>
 
@@ -83,6 +124,19 @@ constexpr int kThreads = 128;
 constexpr int kChunk = 4;  // channels per thread in the source gradient
 constexpr int kFeatChannels = 4;  // channels per thread, feature forward
 constexpr int kFeatThreads = 128;  // threads per block, feature forward
+constexpr int kWarp = 32;
+// the feature backward: threads of a block, at most, and channel slices a
+// pixel, at most
+constexpr int kOffMaxThreads = 1024;
+constexpr int kOffMaxSlices = kOffMaxThreads / kWarp;
+// threads a feature backward launch aims for: 1,024 on each of the H100's
+// 132 SMs, where the channels allow
+constexpr long long kOffFillThreads = 132LL * 1024;
+constexpr int kSrcMaxCps = 4;  // channels a source-gradient thread sums, at most
+constexpr int kSrcMaxPix = 4 * kWarp;  // columns of a source-gradient block, at most
+constexpr int kMaskWords = 8;  // 32-output words of a column's mask a pass
+constexpr int kPassCands = kMaskWords * kWarp;  // outputs a column tests a pass
+constexpr int kSrcStage = kSrcMaxPix + kPassCands - 1;  // tap records a pass
 
 // w0*a + w1*b with every product and sum rounded on its own, as the plain
 // PyTorch version computes it: no contraction into an FMA, so the kernel
@@ -307,6 +361,214 @@ int launch_bwd(const float* src, const float* off, const float* g, float* dsrc,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The column of plane index p, for a plane of W-pixel rows; a plane under
+// 2^32 pixels (every real one) divides in 32 bits.
+__device__ __forceinline__ int column_of(size_t p, size_t plane, int W) {
+  return plane <= UINT_MAX
+             ? static_cast<int>(static_cast<unsigned>(p) % static_cast<unsigned>(W))
+             : static_cast<int>(p % W);
+}
+
+// Gradient of the feature offset: a thread per (pixel of the plane, slice
+// of channels). blockDim = (pixels, slices), blockIdx.x the block of
+// pixels, blockIdx.y the batch; slice y sums channels [y * cps, (y + 1) *
+// cps). The offset is clipped to [-max_neg, max_pos].
+__global__ void __launch_bounds__(kOffMaxThreads)
+    feat_bwd_offset_kernel(const float* __restrict__ src,
+                           const float* __restrict__ off,
+                           const float* __restrict__ g,
+                           float* __restrict__ doff, int C, int W,
+                           size_t plane, int cps, float max_neg,
+                           float max_pos) {
+  __shared__ float part[kOffMaxThreads];
+  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool active = p < plane;  // an idle thread still meets the barrier
+  const size_t pix = static_cast<size_t>(blockIdx.y) * plane + (active ? p : 0);
+  const int x = active ? column_of(p, plane, W) : 0;
+  const float raw = __ldg(off + pix);
+  const Tap t = feature_tap(raw, x, W, max_neg, max_pos);
+
+  const int c0 = threadIdx.y * cps;
+  const int c1 = min(C, c0 + cps);
+  float acc = 0.f;
+  if (active) {
+    const size_t first = (static_cast<size_t>(blockIdx.y) * C + c0) * plane;
+    const float* r = src + first + (p - x);  // column 0 of the pixel's row
+    const float* gp = g + first + p;
+#pragma unroll 4
+    for (int c = c0; c < c1; ++c, r += plane, gp += plane) {
+      // d out / d dx = in1 * v1 - in0 * v0
+      const float diff = __fsub_rn(__fmul_rn(t.in1, __ldg(r + t.i1)),
+                                   __fmul_rn(t.in0, __ldg(r + t.i0)));
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(gp), diff));
+    }
+  }
+  if (blockDim.y > 1) {  // the slices' partial sums, added in slice order
+    part[threadIdx.y * blockDim.x + threadIdx.x] = acc;
+    __syncthreads();
+    if (threadIdx.y != 0) return;
+    for (unsigned s = 1; s < blockDim.y; ++s)
+      acc = __fadd_rn(acc, part[s * blockDim.x + threadIdx.x]);
+  }
+  if (active) doff[pix] = (raw >= -max_neg && raw <= max_pos) ? acc : 0.f;
+}
+
+// Gradient of the features: a thread per (column of the plane, slice of
+// channels). blockDim = (columns, slices), blockIdx.x the block of
+// columns, blockIdx.y = batch * groups + group of channels; slice y of
+// group n sums channels [(n * slices + y) * cps, ... + cps). Column p is
+// reached by the outputs [p - ahead, p + back] of its row alone; a pass
+// takes kPassCands of them, in increasing order:
+//   1. the block computes the taps of the pass's outputs once, into shared
+//      memory, each tap as a plane column relative to the block's first
+//      column (INT_MIN where it is cropped: outside the plane, or of
+//      weight 0);
+//   2. the column's slices build, a 32-output word each, the mask of the
+//      outputs whose tap i0 or i1 is the column (one test an output and
+//      column, for every channel of the block);
+//   3. each thread walks its column's set bits in increasing order and adds
+//      w * g[c, x] for its channels (at most one tap of an output lands on
+//      a column with a weight: the two taps' columns differ unless one is
+//      clamped, and a clamped tap has weight 0).
+__global__ void __launch_bounds__(kOffMaxThreads)
+    feat_bwd_source_kernel(const float* __restrict__ off,
+                           const float* __restrict__ g,
+                           float* __restrict__ dsrc, int C, int W,
+                           size_t plane, int cps, int groups, float max_neg,
+                           float max_pos, int back, int ahead) {
+  __shared__ int tap0[kSrcStage], tap1[kSrcStage];
+  __shared__ float wt0[kSrcStage], wt1[kSrcStage];
+  __shared__ unsigned mask[kMaskWords][kSrcMaxPix];
+
+  const int j = threadIdx.x;  // the column, relative to the block's first
+  const int tid = threadIdx.y * blockDim.x + j;
+  const int n_threads = blockDim.x * blockDim.y;
+  const size_t p0 = static_cast<size_t>(blockIdx.x) * blockDim.x;
+  const size_t p = p0 + j;
+  const bool active = p < plane;  // an idle thread still builds and meets barriers
+  const int b = blockIdx.y / groups;
+  const int c0 = ((blockIdx.y - b * groups) * blockDim.y + threadIdx.y) * cps;
+  const int nc = max(0, min(cps, C - c0));
+  const float* offb = off + static_cast<size_t>(b) * plane;
+  const float* gp = g + (static_cast<size_t>(b) * C + c0) * plane;
+  const int n_words = (back + ahead + kWarp) / kWarp;  // 32-output words a column
+
+  float acc[kSrcMaxCps];
+#pragma unroll
+  for (int c = 0; c < kSrcMaxCps; ++c) acc[c] = 0.f;
+
+  for (int w0 = 0; w0 < n_words; w0 += kMaskWords) {
+    const int nw = min(kMaskWords, n_words - w0);
+    // the plane index of record 0: column j's word k holds the outputs of
+    // records [j + 32k, j + 32k + 32)
+    const long long base = static_cast<long long>(p0) - ahead + kWarp * w0;
+    const int n_stage = blockDim.x + kWarp * nw - 1;
+    __syncthreads();  // the previous pass has been walked
+    for (int r = tid; r < n_stage; r += n_threads) {
+      const long long q = base + r;
+      int t0 = INT_MIN, t1 = INT_MIN;
+      float a0 = 0.f, a1 = 0.f;
+      if (q >= 0 && q < static_cast<long long>(plane)) {
+        const int x = column_of(static_cast<size_t>(q), plane, W);
+        const Tap t = feature_tap(__ldg(offb + q), x, W, max_neg, max_pos);
+        const int row = static_cast<int>(q - x - static_cast<long long>(p0));
+        if (t.w0 != 0.f) t0 = row + t.i0;
+        if (t.w1 != 0.f) t1 = row + t.i1;
+        a0 = t.w0;
+        a1 = t.w1;
+      }
+      tap0[r] = t0;
+      tap1[r] = t1;
+      wt0[r] = a0;
+      wt1[r] = a1;
+    }
+    __syncthreads();
+    for (int k = threadIdx.y; k < nw; k += blockDim.y) {
+      unsigned bits = 0;
+      const int r0 = j + kWarp * k;
+#pragma unroll 8
+      for (int i = 0; i < kWarp; ++i) {
+        const bool hit = tap0[r0 + i] == j || tap1[r0 + i] == j;
+        bits |= static_cast<unsigned>(hit) << i;
+      }
+      mask[k][j] = bits;
+    }
+    __syncthreads();
+    if (!active || nc == 0) continue;
+    for (int k = 0; k < nw; ++k) {
+      for (unsigned bits = mask[k][j]; bits != 0; bits &= bits - 1) {
+        const int r = j + kWarp * k + __ffs(bits) - 1;
+        const float w = tap0[r] == j ? wt0[r] : wt1[r];
+        const float* gx = gp + (base + r);
+#pragma unroll
+        for (int c = 0; c < kSrcMaxCps; ++c) {
+          if (c < nc) acc[c] = __fadd_rn(acc[c], __fmul_rn(w, __ldg(gx + c * plane)));
+        }
+      }
+    }
+  }
+  if (!active) return;
+  float* dp = dsrc + (static_cast<size_t>(b) * C + c0) * plane + p;
+#pragma unroll
+  for (int c = 0; c < kSrcMaxCps; ++c) {
+    if (c < nc) dp[c * plane] = acc[c];
+  }
+}
+
+// Channel slices of a feature backward launch: as many as it takes to put
+// kOffFillThreads threads on the card, at most one a channel and
+// kOffMaxSlices. Returns the channels a slice would sum.
+int slice_channels(long long pixels, int C) {
+  long long want = pixels > 0 ? (kOffFillThreads + pixels - 1) / pixels : 1;
+  want = want < kOffMaxSlices ? want : kOffMaxSlices;
+  want = want < C ? want : C;
+  const int slices = want > 1 ? static_cast<int>(want) : 1;
+  return C > slices ? (C + slices - 1) / slices : 1;
+}
+
+// The offset gradient's launch: each slice a warp of consecutive pixels,
+// and up to 4 warps of pixels a block where the slices are fewer than 4.
+int launch_feat_bwd_offset(const float* src, const float* off, const float* g,
+                           float* doff, int B, int C, int H, int W,
+                           float max_neg, float max_pos, cudaStream_t stream) {
+  const size_t plane = static_cast<size_t>(H) * W;
+  const int cps = slice_channels(static_cast<long long>(B) * static_cast<long long>(plane), C);
+  const int slices = C > cps ? (C + cps - 1) / cps : 1;  // none empty
+  const int pix = kWarp * (slices < 4 ? 4 / slices : 1);
+  const long long blocks = (static_cast<long long>(plane) + pix - 1) / pix;
+  if (blocks > INT_MAX || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  feat_bwd_offset_kernel<<<dim3(static_cast<unsigned>(blocks), B), dim3(pix, slices), 0,
+                           stream>>>(src, off, g, doff, C, W, plane, cps, max_neg, max_pos);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The source gradient's launch: slices as the offset gradient's, with at
+// most kSrcMaxCps channels a thread; channels beyond kOffMaxSlices such
+// slices go to further groups on the grid's y axis (ceil(C / 128) a batch).
+int launch_feat_bwd_source(const float* off, const float* g, float* dsrc, int B,
+                           int C, int H, int W, float max_neg, float max_pos,
+                           cudaStream_t stream) {
+  // an output x samples columns [x - back, x + ahead]
+  const int back = static_cast<int>(std::ceil(max_neg));
+  const int ahead = static_cast<int>(std::floor(max_pos)) + 1;
+  const size_t plane = static_cast<size_t>(H) * W;
+  int cps = slice_channels(static_cast<long long>(B) * static_cast<long long>(plane), C);
+  cps = cps < kSrcMaxCps ? cps : kSrcMaxCps;
+  const int total = C > cps ? (C + cps - 1) / cps : 1;
+  const int groups = (total + kOffMaxSlices - 1) / kOffMaxSlices;
+  const int slices = (total + groups - 1) / groups;
+  const int pix = kWarp * (slices < 4 ? 4 / slices : 1);
+  const long long blocks = (static_cast<long long>(plane) + pix - 1) / pix;
+  // a tap is kept as an int relative to the block's first column
+  const long long reach = static_cast<long long>(back) + ahead + W + kSrcStage;
+  if (blocks > INT_MAX || static_cast<long long>(B) * groups > 65535 || reach > INT_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  feat_bwd_source_kernel<<<dim3(static_cast<unsigned>(blocks), B * groups), dim3(pix, slices),
+                           0, stream>>>(off, g, dsrc, C, W, plane, cps, groups, max_neg,
+                                        max_pos, back, ahead);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -355,10 +617,16 @@ int warp_features_bwd(const float* feats, const float* dx, const float* g,
                       float* dfeats, float* ddx, int B, int C, int H, int W,
                       float max_neg, float max_pos, int need_dfeats,
                       int need_ddx, cudaStream_t stream) {
-  return launch_bwd<false>(feats, dx, g, dfeats, ddx, B, C, H, W, max_neg,
-                           max_pos, static_cast<int>(std::ceil(max_pos)) + 1,
-                           static_cast<int>(std::ceil(max_neg)), need_dfeats,
-                           need_ddx, stream);
+  if (need_ddx) {
+    const int err = launch_feat_bwd_offset(feats, dx, g, ddx, B, C, H, W,
+                                           max_neg, max_pos, stream);
+    if (err != 0) return err;
+  }
+  if (need_dfeats) {
+    return launch_feat_bwd_source(dx, g, dfeats, B, C, H, W, max_neg, max_pos,
+                                  stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* kernel_error_string(int err) {

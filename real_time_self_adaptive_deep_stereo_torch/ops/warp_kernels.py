@@ -77,16 +77,17 @@ __all__ = [
 
 # The launch grid's y and z axes take at most 65535 blocks each. Per entry
 # point: whether a y or z axis runs over the rows H, and the channels per
-# block where an axis runs over B times the channel chunks (csrc/warp.cu:
-# kChunk; csrc/warp_tile.cu: kOffMaxSlices * kSrcMaxCps, the source
-# gradient's channels a block), None where it runs over B alone. The
-# feature forwards put their channel groups on the x axis; the tiled
-# backward puts the pixels of the plane there (both of its kernels).
+# block where an axis runs over B times the channel chunks (the image
+# warp's backward: kChunk of csrc/warp.cu; the feature warps' backward:
+# kOffMaxSlices * kSrcMaxCps, the source gradient's channels a block),
+# None where it runs over B alone. The feature forwards put their channel
+# groups on the x axis; the feature backward, tiled or not, puts the
+# pixels of the plane there (both of its kernels).
 _GRID = {
     "warp_image_fwd": (True, None),
     "warp_features_fwd": (False, None),
     "warp_image_bwd": (True, 4),
-    "warp_features_bwd": (True, 4),
+    "warp_features_bwd": (False, 128),
     "warp_tile_image_fwd": (True, None),
     "warp_tile_features_fwd": (False, None),
     "warp_tile_image_bwd": (False, 128),

@@ -221,26 +221,66 @@ def test_warp_image_bwd_kernel_matches_plain(dev, shape, max_disp):
     assert torch.equal(only_img, dimg)
 
 
+def _pile_at_ends(dx, max_neg, max_pos):
+    """Row 0: every output samples left of the row (cx in (-3, 0]), so a
+    tap of each lands on column 0, most of them with weight 0; row 1: every
+    output samples right of it, a tap on column W - 1 (both as far as the
+    clip window lets them)."""
+    xs = torch.arange(dx.shape[3], device=dx.device, dtype=torch.float32)
+    u = torch.linspace(0.0, 2.9, dx.shape[3], device=dx.device)
+    dx[:, 0, 0] = (-xs - u).clamp(-max_neg, max_pos)
+    dx[:, 0, 1] = (dx.shape[3] - 1 - xs + u).clamp(-max_neg, max_pos)
+
+
+# K5's slices: MADNet's scale 5 and scale 2; C = 1, 5 and 6 where the
+# source gradient takes one slice of 4 channels and one of 1 or 2 (planes
+# over 135,168 pixels), 33 and 130 (a short last slice; two groups of 128
+# channels); H = 1 with B = 2; rows narrower than the window; a window of
+# 306 outputs (two passes of 256); every tap of a row piled on column 0 or
+# on column W - 1
 @pytest.mark.parametrize(
-    "shape,max_neg",
-    [((2, 6, 4, 140), 20), ((1, 5, 3, 9), 20), ((1, 128, 10, 38), 6), ((1, 32, 80, 304), 48)],
+    "shape,max_neg,max_pos,pile",
+    [
+        ((2, 6, 4, 140), 20, 4, False), ((1, 5, 3, 9), 20, 4, False), ((1, 128, 10, 38), 6, 4, False),
+        ((1, 32, 80, 304), 48, 4, False), ((1, 1, 6, 38), 6, 4, False), ((1, 5, 300, 456), 20, 4, False),
+        ((1, 6, 300, 456), 20, 4, False), ((1, 33, 10, 38), 6, 4, False), ((1, 130, 10, 38), 6, 4, False),
+        ((2, 5, 1, 76), 12, 4, False), ((1, 9, 3, 20), 40, 4, False), ((1, 16, 2, 700), 300, 4, False),
+        ((1, 8, 3, 20), 40, 25, True), ((1, 32, 80, 304), 48, 4, True),
+    ],
 )
-def test_warp_features_bwd_kernel_matches_plain(dev, shape, max_neg):
+def test_warp_features_bwd_kernel_matches_plain(dev, shape, max_neg, max_pos, pile):
+    """Both gradients against the plain version; two runs agree bit for
+    bit; each gradient alone (MAD's ``dfeats``, the offset's ``ddx``) gives
+    the bits of both together; one launch a call."""
     feats = _normal(shape, 17, dev)
-    dx = _uniform((shape[0], 1, *shape[2:]), 18, dev, -max_neg - 10.0, 10.0)
+    dx = _uniform((shape[0], 1, *shape[2:]), 18, dev, -max_neg - 10.0, max_pos + 6.0)
     dx[..., 2::7] = -float(max_neg)
-    dx[..., 4::9] = 4.0
+    dx[..., 3::8] = 0.0
+    dx[..., 4::9] = float(max_pos)
+    if pile:
+        _pile_at_ends(dx, max_neg, max_pos)
     g = _normal(shape, 19, dev)
     fg, dg = feats.clone().requires_grad_(), dx.clone().requires_grad_()
-    dfeats, ddx = torch.autograd.grad(tops.warp_features_cuda(fg, dg, max_neg, 4), (fg, dg), g)
-    dfeats2, ddx2 = torch.autograd.grad(tops.warp_features_cuda(fg, dg, max_neg, 4), (fg, dg), g)
+    before = cuda_lib.LAUNCHES["warp_features_bwd"]
+    dfeats, ddx = torch.autograd.grad(tops.warp_features_cuda(fg, dg, max_neg, max_pos), (fg, dg), g)
+    dfeats2, ddx2 = torch.autograd.grad(tops.warp_features_cuda(fg, dg, max_neg, max_pos), (fg, dg), g)
+    (only_f,) = torch.autograd.grad(tops.warp_features_cuda(fg, dx, max_neg, max_pos), (fg,), g)
+    none, only_dx = tops.warp_features_bwd_cuda(feats, dx, g, max_neg, max_pos, need_feats=False)
     torch.cuda.synchronize()
-    want_f, want_dx = tops.warp_features_clamped_bwd(feats, dx, g, max_neg, 4)
+    assert cuda_lib.LAUNCHES["warp_features_bwd"] == before + 4
+    want_f, want_dx = tops.warp_features_clamped_bwd(feats, dx, g, max_neg, max_pos)
     _close(dfeats, want_f, "dfeats")
     _close(ddx, want_dx, "ddx")
     assert torch.equal(dfeats, dfeats2) and torch.equal(ddx, ddx2)
-    (only_f,) = torch.autograd.grad(tops.warp_features_cuda(fg, dx, max_neg, 4), (fg,), g)
     assert torch.equal(only_f, dfeats)
+    assert none is None and torch.equal(only_dx, ddx)
+    assert not bool(ddx[(dx < -max_neg) | (dx > max_pos)].any())
+    if pile and min(max_neg, max_pos) >= shape[3]:  # every output of rows 0-1 beyond an end
+        for row, col in ((0, 0), (1, shape[3] - 1)):
+            rest = torch.ones(shape[3], dtype=torch.bool, device=dev)
+            rest[col] = False
+            assert bool(want_f[:, :, row, col].ne(0).all()) and bool(dfeats[:, :, row, col].ne(0).all())
+            assert not bool(want_f[:, :, row, rest].any()) and not bool(dfeats[:, :, row, rest].any())
 
 
 def test_backward_takes_a_gradient_in_any_layout(dev):

@@ -109,6 +109,16 @@ def su():
     return _Setup()
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: the CPU's threaded conv backward
+    then sums in one order in both sessions, which are compared at 1e-6."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _run(sess, frames):
     for f in frames:
         sess.step(f)
@@ -309,7 +319,7 @@ def test_fused_mad_adam_matches_jax_fused_and_counts_on_the_device(su):
 
 
 @pytest.mark.parametrize("arena", [True, False])
-def test_fused_two_blocks_a_frame_match_the_host_session(su, arena):
+def test_fused_two_blocks_a_frame_match_the_host_session(su, arena, one_thread):
     frames = _frames(33, 4)
     kw = dict(mode="MAD", sample_mode="SEQUENTIAL", num_blocks=2, ssim_th=1e9)
     host = su.host(optimizer="adam", seed=0, **kw)

@@ -241,19 +241,52 @@ def _taps(off, w, image, lo, hi):
     return w0.astype(np.float32), w1.astype(np.float32), i0, i1
 
 
-def _source_gradient_by_walk(off, g, image, lo, hi):
-    """What ``warp_bwd_source_kernel`` computes (NCHW numpy): the thread
-    of source column v walks the outputs x in [v - back, v + ahead] in
-    increasing x and adds w * g where a tap's clamped column equals v."""
+def _image_source_gradient_by_walk(off, g, hi):
+    """What ``warp_bwd_source_kernel<true>`` computes (NCHW numpy): the
+    thread of source column v walks the outputs x in [v - 1, v + ceil(hi)]
+    in increasing x and adds w * g where a tap's clamped column equals v."""
     w = g.shape[3]
-    back, ahead = (1, math.ceil(hi)) if image else (math.ceil(hi) + 1, math.ceil(lo))
-    w0, w1, i0, i1 = _taps(off, w, image, lo, hi)
+    back, ahead = 1, math.ceil(hi)
+    w0, w1, i0, i1 = _taps(off, w, True, 0, hi)
     dsrc = np.zeros_like(g)
     for v in range(w):
         for x in range(max(v - back, 0), min(v + ahead, w - 1) + 1):
             wgt = w0[..., x] * (i0[..., x] == v) + w1[..., x] * (i1[..., x] == v)  # [B,1,H]
             dsrc[..., v] += wgt * g[..., x]
     return dsrc
+
+
+_WORD, _PASS = 32, 256  # outputs of a mask word, and of a pass (8 words)
+
+
+def _feature_source_gradient_by_masks(off, g, lo, hi):
+    """What ``feat_bwd_source_kernel`` computes (NCHW numpy), step by step,
+    on the flattened H*W plane: column p is reached by the candidates
+    [p - ahead, p + back] (ahead = floor(hi) + 1, back = ceil(lo)), taken
+    as whole 32-output words; their taps are plane columns, and a tap of
+    weight 0 is cropped. Per pass of 256 candidates the mask of those whose
+    tap lands on p is built, then walked in increasing order, adding w * g
+    for every channel."""
+    b, c, h, w = g.shape
+    n = h * w
+    back, ahead = math.ceil(lo), math.floor(hi) + 1
+    n_cands = (back + ahead + _WORD) // _WORD * _WORD
+    w0, w1, i0, i1 = (a.reshape(b, n) for a in _taps(off, w, False, lo, hi))
+    row = np.arange(n) // w * w
+    t0 = np.where(w0 != 0, row + i0, -1)  # -1: cropped, lands on no column
+    t1 = np.where(w1 != 0, row + i1, -1)
+    gp = g.reshape(b, c, n)
+    dsrc = np.zeros((b, c, n), np.float32)
+    for p in range(n):
+        for first in range(0, n_cands, _PASS):
+            q = p - ahead + np.arange(first, min(first + _PASS, n_cands))
+            q = q[(q >= 0) & (q < n)]
+            for k in range(b):
+                mask = (t0[k, q] == p) | (t1[k, q] == p)
+                for x in q[mask]:  # increasing
+                    wgt = w0[k, x] if t0[k, x] == p else w1[k, x]
+                    dsrc[k, :, p] += wgt * gp[k, :, x]
+    return dsrc.reshape(g.shape)
 
 
 @pytest.mark.parametrize(
@@ -263,10 +296,11 @@ def _source_gradient_by_walk(off, g, image, lo, hi):
 )
 def test_source_gradient_walk_covers_every_contribution(image, w, lo, hi):
     """The CUDA source-gradient kernels are gathers over a bounded walk
-    instead of a scatter. This emulation of the walk in numpy equals the
-    transpose that autograd computes, so the bounds miss no contribution:
-    offsets lie beyond both ends of the window, and in the narrow cases
-    the row is shorter than the walk."""
+    instead of a scatter. This emulation of each walk in numpy (the image
+    warp's column walk; the feature warp's candidates, masks and passes)
+    equals the transpose that autograd computes, so the bounds miss no
+    contribution: offsets lie beyond both ends of the window, and in the
+    narrow cases the row is shorter than the walk."""
     r = _rng(19)
     src = r.normal(size=(2, 3, 4, w)).astype(np.float32)  # NCHW
     off = (r.random((2, 1, 4, w)) * (lo + hi + 16) - lo - 8).astype(np.float32)
@@ -275,9 +309,58 @@ def test_source_gradient_walk_covers_every_contribution(image, w, lo, hi):
     args = [torch.from_numpy(a) for a in (src, off, g)]
     if image:
         want, _ = tops.warp_image_clamped_bwd(*args, hi)
+        got = _image_source_gradient_by_walk(off, g, hi)
     else:
         want, _ = tops.warp_features_clamped_bwd(*args, lo, hi)
-    got = _source_gradient_by_walk(off, g, image, lo, hi)
+        got = _feature_source_gradient_by_masks(off, g, lo, hi)
     _close(got, want.numpy(), "dsrc")
     if image:  # the fold: column 0 collects everything sampled left of the row
         assert np.abs(got[..., 0]).max() > np.abs(got[..., 1:]).mean()
+
+
+def _piled(w, sign, reach, seed):
+    """Offsets [1,1,3,w] that put every output's sample beyond one end of
+    the row: left (sign -1, cx = -u) or right (sign +1, cx = w - 1 + u),
+    u in [0, reach); a third of them lands within one column of the end,
+    where one tap keeps its weight on column 0 or W - 1."""
+    r = _rng(seed)
+    u = (r.random((1, 1, 3, w)) * reach).astype(np.float32)
+    u[..., ::3] = (r.random((1, 1, 3, w))[..., ::3] * 0.9).astype(np.float32)
+    xs = np.arange(w, dtype=np.float32)
+    return (-xs - u) if sign < 0 else (w - 1 - xs + u)
+
+
+@pytest.mark.parametrize(
+    "w,lo,hi,kind",
+    [(20, 40, 4, "left"), (20, 6, 25, "right"), (1, 6, 4, "random"), (320, 300, 4, "random")],
+    ids=["features-pile-left", "features-pile-right", "features-w1", "features-window-306"],
+)
+def test_feature_source_gradient_masks_match_the_pallas_kernel(w, lo, hi, kind):
+    """The feature warp's source gradient by candidates, masks and passes
+    (the emulation above) against the Pallas backward kernel in interpret
+    mode and the plain version, where the walk is hardest: every output
+    sampling left of the row (its taps of weight 0 clamp to column 0) or
+    right of it (to column W - 1), W = 1, and a window of 306 outputs, two
+    passes of 256."""
+    r = _rng(23)
+    feats = r.normal(size=(1, 2, 3, w)).astype(np.float32)  # NCHW
+    if kind == "random":
+        off = (r.random((1, 1, 3, w)) * (lo + hi + 16) - lo - 8).astype(np.float32)
+        off[..., ::4] = np.float32(-0.5) if w == 1 else np.float32(-lo)
+    else:
+        off = _piled(w, -1 if kind == "left" else 1, 3.0, 24)
+        assert (off < -np.arange(w) if kind == "left" else off > w - 1 - np.arange(w)).any()
+    g = r.normal(size=feats.shape).astype(np.float32)
+    nhwc = [a.transpose(0, 2, 3, 1) for a in (feats, off, g)]
+    want = _jax_vjp(lambda a, b: jpallas.warp_features_pallas(a, b, lo, hi, True), *nhwc)[0]
+    want = np.asarray(want).transpose(0, 3, 1, 2)
+    assert np.abs(want).max() > 0
+    got = _feature_source_gradient_by_masks(off, g, lo, hi)
+    _close(got, want, "dfeats against the Pallas kernel")
+    plain, _ = tops.warp_features_clamped_bwd(*(torch.from_numpy(a) for a in (feats, off, g)), lo, hi)
+    _close(got, plain.numpy(), "dfeats against the plain version")
+    if kind != "random":  # a pile: only the end column takes a gradient
+        end = 0 if kind == "left" else w - 1
+        rest = np.ones(w, bool)
+        rest[end] = False
+        assert np.abs(got[..., end]).max() > 0 and not got[..., rest].any()

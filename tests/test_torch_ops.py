@@ -374,22 +374,24 @@ def test_warp_grid_checks_follow_the_kernels_grids():
     most 65535 blocks: the feature forwards put their channel groups on the
     x axis, so the batch alone bounds them; the image forwards walk the
     channels in a thread, so rows and batch bound them; the clamped-window
-    backward kernels keep their bounds, and the tiled backward has the
-    pixels of the plane on the x axis, so batch and channel groups alone
-    bound it: the source gradient takes 128 channels a block (32 slices of
-    4). Each tiled forward has its clamped-window counterpart's grid, since it
-    is a gather of the same form."""
+    image backward keeps its bounds, and the feature backward, tiled or
+    not, and the tiled image backward have the pixels of the plane on the x
+    axis, so batch and channel groups alone bound them: the source gradient
+    takes 128 channels a block (32 slices of 4). Each tiled kernel of the
+    feature warp has its clamped-window counterpart's grid, since it is a
+    gather of the same form."""
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
     from real_time_self_adaptive_deep_stereo_torch.ops import warp_kernels as wk
 
     assert set(wk._GRID) == {*cuda_lib._SIGNATURES["warp"], *cuda_lib._SIGNATURES["warp_tile"]}
     assert wk._GRID["warp_tile_image_fwd"] == wk._GRID["warp_image_fwd"] == (True, None)
     assert wk._GRID["warp_tile_features_fwd"] == wk._GRID["warp_features_fwd"] == (False, None)
+    assert wk._GRID["warp_tile_features_bwd"] == wk._GRID["warp_features_bwd"] == (False, 128)
     for fn in ("warp_features_fwd", "warp_tile_features_fwd"):
         wk._check_grid(fn, (65535, 10**6, 70000, 2))
     for fn in ("warp_image_fwd", "warp_tile_image_fwd"):
         wk._check_grid(fn, (65535, 10**6, 65535, 2))
-    for fn in ("warp_tile_image_bwd", "warp_tile_features_bwd"):
+    for fn in ("warp_tile_image_bwd", "warp_tile_features_bwd", "warp_features_bwd"):
         wk._check_grid(fn, (1, 3, 65536, 1))
         wk._check_grid(fn, (1, 128 * 65535, 1, 1))
         wk._check_grid(fn, (255, 128 * 257, 1, 1))
@@ -399,7 +401,9 @@ def test_warp_grid_checks_follow_the_kernels_grids():
         ("warp_image_fwd", (1, 3, 65536, 1)),
         ("warp_tile_image_fwd", (1, 3, 65536, 1)),
         ("warp_tile_image_fwd", (65536, 3, 1, 1)),
-        ("warp_features_bwd", (1, 4 * 65535 + 1, 1, 1)),
+        ("warp_features_bwd", (1, 128 * 65535 + 1, 1, 1)),
+        ("warp_features_bwd", (256, 128 * 257, 1, 1)),
+        ("warp_image_bwd", (1, 4 * 65535 + 1, 1, 1)),
         ("warp_image_bwd", (1, 3, 65536, 1)),
         ("warp_tile_image_bwd", (65536, 3, 1, 1)),
         ("warp_tile_features_bwd", (1, 128 * 65535 + 1, 1, 1)),
