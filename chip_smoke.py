@@ -10,7 +10,7 @@ Phases, each of which raises on failure (nothing is caught):
    ``highest``, fp32.
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report, and
-   apart the registers and spills of ``corr_fwd``, the two tiled forwards,
+   apart the registers and spills of ``corr_fwd``, ``corr_bwd``, the two tiled forwards,
    the tiled offset and source gradients, K5's offset and source gradients
    (``feat_bwd_offset_kernel``, ``feat_bwd_source_kernel``) and the wide
    correlation pair.
@@ -31,7 +31,8 @@ Phases, each of which raises on failure (nothing is caught):
    (bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever
    is larger), the plain version's time and, for the warps, a yardstick
    that the port never calls, timed from a CUDA graph too. K1
-   (``corr_fwd``, ``corr_fwd_bf16``), the tiled backward (every variant
+   (``corr_fwd``, ``corr_fwd_bf16``), its backward (``corr_bwd``,
+   ``corr_bwd_wide`` and their bf16 instances), the tiled backward (every variant
    of ``warp_tile_*_bwd``, the source gradient's included) and K5 (every
    variant of ``warp_features_bwd``) are also timed
    with the L2 cold (``cold_ms``): each call in the graph follows a write
@@ -368,6 +369,7 @@ def check_kernels(ops):
         rows["corr_bwd"].append(dict(
             shape=list(shape), err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
             ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, RADIUS)),
+            cold_ms=cold_ms(lambda: ops.correlation_bwd_cuda(x, y, g, RADIUS)),
             call_ms=call_ms(lambda: ops.correlation_bwd_cuda(x, y, g, RADIUS)),
             plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, RADIUS)),
             library_ms=None,
@@ -538,6 +540,7 @@ def check_wide_kernels(ops, rows):
         rows["corr_bwd_wide"].append(dict(
             bwd,
             ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
+            cold_ms=cold_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
             call_ms=call_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
             plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, DN_RADIUS), inner=2),
             library_ms=None,
@@ -634,6 +637,7 @@ def check_bf16_kernels(ops, rows):
         rows[bwd_name].append(dict(
             bwd,
             ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, radius)),
+            cold_ms=cold_ms(lambda: ops.correlation_bwd_cuda(x, y, g, radius)),
             call_ms=call_ms(lambda: ops.correlation_bwd_cuda(x, y, g, radius)),
             fp32_ms=time_ms(lambda: ops.correlation_bwd_cuda(xf, yf, gf, radius)),
             plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, radius), inner=inner),
@@ -1925,7 +1929,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    for lib, kernel in (("correlation", "corr_fwd_kernel"),
+    for lib, kernel in (("correlation", "corr_fwd_kernel"), ("correlation", "corr_bwd_kernel"),
                         ("warp_tile", "tile_image_fwd_kernel"), ("warp_tile", "tile_feat_fwd_kernel"),
                         ("warp_tile", "tile_bwd_offset_kernel"), ("warp_tile", "tile_bwd_source_kernel"),
                         ("warp", "feat_bwd_offset_kernel"), ("warp", "feat_bwd_source_kernel"),
@@ -1987,7 +1991,7 @@ def main() -> int:
             "max_abs_err": max(r["err"] for r in rs),
             # one call at each main-path shape: the sums over the shapes
             "ms": sum(r["ms"] for r in rs),
-            # K1 and the tiled backward: the same with the L2 cold
+            # K1, its backward and the warp backward: the same with the L2 cold
             **({"cold_ms": sum(r["cold_ms"] for r in rs)} if "cold_ms" in rs[0] else {}),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),

@@ -41,13 +41,25 @@
 // (dy reads the outputs whose shift k pointed at column v), so there are
 // no atomics and two runs agree bit for bit. It is bound by memory: it
 // reads x, y and g once and writes dx and dy, (4C + 2R + 1) * 4 bytes a
-// pixel for 4C(2R+1) flops. One thread per element (b, c, h, w), with the
-// pixels of a plane flattened so that the 19-column planes of the coarse
-// scales still fill their warps; consecutive threads read consecutive
-// addresses of x, y and g, and the 2R+1 shifted reads of neighbours share
-// cache lines. Each product and sum is rounded on its own, in the plain
-// version's order, so that the two agree to the last bit where no column
-// is out of range and within a rounding elsewhere.
+// pixel for 6C(2R+1) flops. A thread owns one pixel of the flattened H*W
+// plane and one slice of channels, consecutive threads on consecutive
+// pixels across row ends, as in corr_fwd. It loads the 2(2R+1) values of g
+// that its pixel's outputs read, g[k, w] and g[k, w + R - k], once into
+// registers with their bounds, then walks its channels, loading 2R+1
+// values of y and of x each (coalesced along the row, the shifted reads of
+// neighbours sharing cache lines), and stores that channel's dx and dy.
+// The outputs are per channel, so the slices never meet: no shared
+// memory, no barrier, and the slices go on the grid, as many as it takes
+// to put some 2,048 threads on each SM, at most one a channel. At MADNet's
+// five shapes the bytes are few (6.8 us in all, 3.9 at scale 2) and launch
+// and latency set the time: spread over the grid, the coarse scales keep
+// one channel a thread (scale 6: 18,240 threads in 192 blocks), where
+// corr_fwd's block of 32 slices of 6 channels would put scale 6 on 3 SMs;
+// scale 2 takes 11 slices of 3 channels. Each term is rounded as the plain
+// version rounds it, (g * y) then * (1/C), and added in increasing k, as
+// the form with one thread per (pixel, channel) before it did: the two
+// agree bit for bit, and agree with the plain version to the last bit
+// where no column is out of range and within a rounding elsewhere.
 //
 // Both are instantiated for radius 1-4 (R a template parameter, 2R+1 sums
 // in registers). That does not scale to DispNet-Corr1D's radius of 40 (81
@@ -67,18 +79,35 @@
 // flops a pixel for (2C + 2R + 1) * 4 bytes, 15 flops a byte, close to the
 // card's fp32 ridge of 20: the bytes bound it, the operations nearly so.
 //
-// corr_bwd_wide computes what corr_bwd computes, as the same two gathers.
-// A block owns one row and a tile of 64 columns and walks the channels in
-// chunks of 32, and for each the shifts in chunks of 32 in increasing
-// order. Per shift chunk it stages g[k, tile] / C (for dx), the diagonal
-// g[k, v + R - k] / C for v in the tile (for dy), and the two windows of
-// 95 columns of y and x that those shifts reach (40.7 KB of static shared
-// memory at any radius). Each thread owns one column and 8 channels and
-// keeps both gradients' 16 sums in registers across the shift chunks, so
-// every output is the sum over k = 0 .. 2R in one fixed order: no
-// atomics, and two runs agree bit for bit. Folding 1/C into the staged g
-// and fusing the products into the sums rounds otherwise than the plain
-// version, within a few ulps of each output's terms.
+// corr_bwd_wide computes what corr_bwd computes, as the same two gathers,
+// at any radius. dx and dy share nothing but g, so a block computes one of
+// them (dx from y, or dy from x) for one row (b, h), a tile of 64 columns
+// and a chunk of 64 channels: 2 * 5 * 2 * 80 = 1,600 blocks of 128 threads
+// at DispNet's [1,128,80,304], radius 40. A thread owns 4 adjacent
+// columns and 8 channels, 32 sums in registers. The block walks the
+// shifts in chunks of 48 in increasing order, staging per chunk g / C for
+// its 64 columns (g[k, w] for dx, the diagonal g[k, v + R - k] for dy) and
+// the 112-column window of y or x that those shifts reach, for its 64
+// channels (40 KB of static shared memory, zeros outside [0, W-1]). It
+// does 2C(2R+1) multiply-adds a pixel for (4C + 2R + 1) * 4 bytes, 17
+// flops a byte at C = 128, near the card's fp32 ridge of 20. What sets
+// its time is the chip's own traffic: the shared-memory loads that feed
+// the multiply-adds, and the staging, which reads 131 MB from L2 at
+// DispNet's call (each window 1.75 times its 64 columns, g once a channel
+// chunk). A form with one column a thread made 18 scalar shared-memory
+// loads for 16 multiply-adds; here a thread takes 4 shifts at a time and,
+// for each of its channels, loads the 4 window values the next shifts
+// bring in as one float4 and slides the 8 it holds (for dx the window
+// moves right as k grows, for dy left): with a float4 of g for each shift,
+// 12 loads of 16 bytes make 128 multiply-adds. A thread stages a fixed
+// count of elements, its loads unconditional and unrolled so that a batch
+// is in flight at once. Staging and the multiply-adds take turns between
+// the block's barriers and do not overlap. Each output is the same chain
+// of fmaf over k = 0 .. 2R, in increasing k, of the same staged operands
+// (g * 1/C rounded as staged, zeros outside the row) as the form before:
+// the two agree bit for bit, no atomics, and two runs agree. Folding 1/C
+// into the staged g and fusing the products into the sums rounds otherwise
+// than the plain version, within a few ulps of each output's terms.
 //
 // Precision. Each kernel is a template on its element type T, float or
 // __nv_bfloat16, and has an fp32 and a bf16 entry point. The JAX package
@@ -102,7 +131,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // threads of a corr_bwd block
 constexpr int kWarp = 32;
 constexpr int kFwdMaxThreads = 1024;  // threads of a corr_fwd block, at most
 constexpr int kFwdMaxSlices = kFwdMaxThreads / kWarp;  // channel slices a pixel, at most
@@ -202,50 +230,69 @@ __global__ void __launch_bounds__(kFwdMaxThreads)
   }
 }
 
+constexpr int kBwdPixels = 64;  // pixels a corr_bwd block
+// threads a corr_bwd launch aims for: 2,048 on each of the 132 SMs, where
+// the channels allow
+constexpr long long kBwdFill = 132LL * 2048;
+
+// Thread x of block (bx, slice, b) owns pixel p = bx * kBwdPixels + x of
+// the plane and the channels [slice * cps, (slice + 1) * cps), and writes
+// their dx and dy once each: no shared memory, no barrier. Up to radius 2
+// it is held to 64 registers a thread (16 blocks an SM), which spills
+// nothing; at radius 3 and 4 that bound would spill.
 template <int R, typename T>
-__global__ void corr_bwd_kernel(const T* __restrict__ x,
-                                const T* __restrict__ y,
-                                const T* __restrict__ g,
-                                T* __restrict__ dx, T* __restrict__ dy,
-                                int C, int H, int W, float inv_c) {
+__global__ void __launch_bounds__(kBwdPixels, R <= 2 ? 16 : 1)
+    corr_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                    const T* __restrict__ g, T* __restrict__ dx,
+                    T* __restrict__ dy, int C, int W, size_t plane, int cps,
+                    float inv_c) {
   constexpr int K = 2 * R + 1;
-  const int plane = H * W;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;  // pixel h * W + w
-  const int c = blockIdx.y;
-  const int b = blockIdx.z;
+  const size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (p >= plane) return;
+  const int b = blockIdx.z;
+  const int w = plane <= UINT_MAX ? static_cast<int>(static_cast<unsigned>(p) %
+                                                     static_cast<unsigned>(W))
+                                  : static_cast<int>(p % W);
+  const size_t row = p - w;  // column 0 of the pixel's row
 
-  const int w = p % W;
-  const int row = p - w;
-  const size_t chan = (static_cast<size_t>(b) * C + c) * plane;
-  const T* xr = x + chan + row;
-  const T* yr = y + chan + row;
-  const T* gr = g + static_cast<size_t>(b) * K * plane + row;
-
-  float ax = 0.f, ay = 0.f;
+  // g and the bounds once a pixel: dx's shift k reads y column w + k - R
+  // with g[k, w]; dy's reads x column w + R - k with g[k, w + R - k]. The
+  // loads in the channel loop are unconditional (at a clamped column) and
+  // an out-of-range term leaves its sum unchanged.
+  float gx[K], gy[K];
+  int col_y[K], col_x[K];
+  bool in_y[K], in_x[K];
+  const T* gp = g + static_cast<size_t>(b) * K * plane;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int wy = w + k - R;  // the y column that output w reads at shift k
-    if (wy >= 0 && wy < W) {
-      const float t = __fmul_rn(load(gr + k * plane + w), load(yr + wy));
-      ax = __fadd_rn(ax, __fmul_rn(t, inv_c));
-    }
-    const int wx = w + R - k;  // the output whose shift k reads y column w
-    if (wx >= 0 && wx < W) {
-      const float t = __fmul_rn(load(gr + k * plane + wx), load(xr + wx));
-      ay = __fadd_rn(ay, __fmul_rn(t, inv_c));
-    }
+    const int wy = w + k - R, wx = w + R - k;
+    in_y[k] = wy >= 0 && wy < W;
+    in_x[k] = wx >= 0 && wx < W;
+    col_y[k] = min(max(wy, 0), W - 1);
+    col_x[k] = min(max(wx, 0), W - 1);
+    gx[k] = load(gp + k * plane + p);
+    gy[k] = load(gp + k * plane + row + col_x[k]);
   }
-  dx[chan + p] = store_as<T>(ax);
-  dy[chan + p] = store_as<T>(ay);
-}
 
-template <int R, typename T>
-void launch_bwd(const T* x, const T* y, const T* g, T* dx, T* dy, int B, int C,
-                int H, int W, cudaStream_t stream) {
-  const dim3 grid((H * W + kThreads - 1) / kThreads, C, B);
-  corr_bwd_kernel<R, T><<<grid, kThreads, 0, stream>>>(x, y, g, dx, dy, C, H,
-                                                       W, 1.0f / C);
+  const int c0 = blockIdx.y * cps;
+  const int c1 = min(C, c0 + cps);
+  const size_t first = (static_cast<size_t>(b) * C + c0) * plane;
+  const T* xr = x + first + row;
+  const T* yr = y + first + row;
+  T* dxp = dx + first + p;
+  T* dyp = dy + first + p;
+  for (int c = c0; c < c1; ++c, xr += plane, yr += plane, dxp += plane, dyp += plane) {
+    float ax = 0.f, ay = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float tx = __fmul_rn(gx[k], load(yr + col_y[k]));
+      const float ty = __fmul_rn(gy[k], load(xr + col_x[k]));
+      ax = in_y[k] ? __fadd_rn(ax, __fmul_rn(tx, inv_c)) : ax;
+      ay = in_x[k] ? __fadd_rn(ay, __fmul_rn(ty, inv_c)) : ay;
+    }
+    *dxp = store_as<T>(ax);
+    *dyp = store_as<T>(ay);
+  }
 }
 
 // corr_fwd's launch: as many channel slices as it takes to put kFwdFill
@@ -272,18 +319,49 @@ int launch(const T* x, const T* y, T* out, int B, int C, int H, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
+// corr_bwd's launch: its slices never meet, so they go on the grid's y
+// axis, as many as it takes to put kBwdFill threads on the card, at most
+// one a channel (and 65535), none empty.
+template <int R, typename T>
+int launch_bwd(const T* x, const T* y, const T* g, T* dx, T* dy, int B, int C,
+               int H, int W, cudaStream_t stream) {
+  const size_t plane = static_cast<size_t>(H) * W;
+  const long long pixels = static_cast<long long>(B) * static_cast<long long>(plane);
+  long long want = pixels > 0 ? (kBwdFill + pixels - 1) / pixels : 1;
+  want = want < C ? want : C;
+  want = want < 65535 ? want : 65535;
+  const int slices0 = want > 1 ? static_cast<int>(want) : 1;
+  const int cps = C > slices0 ? (C + slices0 - 1) / slices0 : 1;
+  const int slices = C > cps ? (C + cps - 1) / cps : 1;  // none empty
+  const long long blocks = (static_cast<long long>(plane) + kBwdPixels - 1) / kBwdPixels;
+  if (blocks > INT_MAX || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  corr_bwd_kernel<R, T>
+      <<<dim3(static_cast<unsigned>(blocks), slices, B), kBwdPixels, 0, stream>>>(
+          x, y, g, dx, dy, C, W, plane, cps, 1.0f / C);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------- any radius
-constexpr int kWideTile = 64;  // output columns a block
+constexpr int kWideTile = 64;  // output columns a block, both kernels
+// corr_fwd_wide
 constexpr int kWideThreads = 256;
 constexpr int kWideGroups = kWideThreads / kWideTile;  // threads per column
 constexpr int kFwdShiftsPerThread = 24;
 constexpr int kFwdShifts = kWideGroups * kFwdShiftsPerThread;  // 96 a block
 constexpr int kFwdChannels = 32;  // channels staged at a time
 constexpr int kFwdWindow = kWideTile + kFwdShifts - 1;  // y columns staged
-constexpr int kBwdShifts = 32;    // shifts staged at a time
-constexpr int kBwdChannels = 32;  // channels a block sums for at a time
-constexpr int kBwdChannelsPerThread = kBwdChannels / kWideGroups;  // 8
-constexpr int kBwdWindow = kWideTile + kBwdShifts - 1;  // x, y columns staged
+// corr_bwd_wide: 16 quads of columns by 8 groups of channels a block
+constexpr int kQuad = 4;  // adjacent columns a thread, and shifts a step
+constexpr int kBwdQuads = kWideTile / kQuad;  // 16
+constexpr int kBwdGroups = 8;
+constexpr int kBwdThreads = kBwdQuads * kBwdGroups;  // 128
+constexpr int kBwdChannelsPerThread = 8;  // channel grp + kBwdGroups * i
+constexpr int kBwdChannels = kBwdGroups * kBwdChannelsPerThread;  // 64 a block
+constexpr int kBwdShifts = 48;  // shifts staged at a time, a multiple of kQuad
+constexpr int kBwdWindow = kWideTile + kBwdShifts;  // y or x columns staged
+static_assert(kBwdShifts % kQuad == 0, "a step of kQuad shifts stays in one chunk");
+static_assert(kBwdShifts * kWideTile % kBwdThreads == 0 && kBwdChannels * kBwdWindow % kBwdThreads == 0,
+              "every thread stages the same count");
 
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
@@ -345,83 +423,157 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
+// One step of corr_bwd_wide: shifts kk .. kk + n - 1 of the chunk (n =
+// kQuad but at the chunk's end) for each of the thread's channels. gs holds
+// the chunk's g / C, win its window; carry[i] holds the 4 window values
+// channel i's previous step loaded (dx: columns 4t + kk .. + 3 of the
+// window; dy: 4t - kk + kBwdShifts .. + 3), and the step loads the next 4.
+// Output column 4t + q at shift kk + s reads window column 4t + kk + q + s
+// for dx, 4t - kk + kBwdShifts - 1 + q - s for dy.
+template <bool kDy, bool kTail>
+__device__ __forceinline__ void bwd_wide_step(
+    const float (*__restrict__ gs)[kWideTile],
+    const float (*__restrict__ win)[kBwdWindow], int t, int grp, int kk, int n,
+    float4 (&carry)[kBwdChannelsPerThread],
+    float (&acc)[kBwdChannelsPerThread][kQuad]) {
+  float gq[kQuad][kQuad];  // [shift][column]
+#pragma unroll
+  for (int s = 0; s < kQuad; ++s) {
+    if (!kTail || s < n) {
+      const float4 v = *reinterpret_cast<const float4*>(&gs[kk + s][kQuad * t]);
+      gq[s][0] = v.x, gq[s][1] = v.y, gq[s][2] = v.z, gq[s][3] = v.w;
+    }
+  }
+  const int next = kDy ? kQuad * t - kk + kBwdShifts - kQuad : kQuad * t + kk + kQuad;
+#pragma unroll
+  for (int i = 0; i < kBwdChannelsPerThread; ++i) {
+    const float4 nw = *reinterpret_cast<const float4*>(&win[grp + kBwdGroups * i][next]);
+    const float4 lo = kDy ? nw : carry[i];
+    const float4 hi = kDy ? carry[i] : nw;
+    const float v[2 * kQuad] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int s = 0; s < kQuad; ++s) {
+      if (!kTail || s < n) {
+#pragma unroll
+        for (int q = 0; q < kQuad; ++q) {
+          acc[i][q] = fmaf(gq[s][q], v[kDy ? q - s + kQuad - 1 : q + s], acc[i][q]);
+        }
+      }
+    }
+    carry[i] = nw;
+  }
+}
+
+// Stages a chunk of corr_bwd_wide: gs[kk][j] = g[k0 + kk, col] / C for the
+// tile's 64 columns (col = w0 + j for dx, the diagonal w0 + j + R - k for
+// dy), win[c][j] = src[c, start + j] (start = w0 + k0 - R for dx, w0 + R -
+// k0 - (kBwdShifts - 1) for dy): zeros outside [0, W-1] and in the rows
+// past the chunk's ns shifts or nc channels, which no step reads into a
+// stored sum. Every thread stages a fixed count of elements, unrolled and
+// every load made (at a clamped row and column), so that a batch of loads
+// is in flight before its stores.
+template <bool kDy, typename T>
+__device__ __forceinline__ void stage_chunk(
+    const T* __restrict__ src_rows, const T* __restrict__ gp,
+    float (*__restrict__ gs)[kWideTile], float (*__restrict__ win)[kBwdWindow],
+    int W, int R, int K, size_t plane, int w0, int k0, int ns, int nc, float inv_c) {
+  constexpr int kG = kBwdShifts * kWideTile / kBwdThreads;
+  constexpr int kWin = kBwdChannels * kBwdWindow / kBwdThreads;
+  const int start = kDy ? w0 + R - k0 - (kBwdShifts - 1) : w0 + k0 - R;
+#pragma unroll 16
+  for (int m = 0; m < kG; ++m) {
+    const int i = threadIdx.x + m * kBwdThreads;
+    const int kk = i / kWideTile, j = i % kWideTile;
+    const int k = min(k0 + kk, K - 1);
+    const int col = kDy ? w0 + j + R - k : w0 + j;
+    const float v = load(gp + k * plane + min(max(col, 0), W - 1));
+    gs[kk][j] = (kk < ns && col >= 0 && col < W) ? v * inv_c : 0.f;
+  }
+#pragma unroll 16
+  for (int m = 0; m < kWin; ++m) {
+    const int i = threadIdx.x + m * kBwdThreads;
+    const int c = i / kBwdWindow, j = i - c * kBwdWindow;
+    const int col = start + j;
+    const float v = load(src_rows + min(c, nc - 1) * plane + min(max(col, 0), W - 1));
+    win[c][j] = (c < nc && col >= 0 && col < W) ? v : 0.f;
+  }
+}
+
+// One of corr_bwd_wide's two gathers for the block's row, tile and
+// channel chunk: dx from y (kDy false) or dy from x, into out.
+template <bool kDy, typename T>
+__device__ __forceinline__ void bwd_wide_half(
+    const T* __restrict__ src, const T* __restrict__ g, T* __restrict__ out,
+    float (*__restrict__ gs)[kWideTile], float (*__restrict__ win)[kBwdWindow],
+    int C, int H, int W, int R, int w0, int c0, float inv_c) {
+  const int K = 2 * R + 1;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t = threadIdx.x % kBwdQuads;    // columns w0 + 4t .. + 3
+  const int grp = threadIdx.x / kBwdQuads;  // channels c0 + grp + 8i
+  const int nc = min(kBwdChannels, C - c0);
+  const size_t plane = static_cast<size_t>(H) * W;
+  const size_t row = static_cast<size_t>(h) * W;
+  const T* src_rows = src + (static_cast<size_t>(b) * C + c0) * plane + row;
+  const T* gp = g + static_cast<size_t>(b) * K * plane + row;
+
+  float acc[kBwdChannelsPerThread][kQuad];
+#pragma unroll
+  for (int i = 0; i < kBwdChannelsPerThread; ++i) {
+#pragma unroll
+    for (int q = 0; q < kQuad; ++q) acc[i][q] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < K; k0 += kBwdShifts) {
+    const int ns = min(kBwdShifts, K - k0);
+    __syncthreads();  // the previous chunk is read
+    stage_chunk<kDy>(src_rows, gp, gs, win, W, R, K, plane, w0, k0, ns, nc, inv_c);
+    __syncthreads();
+
+    float4 carry[kBwdChannelsPerThread];
+#pragma unroll
+    for (int i = 0; i < kBwdChannelsPerThread; ++i) {
+      carry[i] = *reinterpret_cast<const float4*>(
+          &win[grp + kBwdGroups * i][kQuad * t + (kDy ? kBwdShifts : 0)]);
+    }
+    int kk = 0;
+#pragma unroll 2
+    for (; kk + kQuad <= ns; kk += kQuad) {
+      bwd_wide_step<kDy, false>(gs, win, t, grp, kk, kQuad, carry, acc);
+    }
+    if (kk < ns) bwd_wide_step<kDy, true>(gs, win, t, grp, kk, ns - kk, carry, acc);
+  }
+
+  const int w = w0 + kQuad * t;
+#pragma unroll
+  for (int i = 0; i < kBwdChannelsPerThread; ++i) {
+    const int c = grp + kBwdGroups * i;
+    if (c >= nc) continue;
+    T* op = out + (static_cast<size_t>(b) * C + c0 + c) * plane + row + w;
+#pragma unroll
+    for (int q = 0; q < kQuad; ++q) {
+      if (w + q < W) op[q] = store_as<T>(acc[i][q]);
+    }
+  }
+}
+
+// blockIdx.x = (half * n_chunks + chunk) * n_tiles + tile: half 0 computes
+// dx, half 1 dy; blockIdx.y the row, blockIdx.z the batch.
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
+__global__ void __launch_bounds__(kBwdThreads)
     corr_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
                          const T* __restrict__ g, T* __restrict__ dx,
                          T* __restrict__ dy, int C, int H, int W, int R,
-                         float inv_c) {
-  __shared__ float gx[kBwdShifts][kWideTile];  // g[k][w] / C, w in the tile
-  __shared__ float gy[kBwdShifts][kWideTile];  // g[k][v + R - k] / C
-  __shared__ float ys[kBwdChannels][kBwdWindow];
-  __shared__ float xs[kBwdChannels][kBwdWindow];
-  const int K = 2 * R + 1;
-  const int w0 = blockIdx.x * kWideTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x % kWideTile;  // the thread's column
-  const int grp = threadIdx.x / kWideTile;   // its channels: grp + 4i
-
-  const size_t plane = static_cast<size_t>(H) * W;
-  const size_t row = static_cast<size_t>(h) * W;
-  const size_t batch = static_cast<size_t>(b) * C * plane + row;
-  const T* gp = g + static_cast<size_t>(b) * K * plane + row;
-
-  for (int c0 = 0; c0 < C; c0 += kBwdChannels) {
-    const int nc = min(kBwdChannels, C - c0);
-    const T* xp = x + batch + c0 * plane;
-    const T* yp = y + batch + c0 * plane;
-    float ax[kBwdChannelsPerThread], ay[kBwdChannelsPerThread];
-#pragma unroll
-    for (int i = 0; i < kBwdChannelsPerThread; ++i) ax[i] = ay[i] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += kBwdShifts) {
-      const int ns = min(kBwdShifts, K - k0);
-      // ys[c][j] = y[c][w0 + k0 - R + j]: dx at column w0 + l, shift
-      // k0 + kk reads ys[c][l + kk]. xs[c][j] = x[c][xstart + j]: dy at
-      // column w0 + l, shift k0 + kk reads xs[c][l - kk + kBwdShifts - 1].
-      const int ystart = w0 + k0 - R;
-      const int xstart = w0 + R - k0 - (kBwdShifts - 1);
-      __syncthreads();  // the previous chunk is read
-      for (int i = threadIdx.x; i < ns * kWideTile; i += kWideThreads) {
-        const int kk = i / kWideTile, j = i % kWideTile;
-        const int k = k0 + kk;
-        const T* gr = gp + k * plane;
-        const int cx = w0 + j, cy = w0 + j + R - k;
-        gx[kk][j] = cx < W ? load(gr + cx) * inv_c : 0.f;
-        gy[kk][j] = (cy >= 0 && cy < W) ? load(gr + cy) * inv_c : 0.f;
-      }
-      for (int i = threadIdx.x; i < nc * kBwdWindow; i += kWideThreads) {
-        const int c = i / kBwdWindow, j = i - c * kBwdWindow;
-        const int cy = ystart + j, cx = xstart + j;
-        ys[c][j] = (cy >= 0 && cy < W) ? load(yp + c * plane + cy) : 0.f;
-        xs[c][j] = (cx >= 0 && cx < W) ? load(xp + c * plane + cx) : 0.f;
-      }
-      __syncthreads();
-      for (int kk = 0; kk < ns; ++kk) {
-        const float g1 = gx[kk][lane];
-        const float g2 = gy[kk][lane];
-#pragma unroll
-        for (int i = 0; i < kBwdChannelsPerThread; ++i) {
-          const int c = grp + kWideGroups * i;  // the same in a warp
-          ax[i] = fmaf(g1, ys[c][lane + kk], ax[i]);
-          ay[i] = fmaf(g2, xs[c][lane - kk + kBwdShifts - 1], ay[i]);
-        }
-      }
-    }
-
-    const int w = w0 + lane;
-    if (w < W) {
-#pragma unroll
-      for (int i = 0; i < kBwdChannelsPerThread; ++i) {
-        const int c = grp + kWideGroups * i;
-        if (c < nc) {
-          const size_t at = batch + (c0 + c) * plane + w;
-          dx[at] = store_as<T>(ax[i]);
-          dy[at] = store_as<T>(ay[i]);
-        }
-      }
-    }
+                         int n_tiles, int n_chunks, float inv_c) {
+  __shared__ __align__(16) float gs[kBwdShifts][kWideTile];
+  __shared__ __align__(16) float win[kBwdChannels][kBwdWindow];
+  const int w0 = (blockIdx.x % n_tiles) * kWideTile;
+  const int rest = blockIdx.x / n_tiles;
+  const int c0 = (rest % n_chunks) * kBwdChannels;
+  if (rest < n_chunks) {  // the same in a block
+    bwd_wide_half<false>(y, g, dx, gs, win, C, H, W, R, w0, c0, inv_c);
+  } else {
+    bwd_wide_half<true>(x, g, dy, gs, win, C, H, W, R, w0, c0, inv_c);
   }
 }
 
@@ -442,13 +594,12 @@ template <typename T>
 int corr_bwd_impl(const T* x, const T* y, const T* g, T* dx, T* dy, int B,
                   int C, int H, int W, int radius, cudaStream_t stream) {
   switch (radius) {
-    case 1: launch_bwd<1, T>(x, y, g, dx, dy, B, C, H, W, stream); break;
-    case 2: launch_bwd<2, T>(x, y, g, dx, dy, B, C, H, W, stream); break;
-    case 3: launch_bwd<3, T>(x, y, g, dx, dy, B, C, H, W, stream); break;
-    case 4: launch_bwd<4, T>(x, y, g, dx, dy, B, C, H, W, stream); break;
+    case 1: return launch_bwd<1, T>(x, y, g, dx, dy, B, C, H, W, stream);
+    case 2: return launch_bwd<2, T>(x, y, g, dx, dy, B, C, H, W, stream);
+    case 3: return launch_bwd<3, T>(x, y, g, dx, dy, B, C, H, W, stream);
+    case 4: return launch_bwd<4, T>(x, y, g, dx, dy, B, C, H, W, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -472,9 +623,14 @@ int corr_bwd_wide_impl(const T* x, const T* y, const T* g, T* dx, T* dy,
   if (radius < 0 || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((W + kWideTile - 1) / kWideTile, H, B);
-  corr_bwd_wide_kernel<T><<<grid, kWideThreads, 0, stream>>>(
-      x, y, g, dx, dy, C, H, W, radius, 1.0f / C);
+  if (B == 0 || C == 0 || H == 0 || W == 0) return 0;  // nothing to write
+  const int n_tiles = (W + kWideTile - 1) / kWideTile;
+  const int n_chunks = (C + kBwdChannels - 1) / kBwdChannels;
+  const long long blocks = 2LL * n_tiles * n_chunks;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  corr_bwd_wide_kernel<T>
+      <<<dim3(static_cast<unsigned>(blocks), H, B), kBwdThreads, 0, stream>>>(
+          x, y, g, dx, dy, C, H, W, radius, n_tiles, n_chunks, 1.0f / C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -490,7 +646,7 @@ int corr_fwd(const float* x, const float* y, float* out, int B, int C, int H,
 }
 
 // x, y: [B, C, H, W] fp32 contiguous; g: [B, 2*radius+1, H, W], the gradient
-// of corr_fwd's output; dx, dy like x. C may be at most 65535.
+// of corr_fwd's output; dx, dy like x. B may be at most 65535.
 int corr_bwd(const float* x, const float* y, const float* g, float* dx,
              float* dy, int B, int C, int H, int W, int radius,
              cudaStream_t stream) {

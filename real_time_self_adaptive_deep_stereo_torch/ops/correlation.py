@@ -160,8 +160,6 @@ def _corr_bwd_launch(
         )
     if not g.is_contiguous():
         raise ValueError(f"{name} needs a contiguous gradient")
-    if not wide and c > 65535:
-        raise ValueError(f"corr_bwd supports at most 65535 channels, got {c}")
     dx, dy = torch.empty_like(x), torch.empty_like(y)
     lib = cuda_lib.library("correlation")
     err = getattr(lib, name)(

@@ -125,7 +125,13 @@ def _close(got, want, what):
 
 # DispNet's shape at 320x1216, an edge where W < 2R+1, widths that are no
 # multiple of the 64-column tile, channels that are no multiple of 32, and
-# radii that take two and three chunks of shifts
+# radii that take two and three chunks of shifts; then the edges of
+# corr_bwd_wide's blocks (4 columns a thread, 64 channels a block) at
+# radius 40: W = 1, 63, 65 and 130, C = 33, and B = 2
+_WIDE_BWD_EDGES = [
+    ((1, 8, 3, 1), 40), ((1, 8, 3, 63), 40), ((1, 8, 3, 65), 40), ((1, 8, 3, 130), 40),
+    ((1, 33, 4, 100), 40), ((2, 40, 3, 100), 40),
+]
 _WIDE = [
     ((1, 128, 80, 304), 40),
     ((1, 128, 5, 19), 40),
@@ -133,6 +139,7 @@ _WIDE = [
     ((1, 33, 4, 130), 5),
     ((1, 5, 2, 140), 50),
     ((1, 70, 2, 200), 100),
+    *_WIDE_BWD_EDGES,
 ]
 
 
@@ -760,11 +767,12 @@ def _assert_corr_bf16(x, y, g, radius, out, dx, dy):
 
 
 # MADNet's scales, the register radii at an edge shape, DispNet's call and
-# the wide kernels' edges: W < 2R+1, two and three chunks of shifts
+# the wide kernels' edges: W < 2R+1, two and three chunks of shifts, and
+# those of corr_bwd_wide's blocks
 _BF16_CASES = [
     ((1, 192, 5, 19), 2), ((1, 32, 80, 304), 2), ((2, 7, 5, 37), 1), ((2, 7, 5, 37), 3),
     ((1, 3, 2, 3), 4), ((1, 128, 80, 304), 40), ((1, 128, 5, 19), 40), ((2, 7, 3, 70), 40),
-    ((1, 5, 2, 140), 50), ((1, 70, 2, 200), 100),
+    ((1, 5, 2, 140), 50), ((1, 70, 2, 200), 100), *_WIDE_BWD_EDGES,
 ]
 
 
@@ -891,3 +899,39 @@ def test_corr_fwd_slices_match_plain(dev, shape, radius, dtype):
     else:
         terms = tops.correlation_torch(x.float().abs(), y.float().abs(), radius)
         _assert_bf16_close(got, want, terms, shape[1], "forward")
+
+
+# ---------------------------------------------- corr_bwd's channel slices
+
+# MADNet's five calls, and the edges of the slices: C = 1 (one slice),
+# C = 1000 (32 slices, the last of 8 channels), W = 3 < 2R+1 at radius 4,
+# W = 1, and B = 2 with H = 1
+_CORR_BWD_CASES = [(shape, 2) for shape in _MADNET_CORR] + [
+    ((1, 1, 5, 19), 2), ((1, 1000, 3, 11), 2), ((1, 8, 4, 3), 4), ((1, 8, 4, 1), 2), ((1, 8, 4, 1), 4),
+    ((2, 16, 1, 40), 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,radius", _CORR_BWD_CASES)
+def test_corr_bwd_slices_match_plain(dev, shape, radius, dtype):
+    """``corr_bwd`` and ``corr_bwd_bf16`` against the plain version (fp32:
+    1e-5 of each gradient's largest entry; bf16: :func:`_assert_bf16_close`),
+    one launch a call, two runs bit for bit."""
+    x, y = _normal(shape, 58, dev).to(dtype), _normal(shape, 59, dev).to(dtype)
+    g = _normal((shape[0], 2 * radius + 1, *shape[2:]), 60, dev).to(dtype)
+    name = "corr_bwd_bf16" if dtype == torch.bfloat16 else "corr_bwd"
+    before = cuda_lib.LAUNCHES[name]
+    got = tops.correlation_bwd_cuda(x, y, g, radius)
+    again = tops.correlation_bwd_cuda(x, y, g, radius)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[name] == before + 2
+    assert all(a.dtype == dtype and torch.equal(a, b) for a, b in zip(got, again))
+    want = tops.correlation_torch_bwd(x, y, g, radius)
+    if dtype == torch.float32:
+        for a, b, nm in zip(got, want, ("dx", "dy")):
+            _close(a, b, nm)
+    else:
+        terms = tops.correlation_torch_bwd(x.float().abs(), y.float().abs(), g.float().abs(), radius)
+        for a, b, t, nm in zip(got, want, terms, ("dx", "dy")):
+            _assert_bf16_close(a, b, t, 2 * radius + 1, nm)

@@ -51,6 +51,12 @@ def _jax_vjp(fn, a, b, g):
     return vjp(jnp.asarray(g))
 
 
+def _jax_vjp_jit(fn, a, b, g):
+    """:func:`_jax_vjp` under ``jax.jit``: at radius 40 the 81 shifts run
+    op by op take some ten seconds a call eagerly, under a second jitted."""
+    return jax.jit(lambda a, b, g: jax.vjp(fn, a, b)[1](g))(jnp.asarray(a), jnp.asarray(b), jnp.asarray(g))
+
+
 def _autograd(fn, a, b, g):
     """Gradients of the port's ``fn`` (NCHW) through autograd, back in NHWC."""
     ta, tb = _t(a).requires_grad_(), _t(b).requires_grad_()
@@ -61,14 +67,25 @@ def _autograd(fn, a, b, g):
 # ---------------------------------------------------------------- correlation
 
 
-@pytest.mark.parametrize("radius", [1, 2, 3, 4])
-def test_correlation_bwd_matches_jax(radius):
+# (radius, NHWC shape): the register radii, then the edges of the kernels'
+# launches: W = 1 at every register radius, one channel, and DispNet's
+# radius 40 with W below 2R+1 and just past the wide kernels' 64-column tile
+_CORR_BWD_CASES = [pytest.param(r, (2, 5, 23, 12), id=str(r)) for r in (1, 2, 3, 4)] + [
+    *[pytest.param(r, (2, 3, 1, 5), id=f"w1-r{r}") for r in (1, 2, 3, 4)],
+    pytest.param(2, (2, 5, 23, 1), id="c1-r2"),
+    pytest.param(40, (1, 3, 19, 4), id="r40-w19"),
+    pytest.param(40, (1, 3, 65, 4), id="r40-w65"),
+]
+
+
+@pytest.mark.parametrize("radius,shape", _CORR_BWD_CASES)
+def test_correlation_bwd_matches_jax(radius, shape):
     r = _rng(radius)
-    x = r.normal(size=(2, 5, 23, 12)).astype(np.float32)
-    y = r.normal(size=(2, 5, 23, 12)).astype(np.float32)
-    g = r.normal(size=(2, 5, 23, 2 * radius + 1)).astype(np.float32)
-    want_p = _jax_vjp(lambda a, b: correlation_pallas(a, b, radius, True), x, y, g)
-    want_j = _jax_vjp(lambda a, b: correlation_jnp(a, b, radius), x, y, g)
+    x = r.normal(size=shape).astype(np.float32)
+    y = r.normal(size=shape).astype(np.float32)
+    g = r.normal(size=(*shape[:3], 2 * radius + 1)).astype(np.float32)
+    want_p = _jax_vjp_jit(lambda a, b: correlation_pallas(a, b, radius, True), x, y, g)
+    want_j = _jax_vjp_jit(lambda a, b: correlation_jnp(a, b, radius), x, y, g)
     dx, dy = tops.correlation_torch_bwd(_t(x), _t(y), _t(g), radius)
     for want in (want_p, want_j):
         _close(_nhwc(dx), want[0], "dx")
