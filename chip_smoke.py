@@ -11,8 +11,9 @@ Phases, each of which raises on failure (nothing is caught):
 2. Build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together) and print the build time and the ptxas report, and
    apart the registers and spills of ``corr_fwd``, ``corr_bwd``, the two tiled forwards,
-   the tiled offset and source gradients, K5's offset and source gradients
-   (``feat_bwd_offset_kernel``, ``feat_bwd_source_kernel``) and the wide
+   the tiled offset and source gradients, K5's and K4's offset and source
+   gradients (``feat_bwd_offset_kernel``, ``feat_bwd_source_kernel``,
+   ``warp_bwd_offset_kernel``, ``warp_bwd_source_kernel``) and the wide
    correlation pair.
 3. Each of the sixteen kernels at every shape the main paths give it, against
    its plain PyTorch version on the card, with offsets outside the clamp
@@ -31,17 +32,17 @@ Phases, each of which raises on failure (nothing is caught):
    (bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever
    is larger), the plain version's time and, for the warps, a yardstick
    that the port never calls, timed from a CUDA graph too. K1
-   (``corr_fwd``, ``corr_fwd_bf16``), its backward (``corr_bwd``,
-   ``corr_bwd_wide`` and their bf16 instances), the tiled backward (every variant
-   of ``warp_tile_*_bwd``, the source gradient's included) and K5 (every
-   variant of ``warp_features_bwd``) are also timed
+   (``corr_fwd``, ``corr_fwd_wide`` and their bf16 instances), its
+   backward (``corr_bwd``, ``corr_bwd_wide`` and their bf16 instances) and
+   every variant of the four warp backward kernels are also timed
    with the L2 cold (``cold_ms``): each call in the graph follows a write
    over a buffer twice the card's 50 MB L2, whose own time, taken the same
    way, is subtracted. The yardsticks are
    ``F.grid_sample`` (forward) or its backward op
    ``aten.grid_sampler_2d_backward`` on the same sampling. A warp backward
    is timed in each variant, the gradients it is asked for: both, the
-   offset's alone, and each mode's (MAD's and FULL's), each beside the op
+   offset's alone and the source's alone (MAD and FULL ask for one of
+   these), each beside the op
    with the same output mask and its own byte bound, and each bit-identical
    to both gradients together. Per kernel it prints its time summed over
    its shapes as a ratio to that yardstick's sum, for a backward kernel
@@ -427,7 +428,6 @@ def check_kernels(ops):
         lambda s, o: ops.warp_image_onehot(s, o, MAX_DISP, align=128),
         IMAGE_MODES,
         same_as=lambda s, o, g: ops.warp_image_bwd_cuda(s, o, g, MAX_DISP),
-        cold=True,
     ))
 
     for i, (c, f) in enumerate(FEAT_LEVELS):
@@ -457,7 +457,6 @@ def check_kernels(ops):
                 s, o, g, neg, MAX_POS, *need),
             lambda s, o, neg=neg: ops.warp_features_clamped(s, o, neg, MAX_POS),
             FEATURE_MODES,
-            cold=True,
         ))
 
         got = ops.warp_features_mxu(feats, dx, neg, MAX_POS)
@@ -481,7 +480,6 @@ def check_kernels(ops):
             lambda s, o, neg=neg: ops.warp_features_onehot(s, o, neg, MAX_POS, align=128),
             FEATURE_MODES,
             same_as=lambda s, o, g, neg=neg: ops.warp_features_bwd_cuda(s, o, g, neg, MAX_POS),
-            cold=True,
         ))
 
     for name, rs in rows.items():
@@ -532,6 +530,7 @@ def check_wide_kernels(ops, rows):
         rows["corr_fwd_wide"].append(dict(
             fwd,
             ms=time_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+            cold_ms=cold_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
             call_ms=call_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
             plain_ms=time_ms(lambda: ops.correlation_torch(x, y, DN_RADIUS), inner=2),
             library_ms=None,
@@ -627,7 +626,7 @@ def check_bf16_kernels(ops, rows):
         rows[fwd_name].append(dict(
             fwd,
             ms=time_ms(lambda: ops.correlation_cuda(x, y, radius)),
-            **({} if wide else {"cold_ms": cold_ms(lambda: ops.correlation_cuda(x, y, radius))}),
+            cold_ms=cold_ms(lambda: ops.correlation_cuda(x, y, radius)),
             call_ms=call_ms(lambda: ops.correlation_cuda(x, y, radius)),
             fp32_ms=time_ms(lambda: ops.correlation_cuda(xf, yf, radius)),
             plain_ms=time_ms(lambda: ops.correlation_torch(x, y, radius), inner=inner),
@@ -646,17 +645,17 @@ def check_bf16_kernels(ops, rows):
         ))
 
 
-def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes, same_as=None, cold=False):
+def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes, same_as=None):
     """One warp backward kernel at one shape: both gradients against
     autograd through the plain version (and against ``same_as``, another
     kernel of the same function, where given), two runs bit-identical,
     times. ``kernel(src, off, g, need)`` takes the pair (dsrc, doff) of
     gradients asked for; ``modes`` names the variant (``VARIANTS``) each
-    mode asks for. Every variant (both gradients, the offset's alone and
-    each mode's) must give the bits of both gradients together in two
+    mode asks for. Every variant (both gradients, and each alone) must
+    give the bits of both gradients together in two
     runs, and is timed beside the yardstick ``grid_sample_bwd`` with the
-    same mask and beside its own bound; with ``cold``, also with the L2
-    cold (:func:`cold_ms`)."""
+    same mask and beside its own bound, warm and with the L2 cold
+    (:func:`cold_ms`)."""
     _, c, h, w = src.shape
     g = seeded(tuple(src.shape), seed)
     got = kernel(src, off, g)
@@ -674,8 +673,7 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes
             assert_grad_close(a, b, f"{name} {tuple(src.shape)} {nm} against the other kernel")
     n = h * w
     variants = {}
-    for v in dict.fromkeys(["both", "doff", *modes.values()]):
-        mask = VARIANTS[v]
+    for v, mask in VARIANTS.items():
         for _ in range(2):
             part = kernel(src, off, g, mask)
             for a, b, asked in zip(part, got, mask):
@@ -687,7 +685,7 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes
                           4.0 * c * n * (mask[0] + mask[1]))
         variants[v] = dict(
             ms=time_ms(lambda: kernel(src, off, g, mask)),
-            **({"cold_ms": cold_ms(lambda: kernel(src, off, g, mask))} if cold else {}),
+            cold_ms=cold_ms(lambda: kernel(src, off, g, mask)),
             library_ms=time_ms(lambda: grid_sample_bwd(g, src, grid, padding, mask)),
             bound_ms=var_bound[0], bound_by=var_bound[1],
         )
@@ -698,7 +696,7 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes
     return dict(
         shape=list(src.shape), err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
         ms=both["ms"],
-        **({"cold_ms": both["cold_ms"]} if cold else {}),
+        cold_ms=both["cold_ms"],
         call_ms=call_ms(lambda: kernel(src, off, g)),
         plain_ms=call_ms(plain, 50),
         library_ms=both["library_ms"],
@@ -1933,6 +1931,7 @@ def main() -> int:
                         ("warp_tile", "tile_image_fwd_kernel"), ("warp_tile", "tile_feat_fwd_kernel"),
                         ("warp_tile", "tile_bwd_offset_kernel"), ("warp_tile", "tile_bwd_source_kernel"),
                         ("warp", "feat_bwd_offset_kernel"), ("warp", "feat_bwd_source_kernel"),
+                        ("warp", "warp_bwd_offset_kernel"), ("warp", "warp_bwd_source_kernel"),
                         ("correlation", "corr_fwd_wide_kernel"), ("correlation", "corr_bwd_wide_kernel")):
         usage = cuda_lib.ptxas_usage(cuda_lib.BUILD_LOGS.get(lib, ""), kernel) or ["cached build, no report"]
         log(f"ptxas {kernel}: {'; '.join(usage)}")

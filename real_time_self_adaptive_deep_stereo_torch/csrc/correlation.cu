@@ -66,18 +66,31 @@
 // shifts over C = 128 at 1/4 resolution), so two more kernels take any
 // radius as a runtime argument:
 //
-// corr_fwd_wide computes what corr_fwd computes. A block owns one row
-// (b, h) and a tile of 64 output columns, and, for a radius above 47, one
-// chunk of 96 shifts. It walks the channels in chunks of 32, staging
-// x[c, tile] and the y window [c, tile + k0 - R, tile + k0 - R + 159) in
-// shared memory (28.5 KB, zeros outside [0, W-1]). Each of its 256 threads
-// owns one column and every 4th shift of the chunk, 24 sums in registers
-// (21 used at R = 40); a warp reads 32 consecutive words of the window per
-// shift, free of bank conflicts. The channels are summed in one fixed
-// order, c = 0 .. C-1, with fused multiply-adds, and each output plane is
-// written once, coalesced along w. At R = 40 and C = 128 it does 2C(2R+1)
-// flops a pixel for (2C + 2R + 1) * 4 bytes, 15 flops a byte, close to the
-// card's fp32 ridge of 20: the bytes bound it, the operations nearly so.
+// corr_fwd_wide computes what corr_fwd computes, at any radius. At
+// DispNet's call, [1,128,80,304] at radius 40, it does 2C(2R+1) flops a
+// pixel for (2C + 2R + 1) * 4 bytes, 15 flops a byte, close to the card's
+// fp32 ridge of 20: the bytes bound it (0.0098 ms on an NVIDIA H100 80GB
+// HBM3 at 700 W), the operations nearly so. A form with one thread a
+// column and every 4th of 96 shifts made one 4-byte shared-memory load per
+// multiply-add (0.0825 ms there). It now takes the form of corr_bwd_wide:
+// a block owns one row (b, h), a tile of 64 columns and a chunk of 84
+// shifts (81 at radius 40), in 128 threads, 112 of which sum: thread (t,
+// r) owns the 4 adjacent columns w0 + 4t .. + 3 and the 12 consecutive
+// shifts k0 + 12r .. + 11, 48 sums in registers. The block walks the
+// channels in chunks of 32, staging x[c, tile] and the y window [c, w0 +
+// k0 - R, + 148) in static shared memory (27 KB, zeros outside [0, W-1];
+// unconditional, unrolled loads). For each channel a thread loads its 4 x values as one float4
+// and slides a float4 window of y over its shifts, so each staged y value
+// feeds 4 multiply-adds: 5 loads of 16 bytes make 48 multiply-adds where
+// the form before made 48 loads of 4. Staging and the sums take turns
+// between the block's barriers, and the sums set the time: two buffers
+// (the next chunk's loads in flight while a chunk is summed), lanes that
+// share their window loads, other tiles and unrolling did not beat this
+// form on the card (PERF.md, section 6). Each output is the same chain of
+// fmaf over c = 0 .. C-1, in increasing c, of the same staged operands
+// (zeros outside the row), then one multiply by 1/C, as the form before:
+// the two agree bit for bit. At R = 40 the 84 shifts leave 3 idle, the
+// last tile of a 304-column row 16 columns.
 //
 // corr_bwd_wide computes what corr_bwd computes, as the same two gathers,
 // at any radius. dx and dy share nothing but g, so a block computes one of
@@ -343,15 +356,20 @@ int launch_bwd(const T* x, const T* y, const T* g, T* dx, T* dy, int B, int C,
 
 // ---------------------------------------------------------- any radius
 constexpr int kWideTile = 64;  // output columns a block, both kernels
-// corr_fwd_wide
-constexpr int kWideThreads = 256;
-constexpr int kWideGroups = kWideThreads / kWideTile;  // threads per column
-constexpr int kFwdShiftsPerThread = 24;
-constexpr int kFwdShifts = kWideGroups * kFwdShiftsPerThread;  // 96 a block
-constexpr int kFwdChannels = 32;  // channels staged at a time
-constexpr int kFwdWindow = kWideTile + kFwdShifts - 1;  // y columns staged
-// corr_bwd_wide: 16 quads of columns by 8 groups of channels a block
 constexpr int kQuad = 4;  // adjacent columns a thread, and shifts a step
+// corr_fwd_wide: 16 quads of columns by 7 runs of 12 shifts a block
+constexpr int kFwdQuads = kWideTile / kQuad;  // 16
+constexpr int kFwdRun = 12;  // consecutive shifts a thread, a multiple of kQuad
+constexpr int kFwdRuns = 7;
+constexpr int kFwdShifts = kFwdRuns * kFwdRun;  // 84 a block: 81 at radius 40
+constexpr int kFwdThreads = 128;  // 112 sum; all stage
+constexpr int kFwdChannels = 32;  // channels staged at a time
+// y columns staged: a run's last step reads 4 past its 12 shifts' 15 columns
+constexpr int kFwdWindow = kWideTile + kFwdShifts;
+static_assert(kFwdRun % kQuad == 0 && kFwdRuns * kFwdQuads <= kFwdThreads, "the block's layout");
+static_assert(kFwdChannels * kWideTile % kFwdThreads == 0 && kFwdChannels * kFwdWindow % kFwdThreads == 0,
+              "every thread stages the same count");
+// corr_bwd_wide: 16 quads of columns by 8 groups of channels a block
 constexpr int kBwdQuads = kWideTile / kQuad;  // 16
 constexpr int kBwdGroups = 8;
 constexpr int kBwdThreads = kBwdQuads * kBwdGroups;  // 128
@@ -363,63 +381,111 @@ static_assert(kBwdShifts % kQuad == 0, "a step of kQuad shifts stays in one chun
 static_assert(kBwdShifts * kWideTile % kBwdThreads == 0 && kBwdChannels * kBwdWindow % kBwdThreads == 0,
               "every thread stages the same count");
 
+// Stages a channel chunk of corr_fwd_wide: xs[c][j] = x[c, w0 + j] and
+// ys[c][j] = y[c, ystart + j] (xr, yr: the chunk's first channel of the
+// row), zeros outside [0, W-1]; rows past the chunk's nc channels hold a
+// copy of its last, which no sum reads. Every thread stages a fixed count
+// of elements, unrolled and every load made (at a clamped row and column),
+// so that a batch of loads is in flight before its stores.
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
+__device__ __forceinline__ void stage_fwd(const T* __restrict__ xr, const T* __restrict__ yr,
+                                          float (*__restrict__ xs)[kWideTile],
+                                          float (*__restrict__ ys)[kFwdWindow], int W,
+                                          size_t plane, int w0, int ystart, int nc) {
+  constexpr int kX = kFwdChannels * kWideTile / kFwdThreads;
+  constexpr int kY = kFwdChannels * kFwdWindow / kFwdThreads;
+#pragma unroll
+  for (int m = 0; m < kX; ++m) {
+    const int i = threadIdx.x + m * kFwdThreads;
+    const int c = i / kWideTile, j = i % kWideTile;
+    const int col = w0 + j;
+    const float v = load(xr + min(c, nc - 1) * plane + min(col, W - 1));
+    xs[c][j] = col < W ? v : 0.f;
+  }
+#pragma unroll 16
+  for (int m = 0; m < kY; ++m) {
+    const int i = threadIdx.x + m * kFwdThreads;
+    const int c = i / kFwdWindow, j = i - c * kFwdWindow;
+    const int col = ystart + j;
+    const float v = load(yr + min(c, nc - 1) * plane + min(max(col, 0), W - 1));
+    ys[c][j] = (col >= 0 && col < W) ? v : 0.f;
+  }
+}
+
+// blockIdx.x = chunk of kFwdShifts shifts * n_tiles + tile of kWideTile
+// columns, blockIdx.y the row, blockIdx.z the batch. Thread (quad t, run
+// r) owns the columns w0 + 4t .. + 3 and the shifts k0 + 12r .. + 11: 48
+// sums. For each channel it loads x's 4 columns as one float4 and slides
+// a float4 window of y (ys[4t + 12r + 4s .. + 7] for step s) over its
+// shifts: 5 shared-memory loads of 16 bytes make 48 multiply-adds.
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads)
     corr_fwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ y,
                          T* __restrict__ out, int C, int H, int W, int R,
                          int n_tiles, float inv_c) {
-  __shared__ float xs[kFwdChannels][kWideTile];
-  __shared__ float ys[kFwdChannels][kFwdWindow];
+  __shared__ __align__(16) float xs[kFwdChannels][kWideTile];
+  __shared__ __align__(16) float ys[kFwdChannels][kFwdWindow];
   const int K = 2 * R + 1;
   const int w0 = (blockIdx.x % n_tiles) * kWideTile;
   const int k0 = (blockIdx.x / n_tiles) * kFwdShifts;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int lane = threadIdx.x % kWideTile;  // the thread's column
-  const int grp = threadIdx.x / kWideTile;   // its shifts: grp + 4j
-  const int n_shifts = min(kFwdShifts, K - k0);
-  const int ystart = w0 + k0 - R;  // the column of ys[.][0]
+  const int t = threadIdx.x % kFwdQuads;  // columns w0 + 4t .. + 3
+  const int run = threadIdx.x / kFwdQuads;  // shifts k0 + 12 run .. + 11
+  const bool sums = run < kFwdRuns;  // the same in a half warp
+  const int s0 = run * kFwdRun;
 
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t row = static_cast<size_t>(h) * W;
   const T* xp = x + static_cast<size_t>(b) * C * plane + row;
   const T* yp = y + static_cast<size_t>(b) * C * plane + row;
 
-  float acc[kFwdShiftsPerThread];
+  float acc[kFwdRun][kQuad];
 #pragma unroll
-  for (int j = 0; j < kFwdShiftsPerThread; ++j) acc[j] = 0.f;
+  for (int s = 0; s < kFwdRun; ++s) {
+#pragma unroll
+    for (int q = 0; q < kQuad; ++q) acc[s][q] = 0.f;
+  }
 
   for (int c0 = 0; c0 < C; c0 += kFwdChannels) {
     const int nc = min(kFwdChannels, C - c0);
     __syncthreads();  // the previous chunk is read
-    for (int i = threadIdx.x; i < nc * kWideTile; i += kWideThreads) {
-      const int c = i / kWideTile, j = i % kWideTile;
-      const int col = w0 + j;
-      xs[c][j] = col < W ? load(xp + (c0 + c) * plane + col) : 0.f;
-    }
-    for (int i = threadIdx.x; i < nc * kFwdWindow; i += kWideThreads) {
-      const int c = i / kFwdWindow, j = i - c * kFwdWindow;
-      const int col = ystart + j;
-      ys[c][j] = (col >= 0 && col < W) ? load(yp + (c0 + c) * plane + col) : 0.f;
-    }
+    stage_fwd(xp + c0 * plane, yp + c0 * plane, xs, ys, W, plane, w0, w0 + k0 - R, nc);
     __syncthreads();
+    if (!sums) continue;
+#pragma unroll 2
     for (int c = 0; c < nc; ++c) {
-      const float xv = xs[c][lane];
+      const float4 xv = *reinterpret_cast<const float4*>(&xs[c][kQuad * t]);
+      const float xq[kQuad] = {xv.x, xv.y, xv.z, xv.w};
+      const float* yw = &ys[c][kQuad * t + s0];
+      float4 lo = *reinterpret_cast<const float4*>(yw);
 #pragma unroll
-      for (int j = 0; j < kFwdShiftsPerThread; ++j) {
-        const int s = grp + kWideGroups * j;  // the same in a warp
-        if (s < n_shifts) acc[j] = fmaf(xv, ys[c][lane + s], acc[j]);
+      for (int st = 0; st < kFwdRun / kQuad; ++st) {
+        const float4 hi = *reinterpret_cast<const float4*>(yw + kQuad * (st + 1));
+        const float v[2 * kQuad] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int s = 0; s < kQuad; ++s) {
+#pragma unroll
+          for (int q = 0; q < kQuad; ++q) {
+            acc[kQuad * st + s][q] = fmaf(xq[q], v[q + s], acc[kQuad * st + s][q]);
+          }
+        }
+        lo = hi;
       }
     }
   }
 
-  const int w = w0 + lane;
-  if (w >= W) return;
-  T* op = out + (static_cast<size_t>(b) * K + k0) * plane + row + w;
+  if (!sums) return;
+  const int w = w0 + kQuad * t;
 #pragma unroll
-  for (int j = 0; j < kFwdShiftsPerThread; ++j) {
-    const int s = grp + kWideGroups * j;
-    if (s < n_shifts) op[s * plane] = store_as<T>(acc[j] * inv_c);
+  for (int s = 0; s < kFwdRun; ++s) {
+    const int k = k0 + s0 + s;
+    if (k >= K) break;
+    T* op = out + (static_cast<size_t>(b) * K + k) * plane + row + w;
+#pragma unroll
+    for (int q = 0; q < kQuad; ++q) {
+      if (w + q < W) op[q] = store_as<T>(acc[s][q] * inv_c);
+    }
   }
 }
 
@@ -608,10 +674,12 @@ int corr_fwd_wide_impl(const T* x, const T* y, T* out, int B, int C, int H,
   if (radius < 0 || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (B == 0 || H == 0 || W == 0) return 0;  // nothing to write
   const int n_tiles = (W + kWideTile - 1) / kWideTile;
   const int n_chunks = (2 * radius + 1 + kFwdShifts - 1) / kFwdShifts;
-  const dim3 grid(n_tiles * n_chunks, H, B);
-  corr_fwd_wide_kernel<T><<<grid, kWideThreads, 0, stream>>>(
+  const long long blocks = static_cast<long long>(n_tiles) * n_chunks;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  corr_fwd_wide_kernel<T><<<dim3(static_cast<unsigned>(blocks), H, B), kFwdThreads, 0, stream>>>(
       x, y, out, C, H, W, radius, n_tiles, 1.0f / C);
   return static_cast<int>(cudaGetLastError());
 }

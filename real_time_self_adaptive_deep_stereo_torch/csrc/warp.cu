@@ -54,27 +54,46 @@
 // on the order of sums. So both gradients are gathers, and every run adds
 // in the same order and agrees bit for bit.
 //
-// The image warp's (`warp_bwd_offset_kernel<true>`,
-// `warp_bwd_source_kernel<true>`, [3, 320, 1216] on the main path):
+// The image warp's (`warp_bwd_offset_kernel`, `warp_bwd_source_kernel`,
+// [3, 320, 1216] and max_disp 192 on the main path):
 //
 // * the offset gradient: the thread of output pixel x sums g * v0 and
 //   g * v1 over the channels at its two taps, and the result is zeroed
 //   where the unclipped offset lies outside its window (inclusive bounds,
 //   as `torch.clamp` and the TPU kernel have it);
-// * the source gradient, the transpose of the sampling: the thread of
-//   source column v and a chunk of kChunk channels walks the outputs x
-//   that can sample v, in increasing x, recomputes their taps and adds
-//   w * g where a tap's clamped index equals v. An output x samples
-//   floor(x - d) and the column after it with 0 <= d <= S, so column v
-//   is reached only from x in [v - 1, v + S]. Clamped indices make the
-//   fold into column 0 (everything sampled left of the image) fall out of
-//   the same test, and column 0's walk [0, S] covers it.
+// * the source gradient, the transpose of the sampling. An output x
+//   samples floor(x - d) and the column after it with 0 <= d <= S, so
+//   column v is reached only from the outputs [v - 1, v + ceil(S)] of its
+//   row: 194 of them at S = 192. A form with one thread a column that
+//   walked those outputs recomputed every output's tap 194 times (75 M
+//   taps a call; 0.126 ms with both gradients on an NVIDIA H100 80GB HBM3
+//   at 700 W, 2.4 times the PyTorch op). Here a block owns 128 columns
+//   of one row and a chunk of kChunk channels. Per pass of kImgPass
+//   outputs it computes the taps of the outputs that can reach its
+//   columns once, into static shared memory, with their g (a tap pair, a
+//   weight pair and the chunk's g as one int2, float2 and float4, read
+//   together by a hit); a warp then takes each word of 32 outputs and, with
+//   `__match_any_sync` over the taps' columns, writes for every column the
+//   word's bit mask of the outputs whose tap lands on it (one lane per
+//   column, no atomics). Each thread loads its column's mask words
+//   together, walks their bits in increasing x and adds w * g for its
+//   channels, tap 0 before tap 1, in the order of the walk before it:
+//   every column but 0 keeps its bits.
+//   The image warp clamps to the edge, so every output that samples left
+//   of the row puts both taps on column 0 with their weights: up to 2 *
+//   193 terms, in series in one thread. Column 0's outputs are cut into 32
+//   contiguous segments, a lane of the first warp each; each lane sums its
+//   segment in increasing x, and the segments' sums meet in a fixed
+//   shuffle tree. Taps of weight 0 are cropped (adding 0 * g leaves a sum's
+//   bits as they are). Every dimg value has one order of sum, so two runs
+//   agree bit for bit.
 //
-// The feature warp's run on MADNet's short, deep rows, where that form
-// left most lanes idle and chained a load per channel (380 threads
-// walking 128 channels each at scale 5), and asked C / kChunk times the
-// channel-independent question of which outputs reach a column. They take
-// the forms of csrc/warp_tile.cu's tiled backward, with K5's own tap
+// The feature warp's run on MADNet's short, deep rows, where a thread a
+// column walking a chunk of channels left most lanes idle and chained a
+// load per channel (380 threads walking 128 channels each at scale 5),
+// and asked C / 4 times the channel-independent question of which outputs
+// reach a column. They take the forms of csrc/warp_tile.cu's tiled
+// backward, with K5's own tap
 // (`feature_tap`: clamped to the row [0, W - 1], a corner outside it of
 // weight 0):
 //
@@ -108,8 +127,9 @@
 //   bounds every such tap. A window of more than 256 outputs is taken in
 //   passes of 256, so no window is refused.
 //
-// No kernel here uses dynamic shared memory (the offset gradient keeps 4
-// KB of partial sums, the source gradient 10 KB of tap records and masks),
+// No kernel here uses dynamic shared memory (the feature offset gradient
+// keeps 4 KB of partial sums, its source gradient 10 KB of tap records
+// and masks, the image source gradient 18 KB of taps, g and masks),
 // so no launch sets a function attribute (a launch may be under stream
 // capture).
 
@@ -120,8 +140,13 @@
 
 namespace {
 
+// image warps: threads a block, and columns of a source-gradient block
 constexpr int kThreads = 128;
-constexpr int kChunk = 4;  // channels per thread in the source gradient
+constexpr int kChunk = 4;  // channels of an image source-gradient block, a float4 of g
+static_assert(kChunk == 4, "a float4 holds the g of a chunk");
+constexpr int kImgWords = 12;  // 32-output words of an image source-gradient pass
+// outputs of a pass: 128 columns' 321 at max_disp 192 fit in one
+constexpr int kImgPass = kImgWords * 32;
 constexpr int kFeatChannels = 4;  // channels per thread, feature forward
 constexpr int kFeatThreads = 128;  // threads per block, feature forward
 constexpr int kWarp = 32;
@@ -186,14 +211,6 @@ __device__ __forceinline__ Tap feature_tap(float dx, int x, int W,
   return t;
 }
 
-// kImage: image warp with window [0, hi]; else feature warp with window
-// [-lo, hi] (lo = max_neg, hi = max_pos).
-template <bool kImage>
-__device__ __forceinline__ Tap tap_of(float off, int x, int W, float lo,
-                                      float hi) {
-  return kImage ? image_tap(off, x, W, hi) : feature_tap(off, x, W, lo, hi);
-}
-
 // Image warp: one thread per output pixel (b, h, x).
 __global__ void warp_fwd_kernel(const float* __restrict__ src,
                                 const float* __restrict__ off,
@@ -256,13 +273,12 @@ __global__ void __launch_bounds__(kFeatThreads)
   }
 }
 
-// Gradient of the offset: one thread per output pixel (b, h, x).
-template <bool kImage>
+// Gradient of the image offset: one thread per output pixel (b, h, x).
 __global__ void warp_bwd_offset_kernel(const float* __restrict__ src,
                                        const float* __restrict__ off,
                                        const float* __restrict__ g,
                                        float* __restrict__ doff, int C, int H,
-                                       int W, float lo, float hi) {
+                                       int W, float max_disp) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -272,7 +288,7 @@ __global__ void warp_bwd_offset_kernel(const float* __restrict__ src,
   const size_t row = static_cast<size_t>(h) * W;
   const size_t pix = static_cast<size_t>(b) * plane + row + x;
   const float raw = __ldg(off + pix);
-  const Tap t = tap_of<kImage>(raw, x, W, lo, hi);
+  const Tap t = image_tap(raw, x, W, max_disp);
 
   const float* s = src + static_cast<size_t>(b) * C * plane + row;
   const float* gp = g + static_cast<size_t>(b) * C * plane + row + x;
@@ -284,81 +300,157 @@ __global__ void warp_bwd_offset_kernel(const float* __restrict__ src,
     s0 = __fadd_rn(s0, __fmul_rn(gv, __ldg(r + t.i0)));
     s1 = __fadd_rn(s1, __fmul_rn(gv, __ldg(r + t.i1)));
   }
-  // image: d out / d disp = v0 - v1 (the sample moves left as disp grows);
-  // features: d out / d dx = in1 * v1 - in0 * v0
-  const float val = kImage ? __fsub_rn(s0, s1)
-                           : __fsub_rn(__fmul_rn(s1, t.in1), __fmul_rn(s0, t.in0));
-  const bool inside = kImage ? (raw >= 0.f && raw <= hi) : (raw >= -lo && raw <= hi);
-  doff[pix] = inside ? val : 0.f;
+  // d out / d disp = v0 - v1 (the sample moves left as disp grows)
+  doff[pix] = (raw >= 0.f && raw <= max_disp) ? __fsub_rn(s0, s1) : 0.f;
 }
 
-// Gradient of the source: one thread per source column (b, h, v) and
-// chunk of kChunk channels; outputs x in [v - back, v + ahead] can sample v.
-template <bool kImage>
-__global__ void warp_bwd_source_kernel(const float* __restrict__ off,
-                                       const float* __restrict__ g,
-                                       float* __restrict__ dsrc, int C, int H,
-                                       int W, float lo, float hi, int back,
-                                       int ahead, int n_chunks) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+// The bits of word k of a pass (outputs [32k, 32k + 32)) that lie in the
+// outputs [lo, hi) of the pass.
+__device__ __forceinline__ unsigned span_bits(int k, int lo, int hi) {
+  const int a = max(lo - 32 * k, 0), z = min(hi - 32 * k, 32);
+  if (z <= a) return 0u;
+  return (z == 32 ? ~0u : (1u << z) - 1u) & ~((1u << a) - 1u);
+}
+
+// Adds, for the set bits of `bits` (outputs 32k + i of the pass, in
+// increasing order), w * g of each tap that lands on column j, tap 0
+// before tap 1.
+__device__ __forceinline__ void walk_word(unsigned bits, int k, int j, const int2* taps,
+                                          const float2* wts, const float4* gs,
+                                          float (&acc)[kChunk]) {
+  for (; bits != 0u; bits &= bits - 1u) {
+    const int r = 32 * k + __ffs(bits) - 1;
+    const int2 t = taps[r];
+    const float2 w = wts[r];
+    const float4 g4 = gs[r];
+    const float gv[kChunk] = {g4.x, g4.y, g4.z, g4.w};
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      if (t.x == j) acc[c] = __fadd_rn(acc[c], __fmul_rn(w.x, gv[c]));
+      if (t.y == j) acc[c] = __fadd_rn(acc[c], __fmul_rn(w.y, gv[c]));
+    }
+  }
+}
+
+// Gradient of the image: a block per (tile of kThreads columns, row,
+// batch * chunk of kChunk channels), a thread per column. The outputs
+// that can reach the tile, [x_first, x_last], are taken in passes of
+// kImgPass:
+//   1. the block computes their taps once, as columns relative to the
+//      tile (-1 where a tap lands outside it or has weight 0), with their
+//      weights and g for the chunk's channels;
+//   2. the warp of word k writes mask[k][j], the bits of the word's
+//      outputs with a tap on column j: `__match_any_sync` groups the lanes
+//      by tap column, and the lowest lane of each group writes its group
+//      (tap 0's groups first, then tap 1's OR-ed in);
+//   3. each thread walks its column's words [v - 1, v + ahead] in
+//      increasing x; column 0's outputs [0, ahead] are walked by the first
+//      warp of the first tile in 32 segments, whose sums meet in a shuffle
+//      tree, once a pass.
+__global__ void __launch_bounds__(kThreads)
+    warp_bwd_source_kernel(const float* __restrict__ off,
+                           const float* __restrict__ g,
+                           float* __restrict__ dsrc, int C, int H, int W,
+                           float max_disp, int ahead, int n_chunks) {
+  __shared__ int2 taps[kImgPass];
+  __shared__ float2 wts[kImgPass];
+  __shared__ float4 gs[kImgPass];  // g of the chunk's kChunk channels
+  __shared__ unsigned mask[kImgWords][kThreads];
+
+  const int j = threadIdx.x;  // the column, relative to the tile
+  const int lane = j % kWarp, warp = j / kWarp;
+  const int v0 = blockIdx.x * kThreads;
+  const int v = v0 + j;
   const int h = blockIdx.y;
   const int b = blockIdx.z / n_chunks;
   const int c0 = (blockIdx.z % n_chunks) * kChunk;
-  if (v >= W) return;
+  const int last_c = C - c0 - 1;  // the chunk's last channel, relative
 
   const size_t plane = static_cast<size_t>(H) * W;
   const size_t row = static_cast<size_t>(h) * W;
   const float* offr = off + static_cast<size_t>(b) * plane + row;
   const float* gr = g + (static_cast<size_t>(b) * C + c0) * plane + row;
 
+  // the outputs that reach the tile, and this column's
+  const int x_first = max(v0 - 1, 0);
+  const int x_last = min(v0 + kThreads - 1 + ahead, W - 1);
+  const int n_out = x_last - x_first + 1;
+  const int my_lo = max(v - 1, 0) - x_first;
+  const int my_hi = min(v + ahead, W - 1) - x_first;  // inclusive
+  const bool pile = v0 == 0;  // the tile of column 0, the same in a block
+
   float acc[kChunk];
 #pragma unroll
-  for (int j = 0; j < kChunk; ++j) acc[j] = 0.f;
+  for (int c = 0; c < kChunk; ++c) acc[c] = 0.f;
 
-  const int x_first = max(v - back, 0);
-  const int x_last = min(v + ahead, W - 1);
-  for (int x = x_first; x <= x_last; ++x) {
-    const Tap t = tap_of<kImage>(__ldg(offr + x), x, W, lo, hi);
-    const bool hit0 = t.i0 == v;
-    const bool hit1 = t.i1 == v;
-    if (hit0 || hit1) {
+  for (int p0 = 0; p0 < n_out; p0 += kImgPass) {
+    __syncthreads();  // the previous pass has been walked
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        if (c0 + j < C) {
-          const float gv = __ldg(gr + j * plane + x);
-          if (hit0) acc[j] = __fadd_rn(acc[j], __fmul_rn(t.w0, gv));
-          if (hit1) acc[j] = __fadd_rn(acc[j], __fmul_rn(t.w1, gv));
-        }
+    for (int m = 0; m < kImgPass / kThreads; ++m) {
+      const int r = j + m * kThreads;
+      const bool in = p0 + r < n_out;
+      const int x = min(x_first + p0 + r, W - 1);  // every load made
+      const Tap t = image_tap(__ldg(offr + x), x, W, max_disp);
+      const int a0 = t.i0 - v0, a1 = t.i1 - v0;
+      taps[r] = make_int2((in && t.w0 != 0.f && a0 >= 0 && a0 < kThreads) ? a0 : -1,
+                          (in && t.w1 != 0.f && a1 >= 0 && a1 < kThreads) ? a1 : -1);
+      wts[r] = make_float2(t.w0, t.w1);
+      float gv[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) gv[c] = __ldg(gr + min(c, last_c) * plane + x);
+      gs[r] = make_float4(gv[0], gv[1], gv[2], gv[3]);
+    }
+    __syncthreads();
+    // the words that hold outputs of this pass; no walk reads another
+    const int n_words = min(kImgWords, (n_out - p0 + kWarp - 1) / kWarp);
+    for (int k = warp; k < n_words; k += kThreads / kWarp) {
+#pragma unroll
+      for (int q = lane; q < kThreads; q += kWarp) mask[k][q] = 0u;
+      __syncwarp();
+      const int2 a = taps[32 * k + lane];
+      const int a0 = a.x, a1 = a.y;
+      const unsigned m0 = __match_any_sync(0xffffffffu, a0);
+      if (a0 >= 0 && lane == __ffs(m0) - 1) mask[k][a0] = m0;
+      __syncwarp();
+      const unsigned m1 = __match_any_sync(0xffffffffu, a1);
+      if (a1 >= 0 && lane == __ffs(m1) - 1) mask[k][a1] |= m1;
+    }
+    __syncthreads();
+
+    if (v < W && !(pile && j == 0)) {
+      // the column's words, loaded together before the walk
+      const int lo = max(my_lo - p0, 0), hi = min(my_hi - p0, kImgPass - 1);
+      const int k_lo = lo / 32, k_hi = lo <= hi ? hi / 32 : -1;
+      unsigned words[kImgWords];
+#pragma unroll
+      for (int k = 0; k < kImgWords; ++k) words[k] = (k >= k_lo && k <= k_hi) ? mask[k][j] : 0u;
+#pragma unroll
+      for (int k = 0; k < kImgWords; ++k) walk_word(words[k], k, j, taps, wts, gs, acc);
+    }
+    if (pile && warp == 0) {  // column 0: lane i sums segment i
+      const int lo = max(-p0, 0), end = min(min(ahead, W - 1) - p0 + 1, kImgPass);
+      const int seg = (max(end - lo, 0) + kWarp - 1) / kWarp;
+      const int s_lo = lo + lane * seg, s_hi = min(s_lo + seg, end);
+      float part[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) part[c] = 0.f;
+      for (int k = s_lo / 32; s_lo < s_hi && k <= (s_hi - 1) / 32; ++k)
+        walk_word(mask[k][0] & span_bits(k, s_lo, s_hi), k, 0, taps, wts, gs, part);
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        for (int o = kWarp / 2; o > 0; o /= 2)
+          part[c] = __fadd_rn(part[c], __shfl_down_sync(0xffffffffu, part[c], o));
+        if (lane == 0) acc[c] = __fadd_rn(acc[c], part[c]);
       }
     }
   }
 
+  if (v >= W) return;
   float* dst = dsrc + (static_cast<size_t>(b) * C + c0) * plane + row + v;
 #pragma unroll
-  for (int j = 0; j < kChunk; ++j) {
-    if (c0 + j < C) dst[j * plane] = acc[j];
+  for (int c = 0; c < kChunk; ++c) {
+    if (c <= last_c) dst[c * plane] = acc[c];
   }
-}
-
-template <bool kImage>
-int launch_bwd(const float* src, const float* off, const float* g, float* dsrc,
-               float* doff, int B, int C, int H, int W, float lo, float hi,
-               int back, int ahead, int need_dsrc, int need_doff,
-               cudaStream_t stream) {
-  const int tiles = (W + kThreads - 1) / kThreads;
-  if (need_doff) {
-    warp_bwd_offset_kernel<kImage><<<dim3(tiles, H, B), kThreads, 0, stream>>>(
-        src, off, g, doff, C, H, W, lo, hi);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (need_dsrc) {
-    const int n_chunks = (C + kChunk - 1) / kChunk;
-    warp_bwd_source_kernel<kImage>
-        <<<dim3(tiles, H, B * n_chunks), kThreads, 0, stream>>>(
-            off, g, dsrc, C, H, W, lo, hi, back, ahead, n_chunks);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The column of plane index p, for a plane of W-pixel rows; a plane under
@@ -602,14 +694,30 @@ int warp_features_fwd(const float* feats, const float* dx, float* out, int B,
 
 // Backward of warp_image_fwd. g: gradient of the output, like img.
 // dimg (like img) is written when need_dimg != 0, ddisp (like disp) when
-// need_ddisp != 0; a pointer whose flag is 0 is not touched.
+// need_ddisp != 0; a pointer whose flag is 0 is not touched. max_disp
+// must be >= 0.
 int warp_image_bwd(const float* img, const float* disp, const float* g,
                    float* dimg, float* ddisp, int B, int C, int H, int W,
                    float max_disp, int need_dimg, int need_ddisp,
                    cudaStream_t stream) {
-  return launch_bwd<true>(img, disp, g, dimg, ddisp, B, C, H, W, 0.f, max_disp,
-                          1, static_cast<int>(std::ceil(max_disp)), need_dimg,
-                          need_ddisp, stream);
+  if (!(max_disp >= 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (W + kThreads - 1) / kThreads;
+  if (need_ddisp) {
+    warp_bwd_offset_kernel<<<dim3(tiles, H, B), kThreads, 0, stream>>>(
+        img, disp, g, ddisp, C, H, W, max_disp);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (need_dimg) {
+    // an output samples at most ceil(max_disp) columns left of itself,
+    // and no row holds more than W
+    const double reach = std::ceil(static_cast<double>(max_disp));
+    const int ahead = static_cast<int>(std::fmin(reach, static_cast<double>(W)));
+    const int n_chunks = (C + kChunk - 1) / kChunk;
+    warp_bwd_source_kernel<<<dim3(tiles, H, B * n_chunks), kThreads, 0, stream>>>(
+        disp, g, dimg, C, H, W, max_disp, ahead, n_chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Backward of warp_features_fwd, with the same conventions.

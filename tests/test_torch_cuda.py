@@ -132,6 +132,12 @@ _WIDE_BWD_EDGES = [
     ((1, 8, 3, 1), 40), ((1, 8, 3, 63), 40), ((1, 8, 3, 65), 40), ((1, 8, 3, 130), 40),
     ((1, 33, 4, 100), 40), ((2, 40, 3, 100), 40),
 ]
+# the edges of corr_fwd_wide's blocks (a thread 4 columns and a run of 12
+# shifts, a block 84 shifts): W = 3 and 5 at radius 40, radius 0, 13
+# shifts (one past a run) and 85 (one past a block)
+_WIDE_FWD_EDGES = [
+    ((1, 8, 3, 3), 40), ((1, 8, 3, 5), 40), ((1, 8, 3, 70), 0), ((1, 8, 3, 70), 6), ((1, 8, 3, 70), 42),
+]
 _WIDE = [
     ((1, 128, 80, 304), 40),
     ((1, 128, 5, 19), 40),
@@ -140,6 +146,7 @@ _WIDE = [
     ((1, 5, 2, 140), 50),
     ((1, 70, 2, 200), 100),
     *_WIDE_BWD_EDGES,
+    *_WIDE_FWD_EDGES,
 ]
 
 
@@ -199,17 +206,51 @@ def test_corr_bwd_kernel_matches_plain(dev, shape, radius):
     _close(ay, want_dy, "autograd dy")
 
 
+def _warp_bwd_kernels(fn, tmp_path):
+    """The names of K4's kernels (``warp_bwd_offset_kernel``,
+    ``warp_bwd_source_kernel``) that ``fn()`` launches, one entry a launch,
+    sorted: ``fn`` is captured in a CUDA graph, whose nodes are read from
+    its debug dump (one line a node)."""
+    fn()  # warm-up off the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the dump
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    dump = tmp_path / "graph.dot"
+    graph.debug_dump(str(dump))
+    names = ("warp_bwd_offset_kernel", "warp_bwd_source_kernel")
+    return sorted(n for line in dump.read_text().splitlines() for n in names if n in line)
+
+
+# K4's source gradient: a row piled on column 0 (every output samples left
+# of it, a third within one column of it) at the main-path shape and on a
+# row narrower than the window; C = 1 and 6 (a chunk of 4 and a short
+# one); max_disp 0, 1 and 300 (two passes of 384 outputs)
 @pytest.mark.parametrize(
-    "shape,max_disp", [((2, 3, 9, 150), 40), ((1, 5, 3, 20), 40), ((1, 3, 320, 1216), 192)]
+    "shape,max_disp,pile",
+    [
+        ((2, 3, 9, 150), 40, False), ((1, 5, 3, 20), 40, False), ((1, 3, 320, 1216), 192, False),
+        ((1, 3, 320, 1216), 192, True), ((1, 3, 4, 20), 24, True), ((1, 1, 5, 100), 40, False),
+        ((1, 6, 5, 100), 40, False), ((1, 3, 5, 100), 0, False), ((1, 3, 5, 100), 1, False),
+        ((1, 3, 4, 700), 300, False),
+    ],
 )
-def test_warp_image_bwd_kernel_matches_plain(dev, shape, max_disp):
+def test_warp_image_bwd_kernel_matches_plain(dev, shape, max_disp, pile, tmp_path):
     """Offsets beyond both ends of the window, some exactly on its bounds
-    and at 0; one row narrower than the window; 5 channels cross the
-    kernel's chunk of 4."""
+    and at 0, or piled on column 0; one row narrower than the window; 5
+    channels cross the kernel's chunk of 4. Both gradients against the
+    plain version; two runs agree bit for bit; each gradient alone gives
+    the bits of both together; a call launches one kernel for each
+    gradient it is asked for."""
     img = _normal(shape, 14, dev)
     disp = _uniform((shape[0], 1, *shape[2:]), 15, dev, -20.0, max_disp + 40.0)
     disp[..., 3::11] = float(max_disp)
     disp[..., 5::13] = 0.0
+    if pile:
+        u = _uniform((shape[0], 1, *shape[2:]), 17, dev, 0.0, 3.0)
+        u[..., ::3] *= 0.3
+        disp = (torch.arange(shape[3], device=dev, dtype=torch.float32) + u).clamp(max=float(max_disp))
     g = _normal(shape, 16, dev)
     ig, dg = img.clone().requires_grad_(), disp.clone().requires_grad_()
     before = cuda_lib.LAUNCHES["warp_image_bwd"]
@@ -219,13 +260,23 @@ def test_warp_image_bwd_kernel_matches_plain(dev, shape, max_disp):
     assert cuda_lib.LAUNCHES["warp_image_bwd"] == before + 2
     want_img, want_disp = tops.warp_image_clamped_bwd(img, disp, g, max_disp)
     _close(dimg, want_img, "dimg")
-    _close(ddisp, want_disp, "ddisp")
+    if pile and not want_disp.any():  # every output's two taps read column 0: v0 - v1 = 0
+        assert not ddisp.any()
+    else:
+        _close(ddisp, want_disp, "ddisp")
     assert torch.equal(dimg, dimg2) and torch.equal(ddisp, ddisp2)
+    if pile:  # column 0 takes the pile
+        assert float(dimg[..., 0].abs().max()) > float(dimg[..., 1:].abs().mean())
     # only the gradient that is asked for is computed
     (only_disp,) = torch.autograd.grad(tops.warp_image_cuda(img, dg, max_disp), (dg,), g)
     assert torch.equal(only_disp, ddisp)
     (only_img,) = torch.autograd.grad(tops.warp_image_cuda(ig, disp, max_disp), (ig,), g)
     assert torch.equal(only_img, dimg)
+    # one kernel a gradient: the offset's and the source's
+    for need, want in [((True, True), ["warp_bwd_offset_kernel", "warp_bwd_source_kernel"]),
+                       ((True, False), ["warp_bwd_source_kernel"]), ((False, True), ["warp_bwd_offset_kernel"])]:
+        got = _warp_bwd_kernels(lambda need=need: tops.warp_image_bwd_cuda(img, disp, g, max_disp, *need), tmp_path)
+        assert got == want
 
 
 def _pile_at_ends(dx, max_neg, max_pos):
@@ -772,7 +823,7 @@ def _assert_corr_bf16(x, y, g, radius, out, dx, dy):
 _BF16_CASES = [
     ((1, 192, 5, 19), 2), ((1, 32, 80, 304), 2), ((2, 7, 5, 37), 1), ((2, 7, 5, 37), 3),
     ((1, 3, 2, 3), 4), ((1, 128, 80, 304), 40), ((1, 128, 5, 19), 40), ((2, 7, 3, 70), 40),
-    ((1, 5, 2, 140), 50), ((1, 70, 2, 200), 100), *_WIDE_BWD_EDGES,
+    ((1, 5, 2, 140), 50), ((1, 70, 2, 200), 100), *_WIDE_BWD_EDGES, *_WIDE_FWD_EDGES,
 ]
 
 
@@ -790,7 +841,7 @@ def test_corr_bf16_instances_match_plain(dev, shape, radius):
     dx, dy = torch.autograd.grad(out, (xg, yg), g.float())
     dx2, dy2 = tops.correlation_bwd_cuda(x, y, g, radius)
     torch.cuda.synchronize()
-    wide = "_wide" if radius > MAX_REGISTER_RADIUS else ""
+    wide = "" if 1 <= radius <= MAX_REGISTER_RADIUS else "_wide"
     assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
         f"corr_fwd{wide}_bf16": 1, f"corr_bwd{wide}_bf16": 2}
     _assert_corr_bf16(x, y, g, radius, out, dx, dy)

@@ -258,18 +258,85 @@ def _taps(off, w, image, lo, hi):
     return w0.astype(np.float32), w1.astype(np.float32), i0, i1
 
 
+_IMG_COLS, _IMG_PASS = 128, 384  # columns of an image source-gradient block, outputs of its pass
+
+
 def _image_source_gradient_by_walk(off, g, hi):
-    """What ``warp_bwd_source_kernel<true>`` computes (NCHW numpy): the
-    thread of source column v walks the outputs x in [v - 1, v + ceil(hi)]
-    in increasing x and adds w * g where a tap's clamped column equals v."""
-    w = g.shape[3]
-    back, ahead = 1, math.ceil(hi)
-    w0, w1, i0, i1 = _taps(off, w, True, 0, hi)
+    """What ``warp_bwd_source_kernel`` computes (NCHW numpy), step by step,
+    in float32: a block of 128 columns of a row takes the outputs that
+    can reach them, [v0 - 1, v0 + 127 + ahead] (ahead = ceil(hi)), in
+    passes of 384; their taps are computed once, as columns of the block
+    (-1 where a tap lands outside it or has weight 0). For each word of 32
+    outputs the lanes are grouped by tap column (``__match_any_sync``) and
+    the lowest lane of a group writes the group's bits to its column's
+    mask, tap 0's groups first, tap 1's OR-ed in. Column v walks the words
+    of its outputs [v - 1, v + ahead] and their bits in increasing x,
+    adding w * g tap 0 before tap 1; column 0's outputs [0, ahead] are cut
+    into 32 contiguous segments, each summed in increasing x, and the
+    segments' sums meet in a shuffle tree (lane i adds lane i + o for o =
+    16, 8, 4, 2, 1) before they join column 0's sum, once a pass."""
+    b, c, _, w = g.shape
+    ahead = min(math.ceil(hi), w)
+    w0, w1, i0, i1 = (a[:, 0] for a in _taps(off, w, True, 0, hi))  # [B,H,W]
     dsrc = np.zeros_like(g)
-    for v in range(w):
-        for x in range(max(v - back, 0), min(v + ahead, w - 1) + 1):
-            wgt = w0[..., x] * (i0[..., x] == v) + w1[..., x] * (i1[..., x] == v)  # [B,1,H]
-            dsrc[..., v] += wgt * g[..., x]
+    for k, h in np.ndindex(b, g.shape[2]):
+        for v0 in range(0, w, _IMG_COLS):
+            x_first, x_last = max(v0 - 1, 0), min(v0 + _IMG_COLS - 1 + ahead, w - 1)
+            n_out = x_last - x_first + 1
+            acc = np.zeros((_IMG_COLS, c), np.float32)
+            for p0 in range(0, n_out, _IMG_PASS):
+                r = np.arange(_IMG_PASS)
+                x = np.minimum(x_first + p0 + r, w - 1)
+                valid = p0 + r < n_out
+                taps = []
+                for wt, i in ((w0, i0), (w1, i1)):
+                    a = i[k, h, x] - v0
+                    taps.append(np.where(valid & (wt[k, h, x] != 0) & (a >= 0) & (a < _IMG_COLS), a, -1))
+                t0, t1 = taps
+                wts = (w0[k, h, x], w1[k, h, x])
+                gs = g[k, :, h][:, x]  # [C, pass]
+                mask = np.zeros((_IMG_PASS // 32, _IMG_COLS), np.uint64)
+                for word in range(_IMG_PASS // 32):
+                    lanes = slice(32 * word, 32 * word + 32)
+                    for t, combine in ((t0, False), (t1, True)):
+                        for col in np.unique(t[lanes]):
+                            if col < 0:
+                                continue
+                            group = sum(1 << int(ln) for ln in np.flatnonzero(t[lanes] == col))
+                            mask[word, col] = (mask[word, col] | group) if combine else group
+
+                def walk(bits, word, j, acc_j):
+                    for bit in range(32):
+                        if bits >> bit & 1:
+                            q = 32 * word + bit
+                            for t, wt in zip((t0, t1), wts):
+                                if t[q] == j:
+                                    acc_j = acc_j + wt[q] * gs[:, q]
+                    return acc_j
+
+                for j in range(_IMG_COLS):
+                    v = v0 + j
+                    if v >= w or (v0 == 0 and j == 0):
+                        continue
+                    lo = max(max(v - 1, 0) - x_first - p0, 0)
+                    hi_r = min(min(v + ahead, w - 1) - x_first - p0, _IMG_PASS - 1)
+                    for word in range(lo // 32, hi_r // 32 + 1) if lo <= hi_r else ():
+                        acc[j] = walk(int(mask[word, j]), word, j, acc[j])
+                if v0 == 0:  # column 0: 32 segments and a shuffle tree
+                    end = min(min(ahead, w - 1) - p0 + 1, _IMG_PASS)
+                    seg = -(-max(end, 0) // 32)
+                    part = [np.zeros(c, np.float32) for _ in range(32)]
+                    for lane in range(32):
+                        s_lo, s_hi = lane * seg, min(lane * seg + seg, end)
+                        for word in range(s_lo // 32, (s_hi - 1) // 32 + 1) if s_lo < s_hi else ():
+                            span = sum(1 << i for i in range(32) if s_lo <= 32 * word + i < s_hi)
+                            part[lane] = walk(int(mask[word, 0]) & span, word, 0, part[lane])
+                    for o in (16, 8, 4, 2, 1):
+                        for lane in range(o):
+                            part[lane] = part[lane] + part[lane + o]
+                    acc[0] = acc[0] + part[0]
+            n = min(_IMG_COLS, w - v0)
+            dsrc[k, :, h, v0 : v0 + n] = acc[:n].T
     return dsrc
 
 
@@ -314,8 +381,9 @@ def _feature_source_gradient_by_masks(off, g, lo, hi):
 def test_source_gradient_walk_covers_every_contribution(image, w, lo, hi):
     """The CUDA source-gradient kernels are gathers over a bounded walk
     instead of a scatter. This emulation of each walk in numpy (the image
-    warp's column walk; the feature warp's candidates, masks and passes)
-    equals the transpose that autograd computes, so the bounds miss no
+    warp's blocks, match masks and column 0's segments; the feature warp's
+    candidates, masks and passes) equals the transpose that autograd
+    computes, so the bounds miss no
     contribution: offsets lie beyond both ends of the window, and in the
     narrow cases the row is shorter than the walk."""
     r = _rng(19)
@@ -381,3 +449,41 @@ def test_feature_source_gradient_masks_match_the_pallas_kernel(w, lo, hi, kind):
         rest = np.ones(w, bool)
         rest[end] = False
         assert np.abs(got[..., end]).max() > 0 and not got[..., rest].any()
+
+
+@pytest.mark.parametrize(
+    "w,max_disp,kind",
+    [(20, 24, "left"), (10, 24, "random"), (300, 192, "random"), (450, 300, "random")],
+    ids=["image-pile-left", "image-narrow", "image-window-194", "image-two-passes"],
+)
+def test_image_source_gradient_masks_match_the_pallas_kernel(w, max_disp, kind):
+    """The image warp's source gradient by blocks, match masks, walks and
+    column 0's segments (the emulation above) against the Pallas backward
+    kernel in interpret mode and the plain version, where the walk is
+    hardest: every output of a row sampling left of it, so that both taps
+    land on column 0 with their weights (a third of them within one column
+    of it, one tap of weight 0); a row narrower than the window;
+    ``max_disp`` 192 on a row of 300, the main path's window of 194
+    outputs, three tiles of 128 columns; and ``max_disp`` 300 on a row of
+    450, two passes of 384 outputs. Offsets lie beyond both ends of the
+    window, some exactly on its bound and at 0."""
+    r = _rng(29)
+    img = r.normal(size=(1, 2, 3, w)).astype(np.float32)  # NCHW
+    if kind == "random":
+        off = (r.random((1, 1, 3, w)) * (max_disp + 16) - 8).astype(np.float32)
+        off[..., ::5] = np.float32(max_disp)
+        off[..., 1::7] = np.float32(0)
+    else:
+        off = -_piled(w, -1, 3.0, 24)  # d = x + u: the sample lies at -u
+        assert (np.arange(w) - off <= 0).all() and off.max() <= max_disp
+    g = r.normal(size=img.shape).astype(np.float32)
+    nhwc = [a.transpose(0, 2, 3, 1) for a in (img, off, g)]
+    want = _jax_vjp(lambda a, b: jpallas.warp_image_pallas(a, b, max_disp, True), *nhwc)[0]
+    want = np.asarray(want).transpose(0, 3, 1, 2)
+    assert np.abs(want).max() > 0
+    got = _image_source_gradient_by_walk(off, g, max_disp)
+    _close(got, want, "dimg against the Pallas kernel")
+    plain, _ = tops.warp_image_clamped_bwd(*(torch.from_numpy(a) for a in (img, off, g)), max_disp)
+    _close(got, plain.numpy(), "dimg against the plain version")
+    if kind == "left":  # the pile: only column 0 takes a gradient
+        assert np.abs(got[..., 0]).max() > 0 and not got[..., 1:].any()

@@ -112,6 +112,73 @@ def test_correlation_torch_matches_jnp_at_radius_40(w):
     np.testing.assert_array_equal(_nhwc(tops.correlation_cuda(_t(x), _t(y), 40)), got)
 
 
+_WIDE_TILE, _WIDE_RUN, _WIDE_RUNS, _WIDE_CHANNELS = 64, 12, 7, 32  # corr_fwd_wide's tiling
+
+
+def _corr_fwd_wide_by_tiles(x, y, radius):
+    """What ``corr_fwd_wide_kernel`` computes (NCHW numpy), step by step:
+    a block per (batch, row, chunk of 84 shifts, tile of 64 columns); its
+    thread (quad t, run r) owns the columns w0 + 4t .. + 3 and the shifts
+    k0 + 12r .. + 11. Per chunk of 32 channels the block stages x[c, tile]
+    and the y window [c, w0 + k0 - R, + 148), zeros outside the row; per
+    channel the thread slides a window of 8 staged y values, 4 at a step,
+    and adds x[c, w0 + 4t + q] * window[q + s] to the sum of column q and
+    shift 4 * step + s (in float64 here: the point is the indices). Each
+    output the tiling stores is counted; returns (out, counts)."""
+    b, c, h, w = x.shape
+    k_all = 2 * radius + 1
+    shifts = _WIDE_RUN * _WIDE_RUNS
+    window = _WIDE_TILE + shifts
+    quads = _WIDE_TILE // 4
+    out = np.zeros((b, k_all, h, w))
+    counts = np.zeros(out.shape, np.int64)
+    t = np.arange(quads)[None, :]  # [run, quad]
+    s0 = _WIDE_RUN * np.arange(_WIDE_RUNS)[:, None]
+    for bb, hh, k0, w0 in np.ndindex(b, h, -(-k_all // shifts), -(-w // _WIDE_TILE)):
+        k0, w0 = k0 * shifts, w0 * _WIDE_TILE
+        acc = np.zeros((_WIDE_RUNS, quads, _WIDE_RUN, 4))
+        for c0 in range(0, c, _WIDE_CHANNELS):
+            nc = min(_WIDE_CHANNELS, c - c0)
+            cols = w0 + np.arange(_WIDE_TILE)
+            xs = np.where(cols < w, x[bb, c0 : c0 + nc, hh][:, np.minimum(cols, w - 1)], 0.0)
+            cols = w0 + k0 - radius + np.arange(window)
+            inside = (cols >= 0) & (cols < w)
+            ys = np.where(inside, y[bb, c0 : c0 + nc, hh][:, np.clip(cols, 0, w - 1)], 0.0)
+            for cc in range(nc):
+                for step in range(_WIDE_RUN // 4):
+                    v = ys[cc][4 * t + s0 + 4 * step + np.arange(8)[:, None, None]]  # [8, run, quad]
+                    for s, q in np.ndindex(4, 4):
+                        acc[:, :, 4 * step + s, q] += xs[cc][4 * t + q] * v[q + s]
+        for r, tt, s, q in np.ndindex(_WIDE_RUNS, quads, _WIDE_RUN, 4):
+            k, col = k0 + _WIDE_RUN * r + s, w0 + 4 * tt + q
+            if k < k_all and col < w:
+                out[bb, k, hh, col] = acc[r, tt, s, q] / c
+                counts[bb, k, hh, col] += 1
+    return out, counts
+
+
+@pytest.mark.parametrize(
+    "w,radius", [(1, 40), (19, 40), (63, 40), (65, 40), (130, 40), (70, 0), (70, 5)]
+)
+def test_corr_fwd_wide_tiling_matches_jnp(w, radius):
+    """The tiling of ``corr_fwd_wide_kernel`` (the emulation above: column
+    quads, runs of 12 shifts, chunks of 84 shifts and of 32 channels, zeros
+    outside the row) stores every (column, shift) pair once and computes
+    the cost volume of ``correlation_torch`` and the JAX package's
+    ``correlation_jnp``: rows of 1 column to two tiles and one past them,
+    33 channels (two chunks), radius 0, 5 (11 shifts, one run) and 40."""
+    r = _rng(8)
+    x = r.normal(size=(1, 33, 2, w)).astype(np.float32)  # NCHW
+    y = r.normal(size=(1, 33, 2, w)).astype(np.float32)
+    got, counts = _corr_fwd_wide_by_tiles(x, y, radius)
+    assert (counts == 1).all()
+    want = tops.correlation_torch(torch.from_numpy(x), torch.from_numpy(y), radius).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    nhwc = [jnp.asarray(a.transpose(0, 2, 3, 1)) for a in (x, y)]
+    want = np.asarray(correlation_jnp(*nhwc, radius)).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("w", [19, 100])
 def test_correlation_bwd_matches_pallas_vjp_at_radius_40(w):
     """The plain backward, the plain version of ``corr_bwd_wide``, against
