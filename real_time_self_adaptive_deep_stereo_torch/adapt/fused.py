@@ -96,8 +96,8 @@ class FusedOnlineSession:
 
     Not ported, each raising ``NotImplementedError``: ``mesh`` (width
     sharding), ``num_streams > 0`` and ``stream_impl`` (several streams in
-    one program); see ``ROADMAP.md``, queue 1, item 13. ``spatial_axis`` names
-    the mesh axis and is kept for the signature only.
+    one program); see ``ROADMAP.md``, queue 1, ``parallel/``.
+    ``spatial_axis`` names the mesh axis and is kept for the signature only.
     """
 
     def __init__(
@@ -136,12 +136,13 @@ class FusedOnlineSession:
             raise ValueError(f"unknown mode {mode!r}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh (width-sharded adaptation) is not ported: ROADMAP.md, queue 1, item 13"
+                "mesh (width-sharded adaptation) is not ported: "
+                "ROADMAP.md, queue 1, `parallel/`"
             )
         if num_streams or stream_impl != "auto":
             raise NotImplementedError(
                 "num_streams / stream_impl (several streams in one program) are not "
-                "ported: ROADMAP.md, queue 1, item 13"
+                "ported: ROADMAP.md, queue 1, `parallel/`"
             )
         if mode == "MAD" and not engine.blocks:
             raise ValueError("mode MAD needs an engine built with blocks")

@@ -1,0 +1,344 @@
+"""Host-side data pipeline: dataset lists, image/PFM decoding, crops,
+batching and device prefetch.
+
+Port of ``real_time_self_adaptive_deep_stereo_tpu/data/readers.py``, in
+its order:
+
+* CSV lists ``left,right[,gt[,proxy]]`` with ``,``/``;`` separators and
+  ``#`` comments;
+* PFM ground truth, and 8/16-bit PNG ground truth with the ``/256`` of
+  16-bit (KITTI's encoding), width-cropped to the image;
+* training: aligned random crop; eval: centred crop-or-pad;
+* epoch repeat, shuffling, fixed-size batches, the eval remainder kept;
+* a device prefetcher that keeps batches on the card ahead of use.
+
+Images are decoded by :mod:`.png` (numpy and ``zlib``), where the JAX
+package calls ``cv2``; so the readers take PNG images and PNG or PFM
+ground truth. Not ported, each raising ``NotImplementedError``: the
+photometric ``augment`` (it needs matplotlib; ``ROADMAP.md``, queue 1,
+``cli/train.py``) and the C++ loader (``backend="native"``;
+``ROADMAP.md``, queue 1, the native loader).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import re
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from real_time_self_adaptive_deep_stereo_torch.data.png import read_pngs
+
+__all__ = [
+    "read_pfm",
+    "read_list_file",
+    "load_image",
+    "load_gt",
+    "random_crop",
+    "center_crop_or_pad",
+    "resize_image_np",
+    "StereoDataset",
+    "prefetch_to_device",
+]
+
+
+# ----------------------------------------------------------------- decoding
+
+
+def read_pfm(path: str) -> np.ndarray:
+    """Decode a PFM file to a float32 array [H, W, C] (C = 1 or 3)."""
+    with open(path, "rb") as f:
+        header = f.readline().strip()
+        if header == b"PF":
+            channels = 3
+        elif header == b"Pf":
+            channels = 1
+        else:
+            raise ValueError(f"{path}: not a PFM file")
+        dims = f.readline().split()
+        width, height = int(dims[0]), int(dims[1])
+        scale = float(f.readline().strip())
+        endian = "<" if scale < 0 else ">"
+        data = np.fromfile(f, endian + "f4")
+    img = data.reshape(height, width, channels)
+    return np.flipud(img).astype(np.float32)
+
+
+def read_list_file(path_file: str) -> Tuple[List[str], List[str], List[str], List[str]]:
+    """Parse a dataset list: one sample per line, fields separated by
+    ',' or ';', '#' starts a comment line. Returns (left, right, gt, extra)."""
+    with open(path_file) as f:
+        lines = [l.strip() for l in f.readlines()]
+    lines = [l for l in lines if l and not l.startswith("#")]
+    cols: List[List[str]] = [[], [], [], []]
+    for line in lines:
+        fields = re.split("[,;]", line)
+        for i in range(4):
+            if i < len(fields):
+                cols[i].append(fields[i].strip())
+    return cols[0], cols[1], cols[2], cols[3]
+
+
+def _as_image(img: np.ndarray) -> np.ndarray:
+    if img.ndim == 2:
+        img = np.stack([img] * 3, -1)
+    return img[..., :3].astype(np.float32)
+
+
+def _as_gt(raw: np.ndarray) -> np.ndarray:
+    if raw.ndim == 3:
+        raw = raw[..., 0]
+    d = raw.astype(np.float32)[..., None]
+    if raw.dtype == np.uint16:
+        d = d / 256.0
+    return d
+
+
+def load_image(path: str) -> np.ndarray:
+    """RGB image as float32 [H, W, 3] in 0..255."""
+    return _as_image(read_pngs([path])[0])
+
+
+def load_gt(path: str) -> np.ndarray:
+    """Ground-truth / proxy disparity as float32 [H, W, 1].
+
+    PFM read natively; 16-bit PNGs are divided by 256 (KITTI encoding),
+    8-bit used raw."""
+    if path.lower().endswith(".pfm"):
+        return read_pfm(path)[..., :1]
+    return _as_gt(read_pngs([path])[0])
+
+
+# -------------------------------------------------------------------- crops
+
+
+def random_crop(
+    crop_shape: Sequence[int], tensors: List[np.ndarray], rng: np.random.Generator
+) -> List[np.ndarray]:
+    """Aligned random crop (preprocessing.py:31-56)."""
+    h, w = tensors[0].shape[:2]
+    ch, cw = crop_shape
+    max_row = max(h - ch - 1, 1)
+    max_col = max(w - cw - 1, 1)
+    r0 = int(rng.integers(0, max_row))
+    c0 = int(rng.integers(0, max_col))
+    return [t[r0 : r0 + ch, c0 : c0 + cw] for t in tensors]
+
+
+def center_crop_or_pad(img: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """Centered crop/zero-pad to (th, tw), numpy version of
+    tf.image.resize_image_with_crop_or_pad."""
+    h, w = img.shape[:2]
+    if h > th:
+        off = (h - th) // 2
+        img = img[off : off + th]
+    if w > tw:
+        off = (w - tw) // 2
+        img = img[:, off : off + tw]
+    h, w = img.shape[:2]
+    if h < th or w < tw:
+        ph, pw = th - h, tw - w
+        img = np.pad(
+            img, ((ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2), (0, 0))
+        )
+    return img
+
+
+def resize_image_np(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Host-side bilinear resize with TF1-legacy semantics ([H,W,C]), on
+    the interpolation matrices of ``ops.resize``. An integer image comes
+    back as float32, unrounded, as the network is fed."""
+    from real_time_self_adaptive_deep_stereo_torch.ops.resize import _interp_matrix
+
+    h, w = img.shape[:2]
+    if (h, w) == (out_h, out_w):
+        return img
+    x = img.astype(np.float32)
+    if h != out_h:
+        x = np.einsum("oh,hwc->owc", _interp_matrix(h, out_h), x)
+    if w != out_w:
+        x = np.einsum("ow,hwc->hoc", _interp_matrix(w, out_w), x)
+    if np.issubdtype(img.dtype, np.integer):
+        return x
+    return x.astype(img.dtype)
+
+
+# ------------------------------------------------------------------ dataset
+
+
+class StereoDataset:
+    """Iterable stereo dataset with the reference's epoch/shuffle/batch
+    semantics. Yields dict batches of float32 numpy arrays:
+    ``left``/``right`` [B,H,W,3], ``target`` [B,H,W,1] and, when a 4th
+    CSV column exists and ``load_proxy``, ``proxy`` [B,H,W,1] plus
+    ``real_width`` [B]. Frames are decoded in a background thread;
+    ``backend`` ``auto`` is ``python``, the only one ported."""
+
+    def __init__(
+        self,
+        path_file: str,
+        batch_size: int = 4,
+        crop_shape: Sequence[int] = (320, 1216),
+        num_epochs: Optional[int] = None,
+        augment: bool = False,
+        is_training: bool = True,
+        shuffle: bool = True,
+        load_proxy: bool = False,
+        seed: Optional[int] = None,
+        backend: str = "auto",
+    ):
+        if augment:
+            raise NotImplementedError(
+                "photometric augmentation is not ported (it needs matplotlib): "
+                "ROADMAP.md, queue 1, cli/train.py"
+            )
+        if backend == "native":
+            raise NotImplementedError(
+                "the C++ loader is not ported: ROADMAP.md, queue 1, the native loader"
+            )
+        if backend not in ("auto", "python"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if not os.path.exists(path_file):
+            raise FileNotFoundError(f"dataset list not found: {path_file}")
+        left, right, gt, extra = read_list_file(path_file)
+        self.samples = list(zip(left, right, gt))
+        self.proxies = extra if (load_proxy and extra) else None
+        self.batch_size = batch_size
+        self.crop_shape = tuple(crop_shape)
+        self.num_epochs = num_epochs
+        self.is_training = is_training
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def get_max_steps(self) -> int:
+        epochs = self.num_epochs if self.num_epochs else 1
+        return (len(self) * epochs) // self.batch_size
+
+    def get_couples(self):
+        return [list(s) for s in self.samples]
+
+    # ---------------------------------------------------------- item loading
+    def _load_one(self, idx: int) -> Dict[str, np.ndarray]:
+        lp, rp, gp = self.samples[idx]
+        pngs = [lp, rp] + ([gp] if gp and not gp.lower().endswith(".pfm") else [])
+        decoded = read_pngs(pngs)  # the frame's PNGs in one sweep
+        left, right = _as_image(decoded[0]), _as_image(decoded[1])
+        if not gp:
+            gt = np.zeros((*left.shape[:2], 1), np.float32)
+        else:
+            gt = _as_gt(decoded[2]) if len(decoded) == 3 else load_gt(gp)
+        gt = gt[:, : left.shape[1]]  # width-align (data_reader.py:145)
+        tensors = [left, right, gt]
+        real_width = left.shape[1]
+        if self.proxies is not None:
+            tensors.append(load_gt(self.proxies[idx]))
+        if self.is_training:
+            tensors = random_crop(self.crop_shape, tensors, self.rng)
+        else:
+            tensors = [center_crop_or_pad(t, *self.crop_shape) for t in tensors]
+        out = {"left": tensors[0], "right": tensors[1], "target": tensors[2]}
+        if self.proxies is not None:
+            out["proxy"] = tensors[3]
+            out["real_width"] = np.int32(real_width)
+        return out
+
+    # ------------------------------------------------------------- iteration
+    def _index_stream(self) -> Iterator[int]:
+        epoch = 0
+        while self.num_epochs is None or epoch < self.num_epochs:
+            order = np.arange(len(self.samples))
+            if self.shuffle:
+                self.rng.shuffle(order)
+            yield from order
+            epoch += 1
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        """Yield batches, decoded in a Python background thread. An error
+        there is raised here, in the consumer."""
+        q: queue.Queue = queue.Queue(maxsize=8)
+        stop = threading.Event()
+        failure: List[BaseException] = []
+
+        def producer():
+            batch: List[Dict[str, np.ndarray]] = []
+            try:
+                for idx in self._index_stream():
+                    if stop.is_set():
+                        return
+                    batch.append(self._load_one(int(idx)))
+                    if len(batch) == self.batch_size:
+                        q.put(self._stack(batch))
+                        batch = []
+                if batch and not self.is_training:
+                    # eval keeps the remainder (continual_data_reader.py:189)
+                    q.put(self._stack(batch))
+            except BaseException as e:  # handed to the consumer
+                failure.append(e)
+            finally:
+                q.put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    if failure:
+                        raise failure[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+
+    @staticmethod
+    def _stack(batch: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+        keys = batch[0].keys()
+        return {k: np.stack([b[k] for b in batch]) for k in keys}
+
+
+def prefetch_to_device(
+    iterator: Iterator[Dict[str, np.ndarray]],
+    size: int = 2,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Keep ``size`` batches on the device ahead of use. Runs on ``cuda``
+    unless ``device='cpu'``. On the card each array goes into a pinned
+    host tensor of its own and is copied with ``non_blocking=True``; the
+    pinned allocator keeps that buffer from reuse until its copy has run."""
+    import collections
+
+    from real_time_self_adaptive_deep_stereo_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    buf = collections.deque()
+    it = iter(iterator)
+
+    def put(batch):
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.asarray(v))
+            if dev.type == "cuda":
+                t = t.pin_memory().to(dev, non_blocking=True)
+            out[k] = t
+        return out
+
+    try:
+        for _ in range(size):
+            buf.append(put(next(it)))
+    except StopIteration:
+        pass
+    while buf:
+        out = buf.popleft()
+        try:
+            buf.append(put(next(it)))
+        except StopIteration:
+            pass
+        yield out
