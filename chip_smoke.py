@@ -2,7 +2,7 @@
 """Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only | --precision-only
-                           | --cli-only]
+                           | --cli-only | --train-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -47,8 +47,12 @@ Phases, each of which raises on failure (nothing is caught):
    with the same output mask and its own byte bound, and each bit-identical
    to both gradients together. Per kernel it prints its time summed over
    its shapes as a ratio to that yardstick's sum, for a backward kernel
-   that of every variant. K1 (fp32 and bf16, radius 2) and K3 are also
-   checked and timed at batch 4, the shapes of ``cli/evaluate.py``.
+   that of every variant. At batch 4 the kernels are checked and timed
+   again: K1 (fp32 and bf16, radius 2) and K3, the shapes of
+   ``cli/evaluate.py``; ``corr_bwd`` at MADNet's five scales, K5 at K1's
+   last four (every variant) and the wide pair at [4,128,80,304], radius
+   40, the shapes of a ``cli/train.py`` step, each backward bit-identical
+   in two runs.
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -143,6 +147,26 @@ Phases, each of which raises on failure (nothing is caught):
    Prints EPE, bad3 and D1, the first and last 8 frames' of MAD and FULL,
    wall ms/frame with reading, the fused session's device ms/frame on the
    same frames, and the PNG decode time on this host.
+10. Continual adaptation and training on the same real frames, at
+   ``highest``. First the TF1 fixture (``tests/fixtures/tf1_madnet_tiny``)
+   into MADNet through ``restore_or_init``, read by the port's numpy
+   reader: the count and every value bit for bit. Then
+   ``cli/adapt_continual.py`` over 32 frames of scenes 2-3 whose proxy
+   column is the scene's ground truth, from ``weights_scene01.npz``: MAD
+   SEQUENTIAL fused and host, FIXED 2 3 fused (it must fetch blocks 2 and 3
+   only), FULL ``--dilation 2`` fused; each run's D1 within 0.25 points of
+   the JAX CLI's (``phase10_runs`` of ``torch_cli_reference.json``), the
+   launches frame by frame summed (no image warp: the proxy loss warps
+   none), MAD's last 8 frames' D1 below its first 8's, fused against host
+   MAD within phase 9's bounds, and the fused session's device ms/frame.
+   Then ``cli/train.py``, MADNet, 8 steps of 4 frames with ``--augment``,
+   seed 0, and ``cli/evaluate.py`` on its checkpoint: D1 within 0.25 of
+   the JAX CLIs' row, EPE below the untrained network's; 5 ``corr_fwd``,
+   5 ``corr_bwd``, 4 K3 and 4 K5 a step; the step's device time at B = 4;
+   one step's gradient with the kernels against the plain modes within
+   5e-4 of its largest entry. Last DispNet-Corr1D, 4 steps at B = 4 from
+   seeded weights: one ``corr_fwd_wide`` and one ``corr_bwd_wide`` a step,
+   a finite loss, and one step's gradient against the plain modes.
 
 Prints the card line, the ms/frame of the host and the fused sessions by
 mode and precision, a JSON line of the sixteen kernels, and as the last line
@@ -160,6 +184,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -242,16 +267,35 @@ CLI_WITNESS_BOUND = 0.1
 CLI_DRIFT_BOUND = 0.1
 EVAL_BATCH = 4  # cli/evaluate.py's default --batch
 EVAL_PRECISIONS = ("highest", "default", "bf16", "bf16_act")
+# phase 10: cli/adapt_continual.py and cli/train.py on the same frames,
+# against the JAX package's CLIs (the file's "phase10_runs"): name ->
+# (CLI, scenes, flags). The continual lists' 4th column, the proxy, is the
+# scene's own ground truth: the repository holds no proxy maps
+CONTINUAL_FLAGS = ["--imageShape", str(H), str(W), "--blockConfig", str(ROOT / "block_config" / "MadNet_full.json"),
+                   "--lr", "1e-4", "--seed", "0"]
+TRAIN_FLAGS = ["--imageShape", str(H), str(W), "--batchSize", "4", "--augment", "--numEpochs", "1",
+               "--seed", "0"]
+PHASE10_REFERENCE_RUNS = {
+    "continual_scene_MAD": ("adapt_continual", "scene", ["--mode", "MAD", "--sampleMode", "SEQUENTIAL"]),
+    "continual_scene_FIXED_2_3": ("adapt_continual", "scene",
+                                  ["--mode", "MAD", "--sampleMode", "FIXED", "--fixedID", "2", "3"]),
+    "continual_scene_FULL_dilation2": ("adapt_continual", "scene", ["--mode", "FULL", "--dilation", "2"]),
+    # train (8 steps of 4 frames), then evaluate its last checkpoint at `highest`, batch 4
+    "train_evaluate_scene": ("train", "scene", TRAIN_FLAGS),
+}
+TRAIN_STEPS = CLI_FRAMES // 4
 
 
-def write_cli_list(directory, scenes, n: int) -> str:
+def write_cli_list(directory, scenes, n: int, proxy: bool = False) -> str:
     """A list file of ``n`` lines cycling the fixture ``scenes``
-    (``left,right,gt``, absolute paths)."""
-    path = Path(directory) / f"{'_'.join(scenes)}_{n}.csv"
+    (``left,right,gt``, absolute paths); with ``proxy``, a 4th column, the
+    gt again, for the continual CLI's proxy labels."""
+    parts = ("left", "right", "gt", "gt") if proxy else ("left", "right", "gt")
+    path = Path(directory) / f"{'_'.join(scenes)}_{n}{'_proxy' if proxy else ''}.csv"
     lines = []
     for i in range(n):
         s = scenes[i % len(scenes)]
-        lines.append(",".join(str(FIXTURE_DIR / f"{s}_{part}.png") for part in ("left", "right", "gt")))
+        lines.append(",".join(str(FIXTURE_DIR / f"{s}_{part}.png") for part in parts))
     path.write_text("\n".join(lines) + "\n")
     return str(path)
 
@@ -727,10 +771,14 @@ def check_bf16_kernels(ops, rows):
 
 
 def check_batch_kernels(ops, rows):
-    """K1 (fp32 and its bf16 instance, radius 2) and K3 at the batch of
-    ``cli/evaluate.py`` (B = 4; one launch takes the batch, on a grid axis
-    of its own) against their plain versions, timed as at B = 1. Rows carry
-    ``batch``; the bounds count the four frames."""
+    """The kernels at the batch of ``cli/evaluate.py`` and ``cli/train.py``
+    (B = 4; one launch takes the batch, on a grid axis of its own) against
+    their plain versions, timed as at B = 1: K1 (fp32 and its bf16 instance,
+    radius 2) and K3, the evaluation's; its backward ``corr_bwd`` at
+    MADNet's five scales, K5 (``warp_features_bwd``, every variant) at
+    K1's last four and the wide pair at DispNet-Corr1D's [4,128,80,304],
+    radius 40, the training step's, each backward bit-identical in two
+    runs. Rows carry ``batch``; the bounds count the four frames."""
     import torch.nn.functional as F
 
     b, k = EVAL_BATCH, 2 * RADIUS + 1
@@ -762,6 +810,20 @@ def check_batch_kernels(ops, rows):
             library_ms=None,
             bound=bound(2.0 * n * (2 * c + k), 2.0 * n * c * k, BF16_FLOPS),
         ))
+        g = seeded((b, k, *shape[2:]), 230 + i)
+        got = ops.correlation_bwd_cuda(x, y, g, RADIUS)
+        again = ops.correlation_bwd_cuda(x, y, g, RADIUS)
+        want = ops.correlation_torch_bwd(x, y, g, RADIUS)
+        torch.cuda.synchronize()
+        errs = [assert_grad_close(a, w, f"corr_bwd {shape} {nm}") for a, w, nm in zip(got, want, ("dx", "dy"))]
+        assert_same_bits(got, again, f"corr_bwd {shape}")
+        rows["corr_bwd"].append(dict(
+            batch=b, shape=list(shape), err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
+            ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, RADIUS)),
+            plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, RADIUS)),
+            library_ms=None,
+            bound=bound(4.0 * n * (4 * c + k), 6.0 * n * c * k),
+        ))
     for i, (c, f) in enumerate(FEAT_LEVELS):
         shape = (b, c, H // f, W // f)
         neg = -(-MAX_DISP // f)
@@ -781,6 +843,39 @@ def check_batch_kernels(ops, rows):
             library_ms=time_ms(lib),
             bound=bound(4.0 * n * (2 * c + 1), 3.0 * c * n),
         ))
+        rows["warp_features_bwd"].append(dict(check_warp_bwd(
+            "warp_features_bwd", feats, dx, 260 + i, grid, "zeros",
+            lambda s, o, g, need=(True, True), neg=neg: ops.warp_features_bwd_cuda(s, o, g, neg, MAX_POS, *need),
+            lambda s, o, neg=neg: ops.warp_features_clamped(s, o, neg, MAX_POS),
+            FEATURE_MODES,
+        ), batch=b))
+
+    shape, k = (b, *DN_CORR_SHAPE[1:]), 2 * DN_RADIUS + 1
+    n, c = b * shape[2] * shape[3], shape[1]
+    x, y, g = seeded(shape, 270), seeded(shape, 271), seeded((b, k, *shape[2:]), 272)
+    got, want = ops.correlation_cuda(x, y, DN_RADIUS), ops.correlation_torch(x, y, DN_RADIUS)
+    grads = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
+    again = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
+    want_grads = ops.correlation_torch_bwd(x, y, g, DN_RADIUS)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **CORR_TOL)
+    errs = [assert_grad_close(a, w, f"corr_bwd_wide {shape} {nm}")
+            for a, w, nm in zip(grads, want_grads, ("dx", "dy"))]
+    assert_same_bits(grads, again, f"corr_bwd_wide {shape}")
+    rows["corr_fwd_wide"].append(dict(
+        batch=b, shape=list(shape), radius=DN_RADIUS, err=float((got - want).abs().max()), tol=CORR_TOL,
+        ms=time_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+        plain_ms=time_ms(lambda: ops.correlation_torch(x, y, DN_RADIUS), inner=2),
+        library_ms=None,
+        bound=bound(4.0 * n * (2 * c + k), 2.0 * n * c * k),
+    ))
+    rows["corr_bwd_wide"].append(dict(
+        batch=b, shape=list(shape), radius=DN_RADIUS, err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
+        ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
+        plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, DN_RADIUS), inner=2),
+        library_ms=None,
+        bound=bound(4.0 * n * (4 * c + k), 4.0 * n * c * k),
+    ))
 
 
 def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes, same_as=None):
@@ -794,7 +889,7 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes
     runs, and is timed beside the yardstick ``grid_sample_bwd`` with the
     same mask and beside its own bound, warm and with the L2 cold
     (:func:`cold_ms`)."""
-    _, c, h, w = src.shape
+    nb, c, h, w = src.shape
     g = seeded(tuple(src.shape), seed)
     got = kernel(src, off, g)
     again = kernel(src, off, g)
@@ -809,7 +904,7 @@ def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes
     if same_as is not None:
         for a, b, nm in zip(got, same_as(src, off, g), ("dsrc", "doff")):
             assert_grad_close(a, b, f"{name} {tuple(src.shape)} {nm} against the other kernel")
-    n = h * w
+    n = nb * h * w
     variants = {}
     for v, mask in VARIANTS.items():
         for _ in range(2):
@@ -926,13 +1021,15 @@ def make_smooth_frame(seed: int, d: int = 12):
     return {"left": base[:, :, :W].copy(), "right": base[:, :, d:].copy(), "target": target}
 
 
-def make_session(state, mode, plain=False, warp="auto", fused=False, model_name="MADNet", **session_kw):
+def make_session(state, mode, plain=False, warp="auto", fused=False, model_name="MADNet",
+                 adaptation="reprojection", **session_kw):
     """A session on the card from the weights ``state``, built through the
     entry points a user calls. MADNet's MAD gets the bulkhead, as
     ``cli/adapt.py`` builds it; DispNet takes ``dispnet_full_6.json``, as
     the JAX package's DispNet MAD runs. ``plain`` swaps the kernels for
     their plain versions; ``warp`` is the warp mode of model and loss;
-    ``fused`` gives the device-resident session instead of the host one."""
+    ``fused`` gives the device-resident session instead of the host one;
+    ``adaptation`` is the engine's loss (``proxy``: the continual CLI's)."""
     from real_time_self_adaptive_deep_stereo_torch.adapt import (
         AdaptationEngine,
         FusedOnlineSession,
@@ -953,7 +1050,7 @@ def make_session(state, mode, plain=False, warp="auto", fused=False, model_name=
         config = DN_BLOCK_CONFIG
     model.load_state_dict(state)
     blocks = make_blocks(load_block_config(config), model)
-    engine = AdaptationEngine(model, blocks, lr=LR, optimizer="momentum", warp_mode=warp)
+    engine = AdaptationEngine(model, blocks, lr=LR, optimizer="momentum", warp_mode=warp, adaptation=adaptation)
     if fused:
         return FusedOnlineSession(engine, mode=mode, max_steps=64, **session_kw)
     return OnlineAdaptationSession(engine, mode=mode, **session_kw)
@@ -2004,6 +2101,42 @@ def check_drift(what, drift_d1, jax_drift_d1):
         raise AssertionError(f"{what}: D1 drifts {drift_d1} points from highest, the JAX package {jax_drift_d1}")
 
 
+def counted_run(tag, fn, per, what_launches, launches):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after: they must sum ``what_launches(i)`` over ``i < per`` (a frame, a
+    batch or a step each), and go into ``launches[tag]``. Returns (the
+    result of ``fn``, its wall time in s)."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    want = {}
+    for i in range(per):
+        for k, v in what_launches(i).items():
+            want[k] = want.get(k, 0) + v
+    want = {k: v for k, v in want.items() if v}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, want {want}")
+    launches[tag] = dict(cuda_lib.LAUNCHES)
+    return result, wall
+
+
+def against_jax_cli(what, ref_name, result, ref):
+    """A run's average D1 within CLI_D1_BOUND points of the JAX CLI's row
+    ``ref`` (``tests/fixtures/torch_cli_reference.json``) over CLI_FRAMES."""
+    delta = result["avg_d1"] - ref["avg_d1"]
+    line = (f"{what} against the JAX CLI on the CPU ({ref_name}): D1 {result['avg_d1']:.3f} vs {ref['avg_d1']:.3f} "
+            f"(delta {delta:+.4f}, bound {CLI_D1_BOUND}); EPE {result['avg_epe']:.4f} vs {ref['avg_epe']:.4f}")
+    if "avg_bad3" in result and "avg_bad3" in ref:
+        line += f"; bad3 {100 * result['avg_bad3']:.3f}% vs {100 * ref['avg_bad3']:.3f}%"
+    log(line)
+    if ref["frames"] != CLI_FRAMES or not abs(delta) <= CLI_D1_BOUND:
+        raise AssertionError(f"{what}: D1 {result['avg_d1']} against the JAX CLI's {ref['avg_d1']}")
+
+
 def first_last(series, k=8):
     return float(np.mean(series[:k])), float(np.mean(series[-k:]))
 
@@ -2060,7 +2193,7 @@ def cli_runs(adapt_cli, eval_cli, reference, witness, captured, launches, frame_
     import tempfile
 
     from real_time_self_adaptive_deep_stereo_torch.data.png import read_pngs
-    from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision, cuda_lib, set_conv_precision
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision, set_conv_precision
     from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import (
         load_params,
         params_from_jax,
@@ -2078,19 +2211,8 @@ def cli_runs(adapt_cli, eval_cli, reference, witness, captured, launches, frame_
             out = tmp / tag
             args = module.build_argparser().parse_args(["-o", str(out)] + argv)
             captured.clear()
-            cuda_lib.reset_launches()
-            t0 = time.perf_counter()
-            result = module.main(args)
-            wall = time.perf_counter() - t0
-            counts = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
-            want = {}
-            for i in range(per):
-                for k, v in what_launches(i).items():
-                    want[k] = want.get(k, 0) + v
-            want = {k: v for k, v in want.items() if v}
-            if counts != want:
-                raise AssertionError(f"{tag}: launches {counts}, want {want}")
-            launches[tag] = dict(cuda_lib.LAUNCHES)
+            result, wall = counted_run(tag, lambda: module.main(args), per, what_launches, launches)
+            counts = {k: v for k, v in launches[tag].items() if v}
             check_cli_outputs(out, n, tag)
             stats = captured["stats"]
             series = {k: np.asarray(getattr(stats, k), np.float64) for k in ("epe", "bad3", "d1")}
@@ -2113,13 +2235,7 @@ def cli_runs(adapt_cli, eval_cli, reference, witness, captured, launches, frame_
             return result, stats
 
         def against_reference(tag, ref_name, result):
-            ref = reference[ref_name]
-            delta = result["avg_d1"] - ref["avg_d1"]
-            log(f"cli {tag} against the JAX CLI on the CPU ({ref_name}): D1 {result['avg_d1']:.3f} vs "
-                f"{ref['avg_d1']:.3f} (delta {delta:+.4f}, bound {CLI_D1_BOUND}); EPE {result['avg_epe']:.4f} vs "
-                f"{ref['avg_epe']:.4f}; bad3 {100 * result['avg_bad3']:.3f}% vs {100 * ref['avg_bad3']:.3f}%")
-            if ref["frames"] != CLI_FRAMES or not abs(delta) <= CLI_D1_BOUND:
-                raise AssertionError(f"{tag}: D1 {result['avg_d1']} against the JAX CLI's {ref['avg_d1']}")
+            against_jax_cli(f"cli {tag}", ref_name, result, reference[ref_name])
 
         def against_witness(tag, ref_name, result):
             """The JAX CLI with every bf16 rounding of the mode kept, and the
@@ -2229,6 +2345,297 @@ def cli_runs(adapt_cli, eval_cli, reference, witness, captured, launches, frame_
     return launches, frame_ms
 
 
+# ----------------------------------------------------------------- phase 10
+TF1_FIXTURE = ROOT / "tests" / "fixtures" / "tf1_madnet_tiny"
+DN_TRAIN_STEPS = 4
+# a training step: MADNet without the bulkhead (both K5 gradients in one
+# launch) and DispNet-Corr1D; the supervised loss warps no image
+TRAIN_LAUNCHES = {"MADNet": {"corr_fwd": 5, "corr_bwd": 5, "warp_features_fwd": 4, "warp_features_bwd": 4},
+                  "Dispnet": {"corr_fwd_wide": 1, "corr_bwd_wide": 1}}
+# the untrained `evaluate` row the trained network is held below: the one
+# metric the supervised L1 loss minimizes (see run_train_phase)
+UNTRAINED_RUN = "evaluate_scene"
+
+
+def continual_launches(run: str, i: int):
+    """What frame ``i`` of a phase-10 continual run must launch: MADNet on
+    the `cuda` warps; the proxy loss warps no image, and one forward serves
+    the block loss and the full loss. MAD (SEQUENTIAL, bulkhead): block
+    ``i mod 5``'s backward, one ``corr_bwd`` and one K5 (``dfeats``; none for
+    block 0); FIXED 2 3: both blocks' every frame; FULL with
+    ``--dilation 2``: the whole backward on even frames, none on odd ones."""
+    fwd = {"corr_fwd": 5, "warp_features_fwd": 4}
+    if run == "MAD":
+        return {**fwd, "corr_bwd": 1, "warp_features_bwd": 0 if i % 5 == 0 else 1}
+    if run == "FIXED":
+        return {**fwd, "corr_bwd": 2, "warp_features_bwd": 2}
+    return {**fwd, "corr_bwd": 5, "warp_features_bwd": 4} if i % 2 == 0 else fwd
+
+
+def smooth_batch(seeds):
+    """:func:`make_smooth_frame` of each seed, stacked into one batch on the card."""
+    frames = [make_smooth_frame(s) for s in seeds]
+    return {k: torch.from_numpy(np.concatenate([f[k] for f in frames])).cuda() for k in frames[0]}
+
+
+def check_tf1_import():
+    """The TF1 fixture (``tools/torch_tf1_fixture.py``) into MADNet on the
+    card through ``restore_or_init``, read by the port's numpy reader: the
+    restored count and every value bit for bit."""
+    import importlib.util
+
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import (
+        params_from_jax,
+        params_to_jax,
+        restore_or_init,
+        tf1_checkpoint_to_params,
+    )
+
+    ckpt = str(TF1_FIXTURE / "model.ckpt")
+    model = get_stereo_net("MADNet")
+    base = params_to_jax(model.state_dict())
+    _, n = tf1_checkpoint_to_params(ckpt, model, base)
+    params, restored, step = restore_or_init(str(TF1_FIXTURE / "no_logdir"), base, ckpt, model)
+    with np.load(TF1_FIXTURE / "values.npz") as v:
+        values = {k: v[k] for k in v.files}
+    if not (restored and step == 0 and n == len(values) == 6):
+        raise AssertionError(f"TF1 import: restored {restored} at step {step}, {n} leaves of {len(values)}")
+    model.load_state_dict(params_from_jax(params))
+    state = model.state_dict()
+    for name, value in values.items():
+        *path, leaf = model.tf_name_map()[name]
+        got = state[".".join([*path, {"w": "weight", "b": "bias"}[leaf]])].cpu().numpy()
+        want = value.transpose(3, 2, 0, 1) if leaf == "w" else value
+        if not np.array_equal(got, want):
+            raise AssertionError(f"TF1 import: {name} differs on the card")
+    if "tensorflow" in sys.modules:
+        raise AssertionError("TF1 import: tensorflow was imported")
+    log(f"TF1 import: {n} leaves of {TF1_FIXTURE.name} into MADNet on the card, bit for bit, by the numpy "
+        f"reader (python {sys.version.split()[0]}; tensorflow "
+        f"{'installed' if importlib.util.find_spec('tensorflow') else 'not installed'} here, not imported)")
+
+
+def check_train_step_against_plain(name, state, batch):
+    """One training step's gradient from ``state`` on ``batch``, with the
+    kernels (twice) and with the plain modes on the card: within STEP_RTOL
+    of its largest entry; the kernels' launches are TRAIN_LAUNCHES, the
+    plain modes launch none."""
+    from real_time_self_adaptive_deep_stereo_torch.cli.train import MAX_DISP, loss_and_grads
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_supervised_loss
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    loss_fn = get_supervised_loss("mean_l1", multiScale=True, max_disp=MAX_DISP)
+    runs = []
+    for plain in (False, True, False):
+        modes = (dict(corr_mode="torch", warp_mode="clamped") if name == "MADNet" else dict(corr_mode="torch")
+                 ) if plain else {}
+        model = get_stereo_net(name, **modes)
+        model.load_state_dict(state)
+        cuda_lib.reset_launches()
+        loss, grads = loss_and_grads(model, loss_fn, batch)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        if launched != ({} if plain else TRAIN_LAUNCHES[name]):
+            raise AssertionError(f"{name} training step ({'plain' if plain else 'kernels'}): launches {launched}")
+        runs.append((float(loss), grads))
+    (fast_loss, fast), (plain_loss, plain), (_, again) = runs
+    g_scale = max(float(g.abs().max()) for g in plain)
+    g_err = max(float((a - b).abs().max()) for a, b in zip(fast, plain))
+    rerun = max(float((a - b).abs().max()) for a, b in zip(fast, again))
+    log(f"{name} training step at B = {batch['left'].shape[0]}, kernels vs plain modes: loss {fast_loss:.6f} vs "
+        f"{plain_loss:.6f}; gradient within {g_err / g_scale:.3g} of its largest entry {g_scale:.3g} (two runs "
+        f"with the kernels differ by {rerun:.3g})")
+    if not (g_scale > 0 and g_err <= STEP_RTOL * g_scale and math.isfinite(fast_loss)):
+        raise AssertionError(f"{name} training step: kernels and plain modes disagree")
+
+
+def run_train_phase(state, profile_dir):
+    """Phase 10: ``cli/adapt_continual.py`` and ``cli/train.py`` (``main``,
+    in-process) on the real frames of phase 9, against the JAX package's
+    CLIs (``phase10_runs`` of ``tests/fixtures/torch_cli_reference.json``),
+    and the TF1 import. Returns (launches by path, ms by path)."""
+    import tempfile
+
+    from real_time_self_adaptive_deep_stereo_torch.cli import adapt_continual, evaluate, train
+    from real_time_self_adaptive_deep_stereo_torch.cli.train import MAX_DISP, make_train_step
+    from real_time_self_adaptive_deep_stereo_torch.data.png import read_pngs
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_supervised_loss
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import load_params, params_from_jax, save_params
+
+    del state  # the fixture's trained weights
+    doc = json.loads(CLI_REFERENCE.read_text())
+    reference, untrained = doc["phase10_runs"], doc["runs"][UNTRAINED_RUN]
+    launches, ms = {}, {}
+    check_tf1_import()
+
+    def counted(tag, fn, per, what_launches):
+        return counted_run(tag, fn, per, what_launches, launches)
+
+    def against_reference(tag, ref_name, result):
+        against_jax_cli(tag, ref_name, result, reference[ref_name])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        n = CLI_FRAMES
+        proxy_list = write_cli_list(tmp, CLI_SCENES["scene"], n, proxy=True)
+
+        # continual adaptation; the sessions' stats are taken as the CLI gets them
+        captured = {}
+        runners = {k: getattr(adapt_continual, k) for k in ("_run_fused", "_run_host")}
+
+        def capturing(runner):
+            def run(*a):
+                captured["stats"], params = runner(*a)
+                return captured["stats"], params
+            return run
+
+        for k, runner in runners.items():
+            setattr(adapt_continual, k, capturing(runner))
+        stats = {}
+        try:
+            for ref_name, run, session, extra in (
+                ("continual_scene_MAD", "MAD", "fused", ["--mode", "MAD", "--sampleMode", "SEQUENTIAL"]),
+                ("continual_scene_MAD", "MAD", "host", ["--mode", "MAD", "--sampleMode", "SEQUENTIAL"]),
+                ("continual_scene_FIXED_2_3", "FIXED", "fused",
+                 ["--mode", "MAD", "--sampleMode", "FIXED", "--fixedID", "2", "3"]),
+                ("continual_scene_FULL_dilation2", "FULL", "fused", ["--mode", "FULL", "--dilation", "2"]),
+            ):
+                tag = f"CONTINUAL_{run}_{session.upper()}"
+                out = tmp / tag
+                argv = ["-l", proxy_list, "-o", str(out), "--weights", str(CLI_WEIGHTS), "--modelName", "MADNet",
+                        "--sessionMode", session, *CONTINUAL_FLAGS, *extra]
+                args = adapt_continual.build_argparser().parse_args(argv)
+                result, wall = counted(tag, lambda: adapt_continual.main(args), n,
+                                       lambda i, run=run: continual_launches(run, i))
+                st = stats[tag] = captured.pop("stats")
+                d1 = np.asarray(st.d1, np.float64)
+                if len(d1) != n or not np.isfinite(d1).all() or abs(result["avg_d1"] - d1.mean()) > 1e-5:
+                    raise AssertionError(f"{tag}: {n} frames of finite D1 wanted, got {st.d1}")
+                for f in ("overall.csv", "series.csv", "histogram.csv"):
+                    if not (out / f).exists():
+                        raise AssertionError(f"{tag}: no {f}")
+                hist = (out / "histogram.csv").read_text().splitlines()
+                ms[tag] = wall * 1e3 / n
+                a, b = first_last(d1)
+                log(f"{tag}: {n} frames, EPE {result['avg_epe']:.4f} D1 {result['avg_d1']:.3f}% resets "
+                    f"{result['resets']}, D1 first 8 frames {a:.3f} -> last 8 {b:.3f}; fetch counter {hist[-1]}; "
+                    f"wall {ms[tag]:.2f} ms/frame with reading and set-up; launches {launches[tag]}")
+                against_reference(tag, ref_name, result)
+                if run == "MAD" and not b < a:
+                    raise AssertionError(f"{tag}: D1 did not fall ({a} -> {b})")
+                if run == "FIXED" and hist[-1] != str([0, 0, n, n, 0]):
+                    raise AssertionError(f"{tag}: fetched {hist[-1]}, want blocks 2 and 3 only")
+        finally:
+            for k, runner in runners.items():
+                setattr(adapt_continual, k, runner)
+        fused, host = stats["CONTINUAL_MAD_FUSED"], stats["CONTINUAL_MAD_HOST"]
+        assert_trajectory({"loss": fused.loss, "epe": fused.epe}, {"loss": host.loss, "epe": host.epe},
+                          "continual fused MAD against host MAD", loss_rtol=CLI_TRAJ_LOSS_RTOL,
+                          epe_rtol=CLI_TRAJ_EPE_RTOL)
+
+        # the fused continual MAD session's device time on frames already on the card
+        scenes = [read_pngs([str(FIXTURE_DIR / f"{s}_{k}.png") for k in ("left", "right", "gt")])
+                  for s in CLI_SCENES["scene"]]
+        frames = []
+        for left, right, gt in scenes:
+            target = torch.from_numpy((gt.astype(np.float32) / 256.0)[None, :, :, None]).cuda()
+            frames.append({"left": torch.from_numpy(left.astype(np.float32)[None]).cuda(),
+                           "right": torch.from_numpy(right.astype(np.float32)[None]).cuda(),
+                           "target": target, "proxy": target})
+        weights = params_from_jax(load_params(str(CLI_WEIGHTS)))
+        session = make_session(weights, "MAD", fused=True, adaptation="proxy", sample_mode="SEQUENTIAL",
+                               ssim_th=0.5)
+        for i in range(5):  # a round: every branch run and captured
+            session.step(frames[i % 2])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(5, n):
+            session.step(frames[i % 2])
+        end.record()
+        end.synchronize()
+        ms["CONTINUAL_FUSED_MAD_DEVICE"] = start.elapsed_time(end) / (n - 5)
+        log(f"continual MAD fused: wall {ms['CONTINUAL_MAD_FUSED']:.2f} ms/frame with reading and set-up, "
+            f"against {ms['CONTINUAL_FUSED_MAD_DEVICE']:.3f} ms/frame of the same session on frames already on "
+            f"the card (CUDA events over frames 5..{n - 1})")
+        if profile_dir:  # a round of the five blocks
+            profile_frames(session, [frames[i % 2] for i in range(5)], Path(profile_dir), "continual_mad_fused")
+        del session
+
+        # training, MADNet: 8 steps of 4 frames, then evaluate its checkpoint
+        train_list = write_cli_list(tmp, CLI_SCENES["scene"], n)
+        out = tmp / "train"
+        args = train.build_argparser().parse_args(
+            ["--trainingSet", train_list, "-o", str(out), "--weights", str(CLI_WEIGHTS), "--modelName", "MADNet",
+             *TRAIN_FLAGS])
+        trained, wall = counted("TRAIN_MADNET", lambda: train.main(args), TRAIN_STEPS,
+                                lambda i: TRAIN_LAUNCHES["MADNet"])
+        ms["TRAIN_MADNET_STEP"] = wall * 1e3 / TRAIN_STEPS
+        ref = reference["train_evaluate_scene"]
+        log(f"train MADNet: {trained['steps']} steps of 4 frames, step 0's loss {trained['final_loss']:.4f} (JAX CLI "
+            f"{ref['final_loss']:.4f}); wall {ms['TRAIN_MADNET_STEP']:.1f} ms/step with reading, --augment and "
+            f"set-up; launches {launches['TRAIN_MADNET']}")
+        if trained["steps"] != TRAIN_STEPS or not math.isfinite(trained["final_loss"]):
+            raise AssertionError(f"train MADNet: {trained}")
+        eval_args = evaluate.build_argparser().parse_args(
+            ["-l", train_list, "-o", str(out / "eval"), "--weights", str(out / f"weights-{TRAIN_STEPS}.npz"),
+             "--modelName", "MADNet", "--imageShape", str(H), str(W), "--batch", str(EVAL_BATCH),
+             "--precision", "highest"])
+        result, _ = counted("TRAIN_MADNET_EVALUATE", lambda: evaluate.main(eval_args), n // EVAL_BATCH,
+                            lambda i: cli_launches("evaluate", i))  # sets `highest`, the mode in force
+        against_reference("train then evaluate", "train_evaluate_scene", result)
+        log(f"train then evaluate: EPE {result['avg_epe']:.4f} bad3 {100 * result['avg_bad3']:.3f}% D1 "
+            f"{result['avg_d1']:.3f}%; untrained (JAX CLI, {UNTRAINED_RUN}) EPE {untrained['avg_epe']:.4f} D1 "
+            f"{untrained['avg_d1']:.3f}%")
+        if not result["avg_epe"] < untrained["avg_epe"]:
+            raise AssertionError(f"train MADNet: EPE {result['avg_epe']} not below the untrained "
+                                 f"{untrained['avg_epe']} on its own frames")
+
+        # a training step's device time at B = 4, on the first four frames decoded beforehand
+        batch = {k: torch.cat([frames[i % 2][k] for i in range(4)]) for k in ("left", "right", "target")}
+        model = get_stereo_net("MADNet")
+        model.load_state_dict(weights)
+        step = make_train_step(model, get_supervised_loss("mean_l1", multiScale=True, max_disp=MAX_DISP), 1e-4)
+        for _ in range(3):
+            step(batch)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            step(batch)
+        end.record()
+        end.synchronize()
+        ms["TRAIN_MADNET_STEP_DEVICE"] = start.elapsed_time(end) / 10
+        log(f"train MADNet: {ms['TRAIN_MADNET_STEP_DEVICE']:.3f} ms/step at B = 4 on frames already on the card "
+            f"(CUDA events over 10 steps, the host enqueueing), against {ms['TRAIN_MADNET_STEP']:.1f} ms/step of "
+            f"the CLI with reading")
+        if profile_dir:
+            profile_frames(types.SimpleNamespace(step=step), [batch] * 3, Path(profile_dir), "train_madnet_b4")
+        del model, step
+        check_train_step_against_plain("MADNet", weights, smooth_batch((20, 21, 22, 23)))
+
+        # training, DispNet-Corr1D: 4 steps from seeded weights
+        dn_weights = tmp / "dispnet_seeded.npz"
+        dn_tree = seeded_dispnet_params(1)
+        save_params(str(dn_weights), dn_tree)
+        args = train.build_argparser().parse_args(
+            ["--trainingSet", train_list, "-o", str(tmp / "train_dn"), "--weights", str(dn_weights),
+             "--modelName", "Dispnet", "--maxSteps", str(DN_TRAIN_STEPS), *TRAIN_FLAGS])
+        trained, wall = counted("TRAIN_DISPNET", lambda: train.main(args), DN_TRAIN_STEPS,
+                                lambda i: TRAIN_LAUNCHES["Dispnet"])
+        ms["TRAIN_DISPNET_STEP"] = wall * 1e3 / DN_TRAIN_STEPS
+        log(f"train DispNet-Corr1D: {trained['steps']} steps of 4 frames, step 0's loss {trained['final_loss']:.4f}; "
+            f"wall {ms['TRAIN_DISPNET_STEP']:.1f} ms/step; launches {launches['TRAIN_DISPNET']}")
+        if trained["steps"] != DN_TRAIN_STEPS or not math.isfinite(trained["final_loss"]):
+            raise AssertionError(f"train DispNet: {trained}")
+        check_train_step_against_plain("Dispnet", params_from_jax(dn_tree), smooth_batch((24, 25, 26, 27)))
+    log("phase 10 done")
+    return launches, ms
+
+
 def profile_frames(session, frames, out: Path, tag: str):
     """Kernel time by name over a few steady frames (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2315,6 +2722,8 @@ def main() -> int:
                          "without the result lines")
     ap.add_argument("--cli-only", action="store_true",
                     help="run the CLI phase (9) alone, without the result lines")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run the continual-adaptation and training phase (10) alone, without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2364,12 +2773,12 @@ def main() -> int:
         log(card)
         log("precision checked; no result lines (--precision-only)")
         return 0
-    if args.cli_only:
-        _, frame_ms = run_cli_phase(None, args.profile)
+    if args.cli_only or args.train_only:
+        _, frame_ms = (run_cli_phase if args.cli_only else run_train_phase)(None, args.profile)
         for path, ms in frame_ms.items():
-            log(f"session {path} ms/frame {ms!r}")
+            log(f"session {path} ms {ms!r}")
         log(card)
-        log("CLIs checked; no result lines (--cli-only)")
+        log("CLIs checked; no result lines (--cli-only, --train-only)")
         return 0
     if args.fused_only or args.dispnet_only:
         if args.fused_only:
@@ -2391,7 +2800,8 @@ def main() -> int:
         launches[mode], frame_ms[mode] = run(state, args.profile)
     check_steps_against_plain(state)
     check_reset(state)
-    for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision, run_cli_phase):
+    for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision, run_cli_phase,
+                  run_train_phase):
         phase_launches, phase_ms = phase(state, args.profile)
         launches.update(phase_launches)
         frame_ms.update(phase_ms)
@@ -2426,7 +2836,7 @@ def main() -> int:
             **({"variants": summed_variants(rs), "modes": rs[0]["modes"]} if "variants" in rs[0] else {}),
             # bf16 instances: the fp32 instance's time at the same shapes
             **({"fp32_ms": sum(r["fp32_ms"] for r in rs)} if "fp32_ms" in rs[0] else {}),
-            # K1 and K3 at cli/evaluate.py's batch: the same sums over those shapes
+            # at the batch of cli/evaluate.py and cli/train.py: the same sums over those shapes
             **({f"batch{EVAL_BATCH}": {
                 **{k: sum(r[k] for r in batch) for k in ("ms", "plain_ms", "bound_ms")},
                 "library_ms": None if any(r["library_ms"] is None for r in batch)

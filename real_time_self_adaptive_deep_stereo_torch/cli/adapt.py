@@ -10,8 +10,10 @@ Run:  python -m real_time_self_adaptive_deep_stereo_torch.cli.adapt \\
 Weights are a JAX-layout ``.npz`` (``utils/checkpoint.py``); a
 ``weights-N.npz`` in the output folder is resumed first. It runs on the
 GPU; ``main(args, device="cpu")`` runs the plain PyTorch versions on the
-CPU. TensorBoard summaries are not ported: ``--summary`` prints that they
-are unavailable, as the JAX CLI does without TensorFlow, and goes on.
+CPU. ``--summary`` writes the JAX CLI's TensorBoard events (scalars
+``EPE`` and ``bad3``, jet-coloured images ``full_res_disp`` and
+``gt_disp``) through TensorFlow, imported only then; without TensorFlow it
+prints the JAX CLI's line and goes on.
 """
 
 from __future__ import annotations
@@ -175,18 +177,11 @@ def _result(stats) -> dict:
     }
 
 
-def _run_fused(args, engine, dataset, max_steps):
-    """Controller on the device: one graph replay per frame, stats at the end."""
-    import torch
-
-    from real_time_self_adaptive_deep_stereo_torch.adapt.fused import FusedOnlineSession
-    from real_time_self_adaptive_deep_stereo_torch.adapt.runner import SessionStats
-    from real_time_self_adaptive_deep_stereo_torch.data import prefetch_to_device
-    from real_time_self_adaptive_deep_stereo_torch.utils.visual import save_disparity_png
-
-    # FIXED trains exactly the listed blocks (host/reference semantics —
-    # the sampler ignores its nominal count); the fused session's static
-    # shapes require num_blocks == len(fixedID), so derive it here.
+def fused_fixed_blocks(args):
+    """``(fixed_id, num_blocks)`` for a fused session. FIXED trains exactly
+    the listed blocks (host/reference semantics, Sampler/sampler_factory.py:
+    23-37 — the sampler ignores its nominal count); the fused session's
+    static shapes require num_blocks == len(fixedID), so it is derived here."""
     fixed_ids = list(np.atleast_1d(args.fixedID))
     num_blocks = args.numBlocks
     if args.sampleMode == "FIXED" and args.mode == "MAD":
@@ -197,19 +192,48 @@ def _run_fused(args, engine, dataset, max_steps):
                 flush=True,
             )
         num_blocks = len(fixed_ids)
+    return (fixed_ids if len(fixed_ids) > 1 else fixed_ids[0]), num_blocks
+
+
+def fused_stats(host, exec_time: float):
+    """The host session's ``SessionStats`` of a fused session's
+    ``finalize()``."""
+    from real_time_self_adaptive_deep_stereo_torch.adapt.runner import SessionStats
+
+    return SessionStats(
+        epe=list(host["epe"]),
+        bad3=list(host["bad3"]),
+        d1=list(host["d1"]),
+        loss=list(host["loss"]),
+        fetch_counter=[int(c) for c in host["fetch_counter"]],
+        sample_distribution=np.asarray(host["scores"], np.float64),
+        reset_counter=int(host["reset_count"]),
+        steps=host["steps"],
+        exec_time=exec_time,
+    )
+
+
+def _run_fused(args, engine, dataset, max_steps):
+    """Controller on the device: one graph replay per frame, stats at the end."""
+    import torch
+
+    from real_time_self_adaptive_deep_stereo_torch.adapt.fused import FusedOnlineSession
+    from real_time_self_adaptive_deep_stereo_torch.data import prefetch_to_device
+    from real_time_self_adaptive_deep_stereo_torch.utils.visual import save_disparity_png
+
+    fixed_id, num_blocks = fused_fixed_blocks(args)
     session = FusedOnlineSession(
         engine,
         mode=args.mode,
         sample_mode=args.sampleMode,
         num_blocks=num_blocks,
-        fixed_id=fixed_ids if len(fixed_ids) > 1 else fixed_ids[0],
+        fixed_id=fixed_id,
         sample_frequency=args.sampleFrequency,
         ssim_th=args.SSIMTh,
         max_steps=max_steps + 8,
         seed=args.seed or 0,
     )
-    if args.summary:
-        _make_summary_writer()
+    writer = _make_summary_writer(args.output) if args.summary else None
 
     chunk = getattr(args, "chunk", 1)
     if chunk > 1 and (args.logDispStep != -1 or args.summary):
@@ -241,22 +265,27 @@ def _run_fused(args, engine, dataset, max_steps):
                     session.fetch_disp()()[0],
                     MAX_DISP,
                 )
+            if writer is not None and steps % 100 == 0:
+                _write_image_summaries(
+                    writer, steps, session.fetch_disp()()[0], frame["target"][0].cpu().numpy()
+                )
             steps += 1
     session.block_until_ready()
     exec_time = time.perf_counter() - t0
     host = session.finalize()
+    stats = fused_stats(host, exec_time)
 
-    stats = SessionStats(
-        epe=list(host["epe"]),
-        bad3=list(host["bad3"]),
-        d1=list(host["d1"]),
-        loss=list(host["loss"]),
-        fetch_counter=[int(c) for c in host["fetch_counter"]],
-        sample_distribution=np.asarray(host["scores"], np.float64),
-        reset_counter=int(host["reset_count"]),
-        steps=host["steps"],
-        exec_time=exec_time,
-    )
+    if writer is not None:
+        # the session keeps per-frame metrics: the whole scalar series at
+        # the end, as the JAX CLI writes it
+        import tensorflow as tf
+
+        with writer.as_default():
+            for i in range(host["steps"]):
+                tf.summary.scalar("EPE", host["epe"][i], step=i)
+                tf.summary.scalar("bad3", host["bad3"][i], step=i)
+        writer.flush()
+
     write_stats(args.output, stats)
     print(f"Result saved in {args.output}")
     return _result(stats)
@@ -278,8 +307,7 @@ def _run_host(args, engine, dataset, max_steps):
         ssim_th=args.SSIMTh,
         seed=args.seed,
     )
-    if args.summary:
-        _make_summary_writer()
+    writer = _make_summary_writer(args.output) if args.summary else None
 
     start = time.perf_counter()
     frames = prefetch_to_device(iter(dataset), size=2, device=engine.device)
@@ -294,6 +322,18 @@ def _run_host(args, engine, dataset, max_steps):
                 f"Step:{step:4d}\tbad3:{out['bad3']:.2f}\tEPE:{out['epe']:.2f}"
                 f"\tSSIM:{out['loss']:.2f}\tf/b time:{per:.3f}\tMissing time:{eta}"
             )
+            if writer is not None:
+                import tensorflow as tf
+
+                with writer.as_default():
+                    tf.summary.scalar("EPE", out["epe"], step=step)
+                    tf.summary.scalar("bad3", out["bad3"], step=step)
+                _write_image_summaries(
+                    writer,
+                    step,
+                    out["disp"][0].float().cpu().numpy(),
+                    frame["target"][0].cpu().numpy(),
+                )
 
         if args.logDispStep != -1 and step % args.logDispStep == 0:
             save_disparity_png(
@@ -308,10 +348,30 @@ def _run_host(args, engine, dataset, max_steps):
     return _result(stats)
 
 
-def _make_summary_writer() -> None:
-    """TensorBoard summaries are not ported (the port has no TensorFlow):
-    the JAX CLI's own line where TensorFlow is absent."""
-    print("tensorboard summaries unavailable (no tensorflow)")
+def _make_summary_writer(output: str):
+    """A TensorBoard event writer in ``output``, or None with the JAX CLI's
+    own line where TensorFlow is absent."""
+    try:
+        import tensorflow as tf
+    except ImportError:
+        print("tensorboard summaries unavailable (no tensorflow)")
+        return None
+    return tf.summary.create_file_writer(output)
+
+
+def _write_image_summaries(writer, step: int, disp: np.ndarray, gt: np.ndarray) -> None:
+    """Colorized full_res_disp / gt_disp TB images, matching reference
+    Stereo_Online_Adaptation.py:135-136 (preprocessing.colorize_img,
+    cmap='jet', max_outputs=1)."""
+    import tensorflow as tf
+
+    from real_time_self_adaptive_deep_stereo_torch.utils.visual import colorize_disparity
+
+    with writer.as_default():
+        for name, d in (("full_res_disp", disp), ("gt_disp", gt)):
+            tf.summary.image(
+                name, colorize_disparity(d, cmap="jet")[None].astype(np.float32), step=step, max_outputs=1
+            )
 
 
 def write_stats(output: str, stats) -> None:

@@ -8,16 +8,17 @@ its order:
   ``#`` comments;
 * PFM ground truth, and 8/16-bit PNG ground truth with the ``/256`` of
   16-bit (KITTI's encoding), width-cropped to the image;
-* training: aligned random crop; eval: centred crop-or-pad;
+* training: aligned random crop and the photometric ``augment``; eval:
+  centred crop-or-pad;
 * epoch repeat, shuffling, fixed-size batches, the eval remainder kept;
 * a device prefetcher that keeps batches on the card ahead of use.
 
 Images are decoded by :mod:`.png` (numpy and ``zlib``), where the JAX
 package calls ``cv2``; so the readers take PNG images and PNG or PFM
-ground truth. Not ported, each raising ``NotImplementedError``: the
-photometric ``augment`` (it needs matplotlib; ``ROADMAP.md``, queue 1,
-``cli/train.py``) and the C++ loader (``backend="native"``;
-``ROADMAP.md``, queue 1, the native loader).
+ground truth. ``augment``'s hue shift runs matplotlib's RGB/HSV
+conversions, copied here in numpy (the GPU's machine may have no
+matplotlib). Not ported, raising ``NotImplementedError``: the C++ loader
+(``backend="native"``; ``ROADMAP.md``, queue 1, the native loader).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ __all__ = [
     "random_crop",
     "center_crop_or_pad",
     "resize_image_np",
+    "augment",
     "StereoDataset",
     "prefetch_to_device",
 ]
@@ -167,6 +169,99 @@ def resize_image_np(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return x.astype(img.dtype)
 
 
+# ------------------------------------------------------------- augmentation
+# _rgb_to_hsv and _hsv_to_rgb are matplotlib's (matplotlib/colors.py,
+# rgb_to_hsv and hsv_to_rgb), step for step, in the input's float dtype
+# (at least float32), without its range checks.
+
+
+def _rgb_to_hsv(arr: np.ndarray) -> np.ndarray:
+    """[..., 3] RGB in [0, 1] -> HSV in [0, 1]."""
+    arr = np.asarray(arr)
+    in_shape = arr.shape
+    arr = np.array(arr, dtype=np.promote_types(arr.dtype, np.float32), ndmin=2)
+    out = np.zeros_like(arr)
+    arr_max = arr.max(-1)
+    ipos = arr_max > 0
+    delta = np.ptp(arr, -1)
+    s = np.zeros_like(delta)
+    s[ipos] = delta[ipos] / arr_max[ipos]
+    ipos = delta > 0
+    idx = (arr[..., 0] == arr_max) & ipos  # red is max
+    out[idx, 0] = (arr[idx, 1] - arr[idx, 2]) / delta[idx]
+    idx = (arr[..., 1] == arr_max) & ipos  # green is max
+    out[idx, 0] = 2.0 + (arr[idx, 2] - arr[idx, 0]) / delta[idx]
+    idx = (arr[..., 2] == arr_max) & ipos  # blue is max
+    out[idx, 0] = 4.0 + (arr[idx, 0] - arr[idx, 1]) / delta[idx]
+    out[..., 0] = (out[..., 0] / 6.0) % 1.0
+    out[..., 1] = s
+    out[..., 2] = arr_max
+    return out.reshape(in_shape)
+
+
+def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """[..., 3] HSV in [0, 1] -> RGB in [0, 1]."""
+    hsv = np.asarray(hsv)
+    in_shape = hsv.shape
+    hsv = np.array(hsv, dtype=np.promote_types(hsv.dtype, np.float32), ndmin=2)
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    r, g, b = np.empty_like(h), np.empty_like(h), np.empty_like(h)
+    i = (h * 6.0).astype(int)
+    f = (h * 6.0) - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - s * f)
+    t = v * (1.0 - s * (1.0 - f))
+    # (sector, (r, g, b)) in matplotlib's order; s == 0 (grey) last
+    for idx, (rr, gg, bb) in (
+        (i % 6 == 0, (v, t, p)),
+        (i == 1, (q, v, p)),
+        (i == 2, (p, v, t)),
+        (i == 3, (p, q, v)),
+        (i == 4, (t, p, v)),
+        (i == 5, (v, p, q)),
+        (s == 0, (v, v, v)),
+    ):
+        r[idx], g[idx], b[idx] = rr[idx], gg[idx], bb[idx]
+    return np.stack([r, g, b], axis=-1).reshape(in_shape)
+
+
+def augment(
+    left: np.ndarray, right: np.ndarray, rng: np.random.Generator
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Photometric augmentation with the reference's exact distributions
+    and gating (preprocessing.py:61-89: each op applies when its uniform
+    'active' draw is <= 0.5; brightness delta +-0.05, contrast 0.8..1.2,
+    hue 0.8..1.2, taken mod 1 as the reference's shift is). The draws from
+    ``rng`` come in the JAX package's order."""
+    active = rng.random(4)
+    left = left.astype(np.float32)
+    right = right.astype(np.float32)
+
+    if active[1] <= 0.5:
+        delta = rng.uniform(-0.05, 0.05)
+        left = left + delta
+        right = right + delta
+    if active[2] <= 0.5:
+        factor = rng.uniform(0.8, 1.2)
+
+        def contrast(x):
+            mean = x.mean(axis=(0, 1), keepdims=True)
+            return (x - mean) * factor + mean
+
+        left, right = contrast(left), contrast(right)
+    if active[3] <= 0.5:
+        delta = rng.uniform(0.8, 1.2)
+
+        def hue(x):
+            hsv = _rgb_to_hsv(np.clip(x / 255.0, 0, 1))
+            hsv[..., 0] = (hsv[..., 0] + delta) % 1.0
+            return _hsv_to_rgb(hsv) * 255.0
+
+        left, right = hue(left), hue(right)
+
+    return np.clip(left, 0, 255), np.clip(right, 0, 255)
+
+
 # ------------------------------------------------------------------ dataset
 
 
@@ -176,7 +271,9 @@ class StereoDataset:
     ``left``/``right`` [B,H,W,3], ``target`` [B,H,W,1] and, when a 4th
     CSV column exists and ``load_proxy``, ``proxy`` [B,H,W,1] plus
     ``real_width`` [B]. Frames are decoded in a background thread;
-    ``backend`` ``auto`` is ``python``, the only one ported."""
+    ``backend`` ``auto`` is ``python``, the only one ported. Training
+    draws the shuffle, then each frame's crop and ``augment`` from one
+    ``rng``, in the JAX package's order."""
 
     def __init__(
         self,
@@ -191,11 +288,6 @@ class StereoDataset:
         seed: Optional[int] = None,
         backend: str = "auto",
     ):
-        if augment:
-            raise NotImplementedError(
-                "photometric augmentation is not ported (it needs matplotlib): "
-                "ROADMAP.md, queue 1, cli/train.py"
-            )
         if backend == "native":
             raise NotImplementedError(
                 "the C++ loader is not ported: ROADMAP.md, queue 1, the native loader"
@@ -211,6 +303,7 @@ class StereoDataset:
         self.crop_shape = tuple(crop_shape)
         self.num_epochs = num_epochs
         self.is_training = is_training
+        self.augment = augment
         self.shuffle = shuffle
         self.seed = seed
         self.rng = np.random.default_rng(seed)
@@ -244,6 +337,8 @@ class StereoDataset:
             tensors = random_crop(self.crop_shape, tensors, self.rng)
         else:
             tensors = [center_crop_or_pad(t, *self.crop_shape) for t in tensors]
+        if self.augment:
+            tensors[0], tensors[1] = augment(tensors[0], tensors[1], self.rng)
         out = {"left": tensors[0], "right": tensors[1], "target": tensors[2]}
         if self.proxies is not None:
             out["proxy"] = tensors[3]

@@ -2,8 +2,9 @@
 
 Port of ``real_time_self_adaptive_deep_stereo_tpu/ops/conv.py``
 (``leaky_relu``, ``init_conv``, ``conv2d``, ``dilated_conv2d``,
-``conv2d_transpose``) with its four precision modes, set globally by
-:func:`set_conv_precision` as in JAX:
+``conv2d_transpose``, ``depthwise_conv``, ``separable_conv2d``,
+``grouped_conv2d``, ``channel_shuffle_inside_group``) with its four
+precision modes, set globally by :func:`set_conv_precision` as in JAX:
 
 * ``highest`` (the default): fp32 convolutions, on cuDNN with TF32 off;
 * ``default``: fp32 operands, TF32 on cuDNN, which is what JAX's
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "leaky_relu", "init_conv", "conv2d", "dilated_conv2d", "conv2d_transpose", "same_pad",
+    "depthwise_conv", "separable_conv2d", "grouped_conv2d", "channel_shuffle_inside_group",
     "PRECISIONS", "set_conv_precision", "get_conv_precision", "conv_precision",
     "apply_precision_flags",
 ]
@@ -137,7 +139,7 @@ def _bias_act(y, bias, dt, activation):
     return activation(y)
 
 
-def _conv(x, weight, bias, stride, rate, activation, padding):
+def _conv(x, weight, bias, stride, rate, activation, padding, groups=1):
     if padding not in ("SAME", "VALID"):
         raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
     dt = _bf16_epilogue(x)
@@ -146,8 +148,9 @@ def _conv(x, weight, bias, stride, rate, activation, padding):
     if padding == "SAME":
         x = same_pad(x, weight.shape[2:], stride, rate)
     if dt is None:
-        return activation(F.conv2d(x, weight, bias, stride=stride, dilation=rate))
-    return _bias_act(F.conv2d(x, weight, None, stride=stride, dilation=rate), bias, dt, activation)
+        return activation(F.conv2d(x, weight, bias, stride=stride, dilation=rate, groups=groups))
+    y = F.conv2d(x, weight, None, stride=stride, dilation=rate, groups=groups)
+    return _bias_act(y, bias, dt, activation)
 
 
 def conv2d(
@@ -210,3 +213,62 @@ def conv2d_transpose(
     if bias is not None:
         y = y + bias.view(1, -1, 1, 1)
     return activation(y)
+
+
+def depthwise_conv(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    activation: Callable = leaky_relu(0.1),
+    padding: str = "SAME",
+) -> torch.Tensor:
+    """Depthwise conv. ``weight`` is the JAX package's ``[kh, kw, in_c,
+    mult]`` kernel as :func:`..utils.checkpoint.params_from_jax` carries it
+    over, ``[mult, in_c, kh, kw]``; it runs as a conv of ``groups=in_c``
+    whose output channel ``c*mult + m`` is input channel c's m-th filter,
+    the order of the JAX package's reshape to ``in_c*mult`` outputs."""
+    mult, c_in, kh, kw = weight.shape
+    w = weight.transpose(0, 1).reshape(c_in * mult, 1, kh, kw)
+    return _conv(x, w, bias, stride, 1, activation, padding, groups=c_in)
+
+
+def separable_conv2d(
+    x: torch.Tensor,
+    depthwise_weight: torch.Tensor,
+    depthwise_bias: Optional[torch.Tensor],
+    pointwise_weight: torch.Tensor,
+    pointwise_bias: Optional[torch.Tensor] = None,
+    stride: int = 1,
+    activation: Callable = leaky_relu(0.1),
+    padding: str = "SAME",
+) -> torch.Tensor:
+    """Depthwise (leaky relu 0.1) then pointwise conv, mirroring
+    sharedLayers.py:105-115; the JAX package's ``params['depthwise']`` and
+    ``params['pointwise']`` come in as two weight and bias pairs. As in the
+    reference, ``stride`` applies to BOTH convs."""
+    x = depthwise_conv(x, depthwise_weight, depthwise_bias, stride, leaky_relu(0.1), padding)
+    return conv2d(x, pointwise_weight, pointwise_bias, stride, activation, padding)
+
+
+def grouped_conv2d(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    num_groups: int = 1,
+    stride: int = 1,
+    activation: Callable = leaky_relu(0.1),
+    padding: str = "SAME",
+) -> torch.Tensor:
+    """Grouped conv; ``weight`` is ``[out_c, in_c/groups, kh, kw]``, the
+    JAX package's ``[kh, kw, in_c/groups, out_c]`` under
+    :func:`..utils.checkpoint.params_from_jax` (both split the outputs into
+    groups in order)."""
+    return _conv(x, weight, bias, stride, 1, activation, padding, groups=num_groups)
+
+
+def channel_shuffle_inside_group(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Channel shuffle (sharedLayers.py:133-139) on NCHW ``x``: channel
+    ``i*(c/g) + j`` goes to ``j*g + i``, as the JAX package's NHWC one."""
+    b, c, h, w = x.shape
+    return x.reshape(b, num_groups, c // num_groups, h, w).transpose(1, 2).reshape(b, c, h, w)

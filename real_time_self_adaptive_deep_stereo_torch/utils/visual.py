@@ -1,10 +1,13 @@
-"""Serialisation helpers.
+"""Visualisation / serialisation helpers.
 
 Port of ``real_time_self_adaptive_deep_stereo_tpu/utils/visual.py``:
-``save_disparity_png`` writes the 16-bit ``disparity * 256`` PNGs the
-reference emits (Stereo_Online_Adaptation.py:246-251), through
-:mod:`..data.png`. ``colorize_disparity`` is not ported yet: it needs
-matplotlib (``ROADMAP.md``, queue 1, with ``cli/adapt_continual.py``).
+``colorize_disparity`` maps a disparity map through the ``jet`` colour
+map (reference ``preprocessing.colorize_img``,
+Data_utils/preprocessing.py:91-117) for logging; ``save_disparity_png``
+writes the 16-bit ``disparity * 256`` PNGs the reference emits
+(Stereo_Online_Adaptation.py:246-251), through :mod:`..data.png`. Neither
+needs matplotlib, which the GPU's machine may lack: the ``jet`` table is
+built here as matplotlib builds it.
 """
 
 from __future__ import annotations
@@ -15,7 +18,51 @@ import numpy as np
 
 from real_time_self_adaptive_deep_stereo_torch.data.png import write_png
 
-__all__ = ["save_disparity_png"]
+__all__ = ["colorize_disparity", "save_disparity_png"]
+
+# matplotlib's ``_jet_data`` (matplotlib/_cm.py): per channel, the (x, y0,
+# y1) points of a piecewise-linear map of [0, 1]
+_JET_DATA = {
+    "red": ((0.0, 0, 0), (0.35, 0, 0), (0.66, 1, 1), (0.89, 1, 1), (1.0, 0.5, 0.5)),
+    "green": ((0.0, 0, 0), (0.125, 0, 0), (0.375, 1, 1), (0.64, 1, 1), (0.91, 0, 0), (1.0, 0, 0)),
+    "blue": ((0.0, 0.5, 0.5), (0.11, 1, 1), (0.34, 1, 1), (0.65, 0, 0), (1.0, 0, 0)),
+}
+
+
+def _lookup_table(n: int, data) -> np.ndarray:
+    """matplotlib's ``colors._create_lookup_table(n, data)`` at gamma 1:
+    the map sampled at ``n`` evenly spaced points of [0, 1], float64."""
+    adata = np.array(data, dtype=np.float64)
+    x, y0, y1 = adata[:, 0] * (n - 1), adata[:, 1], adata[:, 2]
+    xind = (n - 1) * np.linspace(0, 1, n)
+    ind = np.searchsorted(x, xind)[1:-1]
+    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    lut = np.concatenate([[y1[0]], distance * (y0[ind] - y1[ind - 1]) + y1[ind - 1], [y0[-1]]])
+    return np.clip(lut, 0.0, 1.0)
+
+
+def _jet_table() -> np.ndarray:
+    """[256, 3] RGB of matplotlib's ``jet``, float64 in 0..1: what
+    ``matplotlib.cm.get_cmap("jet")(np.arange(256))[:, :3]`` gives."""
+    return np.stack([_lookup_table(256, _JET_DATA[c]) for c in ("red", "green", "blue")], axis=-1)
+
+
+def colorize_disparity(
+    disp: np.ndarray, vmin=None, vmax=None, cmap: str = "jet"
+) -> np.ndarray:
+    """[H,W] or [H,W,1] disparity -> [H,W,3] float RGB in 0..1. Only
+    ``cmap="jet"`` is ported (the JAX function takes any matplotlib name)."""
+    if cmap != "jet":
+        raise ValueError(f"only the 'jet' colour map is ported, not {cmap!r}")
+    d = np.asarray(disp, np.float32)
+    if d.ndim == 3:
+        d = d[..., 0]
+    d = np.nan_to_num(d)  # early-adaptation frames can carry inf/NaN
+    vmin = d.min() if vmin is None else vmin
+    vmax = d.max() if vmax is None else vmax
+    norm = np.clip((d - vmin) / max(vmax - vmin, 1e-12), 0, 1)
+    idx = np.round(norm * 255).astype(np.int32)
+    return _jet_table()[idx]
 
 
 def save_disparity_png(path: str, disp: np.ndarray, max_disp: float = 256.0) -> None:

@@ -10,6 +10,7 @@ against JAX and fused against host."""
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -165,7 +166,8 @@ def test_adapt_chunk_matches_per_frame(data):
     assert_series_close(chunked, plain, rtol=1e-6)
 
 
-def test_adapt_summary_goes_on_without_tensorboard(data, capsys):
+def test_adapt_summary_goes_on_without_tensorboard(data, capsys, monkeypatch):
+    monkeypatch.setitem(sys.modules, "tensorflow", None)  # no TensorFlow: `import tensorflow` raises
     out = data["tmp"] / "summary"
     run_cli(t_adapt, madnet_argv(data, ["--mode", "NONE", "--summary", "--sessionMode", "fused"]),
             out, device="cpu")

@@ -16,6 +16,14 @@ minutes on a CPU); ``--runs`` picks some of them and keeps the other rows
 of the file. The card's machine has no JAX: ``chip_smoke.py`` reads the
 JSON only.
 
+The same command also makes the rows of phase 10
+(``chip_smoke.PHASE10_REFERENCE_RUNS``, the file's ``phase10_runs``):
+``cli/adapt_continual.py`` (``--sessionMode host --corrMode jnp``) over the
+same frames with a proxy column (the scene's ground truth), and
+``cli/train.py`` (``--corrMode jnp``; 8 steps of 4 frames, ``--augment``,
+seed 0) followed by ``cli/evaluate.py`` at ``highest`` on its checkpoint
+(about 6 minutes for the four).
+
     JAX_PLATFORMS=cpu python tools/torch_cli_reference.py --strict
 
 makes the witness rows of the ``evaluate`` runs (``chip_smoke.CLI_WITNESS_RUNS``)
@@ -34,6 +42,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = Path(__file__).resolve().parent.parent
@@ -55,6 +65,77 @@ def jax_argv(name: str, list_path: str, out: str) -> list:
         return argv + ["--imageShape", str(chip_smoke.H), str(chip_smoke.W), "--precision", precision]
     return argv + ["--blockConfig", "block_config/MadNet_full.json", "--mode", mode,
                    "--sessionMode", "host", *chip_smoke.CLI_FLAGS]
+
+
+def phase10_argv(name: str, list_path: str, out: str) -> list:
+    """The JAX CLI's flags for phase-10 run ``name``; for ``train``, the
+    training run's (:func:`train_eval_argv` gives the evaluation's)."""
+    cli, _, flags = chip_smoke.PHASE10_REFERENCE_RUNS[name]
+    if cli == "train":
+        return ["--trainingSet", list_path, "-o", out, "--weights", str(chip_smoke.CLI_WEIGHTS),
+                "--modelName", "MADNet", "--corrMode", "jnp", *flags]
+    return ["-l", list_path, "-o", out, "--weights", str(chip_smoke.CLI_WEIGHTS), "--modelName", "MADNet",
+            "--corrMode", "jnp", "--sessionMode", "host", *chip_smoke.CONTINUAL_FLAGS, *flags]
+
+
+def train_eval_argv(list_path: str, weights: str, out: str) -> list:
+    """``evaluate`` of a trained checkpoint over the training frames, at `highest`."""
+    return ["-l", list_path, "-o", out, "--weights", weights, "--modelName", "MADNet", "--corrMode", "jnp",
+            "--imageShape", str(chip_smoke.H), str(chip_smoke.W), "--batch", str(chip_smoke.EVAL_BATCH),
+            "--precision", "highest"]
+
+
+def run_phase10(name: str, workdir: str) -> dict:
+    """One phase-10 run through the JAX CLIs' ``main``: the continual
+    CLI's per-frame EPE and D1 are read back from its ``series.csv`` (three
+    decimals, as it writes them), its fetch counter from ``histogram.csv``;
+    a training run is followed by ``evaluate`` of its last checkpoint,
+    whose per-frame series come from the stats it hands to ``write_stats``."""
+    import ast
+
+    from real_time_self_adaptive_deep_stereo_tpu.cli import adapt, adapt_continual, evaluate, train
+    from real_time_self_adaptive_deep_stereo_tpu.ops.conv import set_conv_precision
+
+    cli, scenes, _ = chip_smoke.PHASE10_REFERENCE_RUNS[name]
+    proxy = cli == "adapt_continual"
+    list_path = chip_smoke.write_cli_list(workdir, chip_smoke.CLI_SCENES[scenes], chip_smoke.CLI_FRAMES, proxy)
+    out = os.path.join(workdir, name)
+    os.makedirs(out, exist_ok=True)
+    row = {"cli": cli, "scenes": list(chip_smoke.CLI_SCENES[scenes]), "frames": chip_smoke.CLI_FRAMES,
+           "argv": portable(phase10_argv(name, "LIST", "OUT"))}
+    set_conv_precision("highest")
+    t0 = time.perf_counter()
+    if proxy:
+        result = adapt_continual.main(adapt_continual.build_argparser().parse_args(phase10_argv(name, list_path, out)))
+        lines = open(os.path.join(out, "series.csv")).read().strip().splitlines()[1:]
+        series = np.array([[float(v) for v in line.split(" & ")] for line in lines])
+        hist = open(os.path.join(out, "histogram.csv")).read().strip().splitlines()
+        row.update(avg_epe=result["avg_epe"], avg_d1=result["avg_d1"], resets=result["resets"],
+                   fetch_counter=ast.literal_eval(hist[-1]), epe=series[:, 1].tolist(), d1=series[:, 2].tolist())
+    else:
+        trained = train.main(train.build_argparser().parse_args(phase10_argv(name, list_path, out)))
+        weights = os.path.join(out, f"weights-{trained['steps']}.npz")
+        captured = {}
+        write_stats = adapt.write_stats
+
+        def capture(output, stats):
+            captured["stats"] = stats
+            write_stats(output, stats)
+
+        adapt.write_stats = capture  # evaluate imports it from cli.adapt when it runs
+        try:
+            result = evaluate.main(evaluate.build_argparser().parse_args(
+                train_eval_argv(list_path, weights, os.path.join(out, "eval"))))
+        finally:
+            adapt.write_stats = write_stats
+            set_conv_precision("highest")
+        stats = captured["stats"]
+        row.update(eval_argv=portable(train_eval_argv("LIST", "OUT/weights-N.npz", "OUT/eval")),
+                   final_loss=trained["final_loss"], steps=trained["steps"], avg_epe=result["avg_epe"],
+                   avg_bad3=result["avg_bad3"], avg_d1=result["avg_d1"],
+                   **{k: [float(v) for v in getattr(stats, k)] for k in ("epe", "bad3", "d1")})
+    row["wall_s"] = time.perf_counter() - t0
+    return row
 
 
 def portable(argv: list) -> list:
@@ -124,8 +205,8 @@ def run_one(name: str, workdir: str, port: bool = False) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--runs", default=",".join(chip_smoke.CLI_REFERENCE_RUNS),
-                    help="comma-separated names from chip_smoke.CLI_REFERENCE_RUNS")
+    ap.add_argument("--runs", default=",".join([*chip_smoke.CLI_REFERENCE_RUNS, *chip_smoke.PHASE10_REFERENCE_RUNS]),
+                    help="comma-separated names from chip_smoke.CLI_REFERENCE_RUNS and PHASE10_REFERENCE_RUNS")
     ap.add_argument("--json", default=str(chip_smoke.CLI_REFERENCE))
     ap.add_argument("--strict", action="store_true",
                     help="make the witness rows of the evaluate runs instead (see above)")
@@ -135,13 +216,18 @@ def main() -> int:
         names = list(chip_smoke.CLI_WITNESS_RUNS)
     else:
         names = [n for n in args.runs.split(",") if n]
-    unknown = set(names) - set(chip_smoke.CLI_REFERENCE_RUNS)
+    unknown = set(names) - set(chip_smoke.CLI_REFERENCE_RUNS) - set(chip_smoke.PHASE10_REFERENCE_RUNS)
     if unknown:
         raise SystemExit(f"unknown runs {sorted(unknown)}")
 
-    rows, port_rows = {}, {}
+    rows, port_rows, phase10_rows = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:
+            if name in chip_smoke.PHASE10_REFERENCE_RUNS:
+                phase10_rows[name] = run_phase10(name, tmp)
+                print(name, {k: v for k, v in phase10_rows[name].items() if k.startswith(("avg", "final", "wall"))},
+                      flush=True)
+                continue
             rows[name] = run_one(name, tmp)
             print(name, {k: rows[name][k] for k in ("avg_epe", "avg_bad3", "avg_d1", "wall_s")}, flush=True)
             if args.strict:
@@ -161,11 +247,14 @@ def main() -> int:
         print(f"wrote {path}")
         return 0
     doc["command"] = COMMAND
-    doc["about"] = ("The JAX package's CLIs on the CPU (gather warps, --corrMode jnp; adapt in "
-                    "the host session; conv precision per row), over the list files of "
-                    "chip_smoke.write_cli_list. wall_s: each run's main(), one after another "
-                    "in one process.")
+    doc["about"] = ("The JAX package's CLIs on the CPU (gather warps, --corrMode jnp; adapt and "
+                    "adapt_continual in the host session; conv precision per row), over the list files of "
+                    "chip_smoke.write_cli_list. runs: phase 9's; phase10_runs: adapt_continual (its "
+                    "proxy column the scene's gt; epe and d1 read back from series.csv, 3 decimals; "
+                    "fetch_counter from histogram.csv), and train then evaluate at highest. wall_s: "
+                    "each run's main(), one after another in one process.")
     doc.setdefault("runs", {}).update(rows)
+    doc.setdefault("phase10_runs", {}).update(phase10_rows)
     path.write_text(json.dumps(doc, indent=1) + "\n")
     print(f"wrote {path}")
     return 0
