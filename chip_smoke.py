@@ -2,7 +2,7 @@
 """Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only | --precision-only
-                           | --cli-only | --train-only]
+                           | --cli-only | --train-only | --demo-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -127,7 +127,13 @@ Phases, each of which raises on failure (nothing is caught):
    ``corr_bwd_wide_bf16``) and fused NONE serving, whose disparities must
    be bf16, as the reference's are. The TF32 flags must be on for cuDNN
    under ``default`` only, and off again after the phase.
-9. The CLIs on real frames: ``cli/adapt.py`` and ``cli/evaluate.py``
+9. The native loader first (``runtime/``, built by ``g++`` from
+   ``stereo_loader.cc``): whether it built, its decode route and its
+   threads are printed, and the phase fails where it did not build; 32
+   frames of the list below decode through it bit for bit as through the
+   Python backend, each backend's frames/s printed. The CLIs below decode
+   through it (``StereoDataset(backend="auto")``).
+   Then the CLIs on real frames: ``cli/adapt.py`` and ``cli/evaluate.py``
    (``main``, in-process) over list files of 32 frames cycling two scenes
    of ``tests/fixtures/realworld`` at 320x1216 (the fixture's own size),
    from ``weights_scene01.npz``, SEQUENTIAL, lr 1e-4, SSIMTh 0.5: adapt
@@ -167,6 +173,26 @@ Phases, each of which raises on failure (nothing is caught):
    5e-4 of its largest entry. Last DispNet-Corr1D, 4 steps at B = 4 from
    seeded weights: one ``corr_fwd_wide`` and one ``corr_bwd_wide`` a step,
    a finite loss, and one step's gradient against the plain modes.
+11. The live demo, ``cli/demo.py`` (``main``, in-process), headless
+   (``--camera folder --display none --outDir``), MADNet over
+   ``MadNet_full.json`` from ``weights_scene01.npz``, Adam, on 32 frames
+   of scenes 2-3: (a) its defaults, 480x640 rescaled and 320x512 cropped,
+   MAD, PROBABILITY, the fused session with an fp16 disparity through
+   ``step_pipelined``; (b) the full width (``--imageShape -1 --cropShape
+   320 1216``), SEQUENTIAL, fused and then host: D1 of the written PNGs
+   against the fixture's ground truth, against the JAX demo's on the same
+   frames (``demo_runs`` of ``torch_cli_reference.json``), each from 8
+   starting points (the weights, and 7 copies with each weight moved by at
+   most one ulp, ``perturbed_weights``): within 0.25 points a frame over
+   the first 3 frames from each, and the 32 frames' D1, averaged over the
+   8, within 3.0 (Adam carries float32 noise into D1, by points a run: see
+   ``DEMO_D1_BOUND``); the fused PNGs' EPE within phase 9's bound of the
+   host's a frame over the first 3 frames, the mean D1 within 3.0; (c)
+   ``--mode FULL``, fused, 8 frames. Per run: one PNG a frame, numbered
+   from 1; the launches the sum of each frame's, by the blocks the session
+   fetched; each CUDA graph holding its branch's launches; Adam's step
+   count on the device one a frame; ``worker.fps`` and ``StepTimer``'s
+   ``avg_ms`` printed.
 
 Prints the card line, the ms/frame of the host and the fused sessions by
 mode and precision, a JSON line of the sixteen kernels, and as the last line
@@ -284,6 +310,35 @@ PHASE10_REFERENCE_RUNS = {
     "train_evaluate_scene": ("train", "scene", TRAIN_FLAGS),
 }
 TRAIN_STEPS = CLI_FRAMES // 4
+# phase 11: the live demo (cli/demo.py), headless, on the same frames: (a)
+# its defaults (rescale to 480x640, crop to 320x512, MAD, PROBABILITY,
+# fused), (b) the full width against the JAX demo (the file's "demo_runs",
+# made by tools/torch_cli_reference.py), fused and host, (c) FULL, fused
+DEMO_FRAMES = 32
+DEMO_FULL_FRAMES = 8
+DEMO_FLAGS = ["--weights", str(CLI_WEIGHTS), "--blockConfig", str(ROOT / "block_config" / "MadNet_full.json"),
+              "--camera", "folder", "--display", "none", "--seed", "0"]
+# The demo adapts with Adam, which divides each weight's gradient by its
+# own size, so where a gradient is near 0 float32 rounding picks the sign of
+# a step of about lr: two correct runs part within a few frames, and their
+# 32 frames' D1 differ by points. Moving each starting weight by at most
+# one ulp does the same (perturbed_weights). Over seeds 0-7 the JAX demo's
+# 32-frame D1 reads 58.555-62.922, the port's on the CPU 58.294-59.349, on
+# the card 57.691-63.466 (56 runs in all, sd 1.38; tools/torch_demo_seeds.py),
+# and the mean of 8 seeds on the card 60.434 in one call and 59.570 in the
+# next. So the port is held to the JAX demo a frame at a time over the
+# first DEMO_EARLY_FRAMES frames, before the runs part, at CLI_D1_BOUND,
+# from each of DEMO_SEEDS starting points; and the mean over those
+# starting points of the 32 frames' D1 at DEMO_D1_BOUND, some 4 sd of the
+# difference of two such means (1.38 * sqrt(2 / 8)): it catches a fault of
+# the later frames, not a drift
+DEMO_EARLY_FRAMES = 3
+DEMO_D1_BOUND = 3.0
+DEMO_SEEDS = 8
+DEMO_REFERENCE_RUNS = {
+    "demo_scene_MAD": ["--imageShape", "-1", "--cropShape", str(H), str(W), "--mode", "MAD",
+                       "--sampleMode", "SEQUENTIAL"],
+}
 
 
 def write_cli_list(directory, scenes, n: int, proxy: bool = False) -> str:
@@ -297,6 +352,47 @@ def write_cli_list(directory, scenes, n: int, proxy: bool = False) -> str:
         s = scenes[i % len(scenes)]
         lines.append(",".join(str(FIXTURE_DIR / f"{s}_{part}.png") for part in parts))
     path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def demo_png_metrics(out_dir, list_file, crop=(H, W)):
+    """(file names, per-frame EPE, per-frame D1) of the demo's PNGs
+    ``disparity_00001.png`` ... (frame i of the list is PNG i + 1) against
+    the list's ground truth, centre-cropped to ``crop`` as the demo crops
+    its frames; the metrics of ``adapt/engine.py::d1_metric`` on the PNGs'
+    ``disp * 256`` steps."""
+    from real_time_self_adaptive_deep_stereo_torch.data.png import read_png
+    from real_time_self_adaptive_deep_stereo_torch.data.readers import center_crop_or_pad, read_list_file
+
+    _, _, gts, _ = read_list_file(str(list_file))
+    files = sorted(f for f in Path(out_dir).iterdir() if f.suffix == ".png")
+    epe, d1 = [], []
+    for i, f in enumerate(files):
+        disp = read_png(str(f)).astype(np.float32) / 256.0
+        gt = center_crop_or_pad(read_png(gts[i]).astype(np.float32)[..., None] / 256.0, *crop)[..., 0]
+        valid = gt > 0
+        err = np.abs(disp - gt)
+        n = max(int(valid.sum()), 1)
+        d1.append(100.0 * float((valid & (err > 3.0) & (err / np.maximum(gt, 1e-9) >= 0.05)).sum()) / n)
+        epe.append(float(np.where(valid, err, 0.0).sum()) / n)
+    return [f.name for f in files], np.asarray(epe), np.asarray(d1)
+
+
+def perturbed_weights(seed: int, directory) -> str:
+    """The demo's starting weights for ``seed``: ``CLI_WEIGHTS`` itself
+    for seed 0, else a copy in ``directory`` in which each float32 weight
+    is moved one ulp up, one ulp down or kept, drawn from
+    ``numpy.random.default_rng(seed)`` over the arrays in name order."""
+    if seed == 0:
+        return str(CLI_WEIGHTS)
+    rng = np.random.default_rng(seed)
+    with np.load(CLI_WEIGHTS) as z:
+        weights = {k: z[k] for k in sorted(z.files)}
+    for k, w in weights.items():
+        step = rng.integers(-1, 2, size=w.shape)
+        weights[k] = np.where(step == 0, w, np.nextafter(w, np.where(step > 0, np.inf, -np.inf).astype(w.dtype)))
+    path = Path(directory) / f"weights_scene01_seed{seed}.npz"
+    np.savez(path, **weights)
     return str(path)
 
 _JAX_OPS = "real_time_self_adaptive_deep_stereo_tpu/ops"
@@ -2141,6 +2237,47 @@ def first_last(series, k=8):
     return float(np.mean(series[:k])), float(np.mean(series[-k:]))
 
 
+def check_loader(frame_ms):
+    """The native loader on the card: its build, route and workers printed;
+    it must build (the Python backend would hide it). Then 32 frames of
+    phase 9's list at 320x1216 through it and through the Python backend:
+    bit for bit, each backend's frames/s printed; and ``auto`` takes it."""
+    import tempfile
+
+    from real_time_self_adaptive_deep_stereo_torch.data.readers import StereoDataset
+    from real_time_self_adaptive_deep_stereo_torch.runtime import native
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_cli_list(tmp, CLI_SCENES["scene"], CLI_FRAMES)
+        kw = dict(batch_size=1, crop_shape=(H, W), num_epochs=1, is_training=False, shuffle=False)
+        auto = StereoDataset(path, **kw)
+        log(f"native loader: available {ok}, build_error {native.build_error()!r}, route {native.route()!r}, "
+            f"num_workers {auto.num_workers} ({max(2, auto.num_workers)} threads), 8 frames ahead; "
+            f"build and load {build_s:.2f} s")
+        if not ok:
+            raise AssertionError(f"the native loader did not build on the card: {native.build_error()}")
+        if auto.backend != "native":
+            raise AssertionError(f"StereoDataset(backend='auto') took {auto.backend!r}")
+        decoded = {}
+        for backend in ("native", "python"):
+            t0 = time.perf_counter()
+            decoded[backend] = list(StereoDataset(path, backend=backend, **kw))
+            frame_ms[f"LOADER_{backend.upper()}_FRAME"] = (time.perf_counter() - t0) * 1e3 / CLI_FRAMES
+        for a, b in zip(decoded["native"], decoded["python"]):
+            for k in ("left", "right", "target"):
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"native loader: {k} differs from the Python backend's")
+        if len(decoded["native"]) != CLI_FRAMES:
+            raise AssertionError(f"native loader: {len(decoded['native'])} frames, want {CLI_FRAMES}")
+    log(f"native loader: {CLI_FRAMES} frames at {H}x{W} (left, right, 16-bit gt) bit for bit equal to the Python "
+        f"backend's; {1e3 / frame_ms['LOADER_NATIVE_FRAME']:.1f} frames/s "
+        f"({frame_ms['LOADER_NATIVE_FRAME']:.2f} ms a frame) against the Python backend's "
+        f"{1e3 / frame_ms['LOADER_PYTHON_FRAME']:.1f} ({frame_ms['LOADER_PYTHON_FRAME']:.2f} ms)")
+
+
 def run_cli_phase(state, profile_dir):
     """Phase 9: the ``adapt`` and ``evaluate`` CLIs (``main``, in-process)
     on the real frames of ``tests/fixtures/realworld`` at 320x1216, from
@@ -2156,6 +2293,7 @@ def run_cli_phase(state, profile_dir):
     doc = json.loads(CLI_REFERENCE.read_text())
     reference, witness = doc["runs"], (doc["strict_runs"], doc["port_cpu_runs"])
     launches, frame_ms = {}, {}
+    check_loader(frame_ms)  # the CLIs below decode through it
 
     # PNG decoding on this host: a frame's three PNGs in one sweep, and one RGB image alone
     frame_pngs = [str(FIXTURE_DIR / f"scene2_{k}.png") for k in ("left", "right", "gt")]
@@ -2636,6 +2774,158 @@ def run_train_phase(state, profile_dir):
     return launches, ms
 
 
+# ----------------------------------------------------------------- phase 11
+def run_demo(tag, argv, n, launches):
+    """``cli/demo.py``'s ``main`` on ``argv`` with the launch counters set to
+    0 just before and read just after; the frame loop (``RealTimeStereo``)
+    is kept as ``main`` builds it. Returns (the worker, its FPS, wall s)."""
+    from real_time_self_adaptive_deep_stereo_torch.cli import demo
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    captured = {}
+    base = demo.RealTimeStereo
+
+    class Kept(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            captured["worker"] = self
+
+    demo.RealTimeStereo = Kept
+    try:
+        args = demo.build_argparser().parse_args(argv)
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        fps = demo.main(args)
+        wall = time.perf_counter() - t0
+    finally:
+        demo.RealTimeStereo = base
+    launches[tag] = dict(cuda_lib.LAUNCHES)
+    worker = captured["worker"]
+    out = Path(args.outDir)
+    names = sorted(f.name for f in out.iterdir())
+    if names != [f"disparity_{i:05d}.png" for i in range(1, n + 1)] or len(worker.frame_times) != n:
+        raise AssertionError(f"{tag}: {len(worker.frame_times)} frames gave {names}, want {n} PNGs")
+    return worker, fps, wall
+
+
+def check_demo_launches(tag, worker, n, per_frame, launched):
+    """The run's launches ``launched`` are the sum of ``per_frame(block)`` over the
+    frames, the blocks as the session counted them; each captured graph
+    holds its branch's frame; Adam's step count on the device advanced once
+    a training frame."""
+    session = worker.session
+    fused = hasattr(session, "graph_launches")
+    fetched = session.fetch_counter.cpu().tolist() if fused else list(session.stats.fetch_counter)
+    blocks = [k for k, c in enumerate(fetched) for _ in range(c)] or [None] * n
+    want = {}
+    for k in blocks:
+        for name, v in per_frame(k).items():
+            want[name] = want.get(name, 0) + v
+    counts = {k: v for k, v in launched.items() if v}
+    if counts != {k: v for k, v in want.items() if v} or len(blocks) != n:
+        raise AssertionError(f"{tag}: launches {counts}, want {want} (blocks fetched {fetched})")
+    if fused:
+        for branch, got in session.graph_launches.items():
+            if got != {k: v for k, v in per_frame(branch[1][0] if branch[0] == "mad" else None).items() if v}:
+                raise AssertionError(f"{tag}: graph {branch} holds {got}")
+        t = int(session.opt["t"].item())
+        if t != n:
+            raise AssertionError(f"{tag}: Adam's step count {t} after {n} training frames")
+    return fetched
+
+
+def run_demo_phase(state, profile_dir):
+    """Phase 11: ``cli/demo.py`` headless (``--camera folder --display
+    none``), MADNet, ``MadNet_full.json``, from ``weights_scene01.npz``, on
+    the real frames of phase 9. Returns (launches by path, ms by path)."""
+    import tempfile
+
+    del state, profile_dir  # the fixture's trained weights; nothing profiled
+    reference = json.loads(CLI_REFERENCE.read_text())["demo_runs"]
+    launches, ms = {}, {}
+    full = cli_launches("FULL", 0)
+    mad = lambda k: cli_launches("MAD", k)  # noqa: E731  (MADNet with the bulkhead, `cuda` warps)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lst = write_cli_list(tmp, CLI_SCENES["scene"], DEMO_FRAMES)
+
+        def demo(tag, extra, n, per_frame, record=True):
+            argv = [*DEMO_FLAGS, "--list", lst, "--outDir", str(tmp / tag), "--maxFrames", str(n), *extra]
+            counted = {}
+            worker, fps, wall = run_demo(tag, argv, n, counted)
+            fetched = check_demo_launches(tag, worker, n, per_frame, counted[tag])
+            if not record:  # another starting point of a recorded run: checked, not printed
+                return worker
+            launches.update(counted)
+            ms[f"{tag}_FRAME"] = 1e3 / float(fps)
+            ms[f"{tag}_FRAME_MEDIAN"] = 1e3 * statistics.median(worker.frame_times)
+            ms[f"{tag}_BETWEEN_FRAMES"] = worker.timer.avg_ms
+            log(f"{tag}: {n} frames, {n} PNGs; worker.fps {fps:.2f} ({1e3 / fps:.2f} ms a frame after the first 3, "
+                f"the rescale, crop, step and fetch; median {ms[f'{tag}_FRAME_MEDIAN']:.2f} ms), StepTimer avg_ms "
+                f"{worker.timer.avg_ms:.2f} between frames "
+                f"({worker.timer.fps:.2f} FPS, the grabber's decode included); wall {wall:.2f} s with set-up; "
+                f"blocks fetched {fetched}; launches {({k: v for k, v in counted[tag].items() if v})}")
+            return worker
+
+        # (a) the defaults: 480x640 rescaled, 320x512 cropped, MAD, PROBABILITY, fused
+        worker = demo("DEMO_DEFAULTS_MAD_FUSED", [], DEMO_FRAMES, mad)
+        if worker.session.disp_dtype != torch.float16 or worker.session.compute_metrics:
+            raise AssertionError("demo: the fused session must serve fp16 disparities without metrics")
+
+        # (b) the full width, SEQUENTIAL, against the JAX demo; fused, then
+        # host, each from the DEMO_SEEDS starting points of the JAX rows
+        flags = DEMO_REFERENCE_RUNS["demo_scene_MAD"]
+        ref = reference["demo_scene_MAD"]
+        rows = ref["seeds"]
+        if ref["frames"] != DEMO_FRAMES or [r["seed"] for r in rows] != list(range(DEMO_SEEDS)):
+            raise AssertionError(f"demo: the JAX rows hold {ref['frames']} frames, seeds {[r['seed'] for r in rows]}")
+        weights = [perturbed_weights(seed, tmp) for seed in range(DEMO_SEEDS)]
+        jax_d1 = np.asarray([r["avg_d1"] for r in rows])
+        early = slice(0, DEMO_EARLY_FRAMES)
+        metrics = {}
+        for session in ("fused", "host"):
+            tag = f"DEMO_FULLWIDTH_MAD_{session.upper()}"
+            epes, d1s = [], []
+            for seed, row in enumerate(rows):
+                run = tag if seed == 0 else f"{tag}_SEED{seed}"
+                demo(run, [*flags, "--sessionMode", session, "--weights", weights[seed]], DEMO_FRAMES, mad,
+                     record=seed == 0)
+                _, epe, d1 = demo_png_metrics(tmp / run, lst)
+                early_delta = float(np.max(np.abs(d1[early] - np.asarray(row["d1"])[early])))
+                log(f"{tag} seed {seed} against the JAX demo's from the same weights: the first "
+                    f"{DEMO_EARLY_FRAMES} frames within {early_delta:.4f} D1 a frame (bound {CLI_D1_BOUND}); "
+                    f"D1 {d1.mean():.3f} vs {row['avg_d1']:.3f}, EPE {epe.mean():.4f} vs {row['avg_epe']:.4f}; "
+                    f"per frame less the JAX demo's {np.round(d1 - np.asarray(row['d1']), 3).tolist()}")
+                if not early_delta <= CLI_D1_BOUND:
+                    raise AssertionError(f"{run}: D1 {d1.tolist()} against the JAX demo's {row['d1']}")
+                epes.append(epe)
+                d1s.append(d1)
+            metrics[session] = (np.asarray(epes), np.asarray(d1s))
+            port_d1 = metrics[session][1].mean(axis=1)
+            delta = float(port_d1.mean() - jax_d1.mean())
+            log(f"{tag} against the JAX demo (demo_scene_MAD, host, CPU) over {DEMO_SEEDS} starting points: mean "
+                f"D1 {port_d1.mean():.3f} vs {jax_d1.mean():.3f} (delta {delta:+.4f}, bound {DEMO_D1_BOUND}); "
+                f"median {np.median(port_d1):.3f} vs {np.median(jax_d1):.3f}; D1 by seed "
+                f"{np.round(port_d1, 3).tolist()} against {np.round(jax_d1, 3).tolist()}")
+            if not abs(delta) <= DEMO_D1_BOUND:
+                raise AssertionError(f"{tag}: mean D1 by seed {port_d1.tolist()} against the JAX demo's "
+                                     f"{jax_d1.tolist()}")
+        (fe, fd), (he, hd) = metrics["fused"], metrics["host"]
+        epe_err = float(np.max(np.abs(fe[:, early] - he[:, early]) / he[:, early]))
+        d1_delta = float(fd.mean() - hd.mean())
+        log(f"demo full width, fused (fp16 disparity) against host from the same weights: EPE within {epe_err:.3g} "
+            f"relative a frame over the first {DEMO_EARLY_FRAMES} (bound {CLI_TRAJ_EPE_RTOL}), "
+            f"{float(np.max(np.abs(fe - he) / he)):.3g} over all {DEMO_FRAMES}; mean D1 over the {DEMO_SEEDS} "
+            f"starting points {fd.mean():.3f} vs {hd.mean():.3f} (delta {d1_delta:+.4f}, bound {DEMO_D1_BOUND})")
+        if not (epe_err <= CLI_TRAJ_EPE_RTOL and abs(d1_delta) <= DEMO_D1_BOUND):
+            raise AssertionError("demo full width: fused and host disagree")
+
+        # (c) FULL, fused, at the defaults' shape
+        demo("DEMO_DEFAULTS_FULL_FUSED", ["--mode", "FULL"], DEMO_FULL_FRAMES, lambda k: full)
+    log("phase 11 done")
+    return launches, ms
+
+
 def profile_frames(session, frames, out: Path, tag: str):
     """Kernel time by name over a few steady frames (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2724,6 +3014,8 @@ def main() -> int:
                     help="run the CLI phase (9) alone, without the result lines")
     ap.add_argument("--train-only", action="store_true",
                     help="run the continual-adaptation and training phase (10) alone, without the result lines")
+    ap.add_argument("--demo-only", action="store_true",
+                    help="run the live demo's phase (11) alone, without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2773,12 +3065,13 @@ def main() -> int:
         log(card)
         log("precision checked; no result lines (--precision-only)")
         return 0
-    if args.cli_only or args.train_only:
-        _, frame_ms = (run_cli_phase if args.cli_only else run_train_phase)(None, args.profile)
+    if args.cli_only or args.train_only or args.demo_only:
+        phase = run_cli_phase if args.cli_only else run_train_phase if args.train_only else run_demo_phase
+        _, frame_ms = phase(None, args.profile)
         for path, ms in frame_ms.items():
             log(f"session {path} ms {ms!r}")
         log(card)
-        log("CLIs checked; no result lines (--cli-only, --train-only)")
+        log("CLIs checked; no result lines (--cli-only, --train-only, --demo-only)")
         return 0
     if args.fused_only or args.dispnet_only:
         if args.fused_only:
@@ -2801,7 +3094,7 @@ def main() -> int:
     check_steps_against_plain(state)
     check_reset(state)
     for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision, run_cli_phase,
-                  run_train_phase):
+                  run_train_phase, run_demo_phase):
         phase_launches, phase_ms = phase(state, args.profile)
         launches.update(phase_launches)
         frame_ms.update(phase_ms)

@@ -131,6 +131,7 @@ def main(args, device=None) -> dict:
         is_training=False,
         shuffle=False,
     )
+    print(f"Decoding frames with {dataset.decoding()}", flush=True)
 
     model_kwargs = {"seed": args.seed or 0}
     if args.modelName == "MADNet":

@@ -99,6 +99,7 @@ def main(args, device=None) -> dict:
         shuffle=False,
         load_proxy=True,
     )
+    print(f"Decoding frames with {dataset.decoding()}", flush=True)
 
     model_kwargs = {"seed": args.seed or 0}
     if args.modelName == "MADNet":

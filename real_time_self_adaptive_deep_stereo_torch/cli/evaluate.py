@@ -103,6 +103,7 @@ def main(args, device=None) -> dict:
         is_training=False,
         shuffle=False,
     )
+    print(f"Decoding frames with {dataset.decoding()}", flush=True)
     n_frames = len(dataset)
     model = load_model(args, device)
 

@@ -140,6 +140,7 @@ def main(args, device=None) -> dict:
         shuffle=True,
         seed=args.seed,
     )
+    print(f"Decoding frames with {train_set.decoding()}", flush=True)
     val_set = (
         StereoDataset(
             args.validationSet,

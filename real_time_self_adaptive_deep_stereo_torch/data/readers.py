@@ -13,12 +13,14 @@ its order:
 * epoch repeat, shuffling, fixed-size batches, the eval remainder kept;
 * a device prefetcher that keeps batches on the card ahead of use.
 
-Images are decoded by :mod:`.png` (numpy and ``zlib``), where the JAX
-package calls ``cv2``; so the readers take PNG images and PNG or PFM
-ground truth. ``augment``'s hue shift runs matplotlib's RGB/HSV
+In the Python backend images are decoded by :mod:`.png` (numpy and
+``zlib``), where the JAX package calls ``cv2``; so it takes PNG images and
+PNG or PFM ground truth. ``backend="native"`` decodes in the C++ loader of
+:mod:`..runtime.native` (threads, in-order delivery; PNG, JPEG where
+libjpeg is there, PFM, PGM/PPM), as the JAX package does wherever that
+loader builds. ``augment``'s hue shift runs matplotlib's RGB/HSV
 conversions, copied here in numpy (the GPU's machine may have no
-matplotlib). Not ported, raising ``NotImplementedError``: the C++ loader
-(``backend="native"``; ``ROADMAP.md``, queue 1, the native loader).
+matplotlib).
 """
 
 from __future__ import annotations
@@ -270,10 +272,14 @@ class StereoDataset:
     semantics. Yields dict batches of float32 numpy arrays:
     ``left``/``right`` [B,H,W,3], ``target`` [B,H,W,1] and, when a 4th
     CSV column exists and ``load_proxy``, ``proxy`` [B,H,W,1] plus
-    ``real_width`` [B]. Frames are decoded in a background thread;
-    ``backend`` ``auto`` is ``python``, the only one ported. Training
-    draws the shuffle, then each frame's crop and ``augment`` from one
-    ``rng``, in the JAX package's order."""
+    ``real_width`` [B]. ``backend``: ``native``, the C++ loader with
+    ``num_workers`` threads (at least 2) and 8 samples ahead, whose
+    training crops draw from per-sample seeds ``(seed << 20) + n``;
+    ``python``, one background thread, which draws the shuffle, then each
+    frame's crop and ``augment`` from one ``rng``; ``auto``, ``native``
+    where the loader builds and ``augment`` is off (augmentation is
+    Python's), else ``python``. Either way in the JAX package's order.
+    ``backend`` keeps the one taken."""
 
     def __init__(
         self,
@@ -286,14 +292,13 @@ class StereoDataset:
         shuffle: bool = True,
         load_proxy: bool = False,
         seed: Optional[int] = None,
+        num_workers: int = 2,
         backend: str = "auto",
     ):
-        if backend == "native":
-            raise NotImplementedError(
-                "the C++ loader is not ported: ROADMAP.md, queue 1, the native loader"
-            )
-        if backend not in ("auto", "python"):
+        if backend not in ("auto", "python", "native"):
             raise ValueError(f"unknown backend {backend!r}")
+        if backend == "native" and augment:
+            raise ValueError("augment runs in Python: take backend 'python' or 'auto' with it")
         if not os.path.exists(path_file):
             raise FileNotFoundError(f"dataset list not found: {path_file}")
         left, right, gt, extra = read_list_file(path_file)
@@ -307,9 +312,23 @@ class StereoDataset:
         self.shuffle = shuffle
         self.seed = seed
         self.rng = np.random.default_rng(seed)
+        self.num_workers = max(1, num_workers)
+        self.backend = backend
+        if backend == "auto":
+            from real_time_self_adaptive_deep_stereo_torch.runtime import native
+
+            self.backend = "native" if (native.available() and not augment) else "python"
 
     def __len__(self) -> int:
         return len(self.samples)
+
+    def decoding(self) -> str:
+        """How the frames are decoded, for a CLI to print once."""
+        if self.backend == "native":
+            from real_time_self_adaptive_deep_stereo_torch.runtime import native
+
+            return f"the native loader, {max(2, self.num_workers)} threads ({native.route()})"
+        return "Python, one thread (data/png.py)"
 
     def get_max_steps(self) -> int:
         epochs = self.num_epochs if self.num_epochs else 1
@@ -356,8 +375,11 @@ class StereoDataset:
             epoch += 1
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        """Yield batches, decoded in a Python background thread. An error
-        there is raised here, in the consumer."""
+        """Yield batches, decoded by the C++ loader or in a Python
+        background thread. A decode error is raised here, in the consumer."""
+        if self.backend == "native":
+            yield from self._iter_native()
+            return
         q: queue.Queue = queue.Queue(maxsize=8)
         stop = threading.Event()
         failure: List[BaseException] = []
@@ -392,6 +414,48 @@ class StereoDataset:
                 yield item
         finally:
             stop.set()
+
+    def _iter_native(self) -> Iterator[Dict[str, np.ndarray]]:
+        from real_time_self_adaptive_deep_stereo_torch.runtime.native import NativeStereoLoader
+
+        loader = NativeStereoLoader(workers=max(2, self.num_workers), crop_shape=self.crop_shape)
+        base_seed = self.seed if self.seed is not None else 0
+        # the index stream is read as it is needed: with num_epochs None it
+        # has no end (the JAX package's loader lists it first, and hangs)
+        indices = self._index_stream()
+        try:
+            submitted = 0
+            delivered = 0
+            batch: List[Dict[str, np.ndarray]] = []
+            ahead = 8
+            while True:
+                while submitted - delivered < ahead:
+                    idx = next(indices, None)
+                    if idx is None:
+                        break
+                    lp, rp, gp = self.samples[int(idx)]
+                    pp = self.proxies[int(idx)] if self.proxies is not None else ""
+                    loader.submit(
+                        lp, rp, gp or "", pp,
+                        train=self.is_training,
+                        seed=(base_seed << 20) + submitted,
+                    )
+                    submitted += 1
+                if delivered == submitted:
+                    break
+                sample = loader.next()
+                delivered += 1
+                if self.proxies is None:
+                    sample.pop("proxy", None)
+                    sample.pop("real_width", None)
+                batch.append(sample)
+                if len(batch) == self.batch_size:
+                    yield self._stack(batch)
+                    batch = []
+            if batch and not self.is_training:
+                yield self._stack(batch)
+        finally:
+            loader.close()
 
     @staticmethod
     def _stack(batch: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

@@ -1,13 +1,14 @@
 """Visualisation / serialisation helpers.
 
 Port of ``real_time_self_adaptive_deep_stereo_tpu/utils/visual.py``:
-``colorize_disparity`` maps a disparity map through the ``jet`` colour
-map (reference ``preprocessing.colorize_img``,
-Data_utils/preprocessing.py:91-117) for logging; ``save_disparity_png``
-writes the 16-bit ``disparity * 256`` PNGs the reference emits
-(Stereo_Online_Adaptation.py:246-251), through :mod:`..data.png`. Neither
-needs matplotlib, which the GPU's machine may lack: the ``jet`` table is
-built here as matplotlib builds it.
+``colorize_disparity`` maps a disparity map through a colour map
+(reference ``preprocessing.colorize_img``, Data_utils/preprocessing.py:
+91-117) for logging and the demo's window; ``save_disparity_png`` writes
+the 16-bit ``disparity * 256`` PNGs the reference emits
+(Stereo_Online_Adaptation.py:246-251), through :mod:`..data.png`. The
+GPU's machine may lack matplotlib: ``jet``, the reference's map, is built
+here as matplotlib builds it; any other name is matplotlib's, and is
+refused where matplotlib does not import.
 """
 
 from __future__ import annotations
@@ -50,10 +51,18 @@ def _jet_table() -> np.ndarray:
 def colorize_disparity(
     disp: np.ndarray, vmin=None, vmax=None, cmap: str = "jet"
 ) -> np.ndarray:
-    """[H,W] or [H,W,1] disparity -> [H,W,3] float RGB in 0..1. Only
-    ``cmap="jet"`` is ported (the JAX function takes any matplotlib name)."""
-    if cmap != "jet":
-        raise ValueError(f"only the 'jet' colour map is ported, not {cmap!r}")
+    """[H,W] or [H,W,1] disparity -> [H,W,3] float RGB in 0..1 through the
+    colour map ``cmap``: ``jet`` built here, any other matplotlib's."""
+    if cmap == "jet":
+        table = _jet_table()
+    else:
+        try:
+            from matplotlib import colormaps
+        except ImportError as e:
+            raise ValueError(
+                f"colour map {cmap!r} needs matplotlib, which is not installed; only 'jet' is built in"
+            ) from e
+        table = colormaps[cmap](np.arange(256))[:, :3]
     d = np.asarray(disp, np.float32)
     if d.ndim == 3:
         d = d[..., 0]
@@ -62,7 +71,7 @@ def colorize_disparity(
     vmax = d.max() if vmax is None else vmax
     norm = np.clip((d - vmin) / max(vmax - vmin, 1e-12), 0, 1)
     idx = np.round(norm * 255).astype(np.int32)
-    return _jet_table()[idx]
+    return table[idx]
 
 
 def save_disparity_png(path: str, disp: np.ndarray, max_disp: float = 256.0) -> None:

@@ -723,12 +723,9 @@ def _smooth_frames(n, h, w, seed):
     return out
 
 
-def test_fused_mad_step_replayed_equals_eager(dev):
-    """A MAD session whose steps are replayed CUDA graphs against the same
-    session run eagerly, with the tiled warps: losses to 1e-5 relative
-    (cuDNN's backward is not run-to-run deterministic), the same blocks'
-    ranges moved, launches counted per replay, and no host sync in the
-    replayed frames."""
+def _fixed_mad_session(use_graphs, warp_mode="auto", optimizer="momentum", **kw):
+    """A fused MAD session on MADNet (bulkhead, seed 0) that trains block 3
+    every frame and never resets."""
     from real_time_self_adaptive_deep_stereo_torch.adapt import (
         AdaptationEngine,
         FusedOnlineSession,
@@ -737,23 +734,31 @@ def test_fused_mad_step_replayed_equals_eager(dev):
         make_blocks,
     )
 
+    model = get_stereo_net("MADNet", bulkhead=True, warp_mode=warp_mode, seed=0)
+    with torch.no_grad():  # predictions of 20 px plus a few, so that gradients flow
+        for name, p in model.named_parameters():
+            layer, leaf = name.split(".")[1:]
+            if leaf == "weight" and layer in ("disp6", "context7"):
+                p.mul_(0.02)
+            if leaf == "bias" and layer == "disp6":
+                p.fill_(-1.0)
+    blocks = make_blocks(load_block_config(default_block_config_path("MADNet")), model)
+    eng = AdaptationEngine(model, blocks, lr=1e-4, warp_mode=warp_mode, optimizer=optimizer)
+    return FusedOnlineSession(
+        eng, mode="MAD", sample_mode="FIXED", fixed_id=3, ssim_th=1e9, max_steps=8, use_graphs=use_graphs, **kw
+    )
+
+
+def test_fused_mad_step_replayed_equals_eager(dev):
+    """A MAD session whose steps are replayed CUDA graphs against the same
+    session run eagerly, with the tiled warps: losses to 1e-5 relative
+    (cuDNN's backward is not run-to-run deterministic), the same blocks'
+    ranges moved, launches counted per replay, and no host sync in the
+    replayed frames."""
     frames = _smooth_frames(6, 128, 256, 31)
 
     def session(use_graphs):
-        model = get_stereo_net("MADNet", bulkhead=True, warp_mode="mxu", seed=0)
-        with torch.no_grad():  # predictions of 20 px plus a few, so that gradients flow
-            for name, p in model.named_parameters():
-                layer, leaf = name.split(".")[1:]
-                if leaf == "weight" and layer in ("disp6", "context7"):
-                    p.mul_(0.02)
-                if leaf == "bias" and layer == "disp6":
-                    p.fill_(-1.0)
-        blocks = make_blocks(load_block_config(default_block_config_path("MADNet")), model)
-        eng = AdaptationEngine(model, blocks, lr=1e-4, warp_mode="mxu")
-        return FusedOnlineSession(
-            eng, mode="MAD", sample_mode="FIXED", fixed_id=3, ssim_th=1e9, max_steps=8,
-            use_graphs=use_graphs,
-        )
+        return _fixed_mad_session(use_graphs, warp_mode="mxu")
 
     eager, graphed = session(False), session(True)
     for f in frames:
@@ -783,6 +788,48 @@ def test_fused_mad_step_replayed_equals_eager(dev):
     scale = float((eager.arena.flat - eager.arena.flat0).abs().max())
     assert float((graphed.arena.flat - eager.arena.flat).abs().max()) <= 1e-2 * scale
     assert not eager._graphs
+
+
+def test_fused_adam_step_replayed_equals_eager(dev):
+    """The live demo's optimizer: one MAD step with Adam captured in a CUDA
+    graph and replayed, against the same session run eagerly. Adam's step
+    count lives on the device, and each replay advances it once."""
+    frames = _smooth_frames(4, 128, 256, 41)
+    eager = _fixed_mad_session(False, optimizer="adam")
+    graphed = _fixed_mad_session(True, optimizer="adam")
+    for i, f in enumerate(frames):
+        eager.step(f)
+        graphed.step(f)
+        assert int(graphed.opt["t"].item()) == int(eager.opt["t"].item()) == i + 1
+    assert set(graphed._graphs) == {("mad", (3,))} and not eager._graphs
+    a, b = graphed.finalize(), eager.finalize()
+    np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+    for k in ("m", "v"):
+        scale = float(eager.opt[k][0].abs().max())
+        assert scale > 0 and float((graphed.opt[k][0] - eager.opt[k][0]).abs().max()) <= 1e-2 * scale
+    scale = float((eager.arena.flat - eager.arena.flat0).abs().max())
+    assert scale > 0 and float((graphed.arena.flat - eager.arena.flat).abs().max()) <= 1e-2 * scale
+
+
+def test_fused_fp16_pipelined_disparity_matches_fp32(dev):
+    """The demo's serving shape: ``step_pipelined`` with an fp16 disparity
+    cast inside the graph, without metrics, against the same session with
+    float32: one frame late (None first, the last from ``flush_disp``), and
+    each disparity the float32 one within fp16 rounding (half an fp16 ulp,
+    plus what cuDNN's run-to-run backward moves the weights)."""
+    frames = [{k: v for k, v in f.items() if k != "target"} for f in _smooth_frames(5, 128, 256, 43)]
+    out = {}
+    for dtype in (torch.float16, torch.float32):
+        session = _fixed_mad_session(True, optimizer="adam", compute_metrics=False, disp_dtype=dtype)
+        got = [session.step_pipelined(f) for f in frames]
+        assert got[0] is None
+        out[dtype] = got[1:] + [session.flush_disp()]
+        assert session.flush_disp() is None
+    for half, full in zip(out[torch.float16], out[torch.float32]):
+        assert half.dtype == np.float16 and full.dtype == np.float32 and half.shape == full.shape
+        ulp = np.spacing(np.abs(full).astype(np.float16)).astype(np.float32)
+        err = np.abs(half.astype(np.float32) - full) - (0.5 * ulp + 1e-5 * float(np.abs(full).max()))
+        assert err.max() <= 0
 
 
 # ------------------------------------------------ bf16: the precision modes

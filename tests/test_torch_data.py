@@ -276,7 +276,8 @@ def tiny_list(tmp_path_factory):
     ids=["eval", "train", "proxy"],
 )
 def test_stereo_dataset_matches_jax(tiny_list, kw):
-    got = list(tr.StereoDataset(tiny_list, **kw))
+    """The Python backends (the native loaders: tests/test_torch_runtime.py)."""
+    got = list(tr.StereoDataset(tiny_list, backend="python", **kw))
     want = list(jr.StereoDataset(tiny_list, backend="python", **kw))
     assert len(got) == len(want) == (2 if not kw["is_training"] else 3)
     for g, w in zip(got, want):
@@ -289,13 +290,14 @@ def test_stereo_dataset_matches_jax(tiny_list, kw):
 
 
 def test_stereo_dataset_refuses_what_is_not_ported(tiny_list):
+    """Every backend is ported now (the native one: tests/test_torch_runtime.py);
+    an unknown one is refused, and "auto" decodes as "python" does."""
     assert tr.StereoDataset(tiny_list, augment=True).augment  # ported: tests/test_torch_train.py
-    with pytest.raises(NotImplementedError, match="the native loader"):
-        tr.StereoDataset(tiny_list, backend="native")
+    assert tr.StereoDataset(tiny_list, backend="native").backend == "native"
     with pytest.raises(ValueError, match="unknown backend"):
         tr.StereoDataset(tiny_list, backend="cv2")
     kw = dict(batch_size=2, crop_shape=(32, 48), num_epochs=1, is_training=False, shuffle=False)
-    auto = list(tr.StereoDataset(tiny_list, **kw))  # "auto" is the Python backend
+    auto = list(tr.StereoDataset(tiny_list, **kw))  # the native loader, where it builds
     python = list(tr.StereoDataset(tiny_list, backend="python", **kw))
     for a, p in zip(auto, python):
         np.testing.assert_array_equal(a["left"], p["left"])
@@ -305,7 +307,8 @@ def test_stereo_dataset_raises_a_decode_error(tmp_path):
     path = tmp_path / "bad.csv"
     (tmp_path / "x.png").write_bytes(b"not a png")
     path.write_text(f"{tmp_path / 'x.png'},{tmp_path / 'x.png'},\n")
-    ds = tr.StereoDataset(str(path), batch_size=1, num_epochs=1, is_training=False, crop_shape=(4, 4))
+    ds = tr.StereoDataset(str(path), batch_size=1, num_epochs=1, is_training=False, crop_shape=(4, 4),
+                          backend="python")  # the native loader's error: tests/test_torch_runtime.py
     assert len(ds) == 1
     with pytest.raises(ValueError, match="not a PNG"):
         list(ds)

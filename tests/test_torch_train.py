@@ -146,13 +146,16 @@ def run_train(module, argv, **kw):
 
 @pytest.mark.parametrize("augment", [False, True])
 def test_train_step0_loss_matches_jax(data, augment, monkeypatch):
-    """Without --augment the JAX dataset would decode through its C++
-    loader where one is built, whose crops draw from their own seeds; the
-    port has no such loader (ROADMAP.md, queue 1), so the JAX CLI is held
-    to its Python backend, whose draws the port's dataset makes."""
-    from real_time_self_adaptive_deep_stereo_tpu.runtime import native
+    """Without --augment both CLIs decode through their C++ loaders, whose
+    crops draw from per-sample seeds; with it through their Python
+    backends, which draw from one rng. Where either loader does not build,
+    both are held to their Python backends."""
+    from real_time_self_adaptive_deep_stereo_torch.runtime import native as t_native
+    from real_time_self_adaptive_deep_stereo_tpu.runtime import native as j_native
 
-    monkeypatch.setattr(native, "available", lambda: False)
+    if not (t_native.available() and j_native.available()):
+        monkeypatch.setattr(t_native, "available", lambda: False)
+        monkeypatch.setattr(j_native, "available", lambda: False)
     extra = ["--maxSteps", "1", "--seed", "3"] + (["--augment"] if augment else [])
     want = run_train(j_train, train_argv(data, data["tmp"] / f"jax_{augment}", extra + ["--corrMode", "jnp"]))
     got = run_train(t_train, train_argv(data, data["tmp"] / f"port_{augment}", extra), device="cpu")

@@ -24,6 +24,14 @@ same frames with a proxy column (the scene's ground truth), and
 seed 0) followed by ``cli/evaluate.py`` at ``highest`` on its checkpoint
 (about 6 minutes for the four).
 
+And the row of phase 11 (``chip_smoke.DEMO_REFERENCE_RUNS``, the file's
+``demo_runs``): the JAX demo, ``cli/demo.py --sessionMode host``, headless
+over the same 32 frames at full width, from ``chip_smoke.DEMO_SEEDS``
+starting points (the weights, and copies with each weight moved by at
+most one ulp: ``chip_smoke.perturbed_weights``), and the per-frame EPE and
+D1 of the PNGs it writes (``chip_smoke.demo_png_metrics``; about 7
+minutes).
+
     JAX_PLATFORMS=cpu python tools/torch_cli_reference.py --strict
 
 makes the witness rows of the ``evaluate`` runs (``chip_smoke.CLI_WITNESS_RUNS``)
@@ -138,6 +146,37 @@ def run_phase10(name: str, workdir: str) -> dict:
     return row
 
 
+def demo_argv(name: str, list_path: str, out: str) -> list:
+    """The JAX demo's flags for phase-11 run ``name``, in its host session."""
+    return [*chip_smoke.DEMO_FLAGS, "--list", list_path, "--outDir", out, "--maxFrames",
+            str(chip_smoke.DEMO_FRAMES), *chip_smoke.DEMO_REFERENCE_RUNS[name], "--sessionMode", "host"]
+
+
+def run_demo(name: str, workdir: str) -> dict:
+    """Phase-11 run ``name`` through the JAX demo's ``main``, from each of
+    ``chip_smoke.DEMO_SEEDS`` starting points (``chip_smoke.perturbed_weights``;
+    seed 0 is the weights as they are); the per-frame metrics of the PNGs
+    it writes: seed 0's at the top of the row, every seed's under ``seeds``."""
+    from real_time_self_adaptive_deep_stereo_tpu.cli import demo
+
+    list_path = chip_smoke.write_cli_list(workdir, chip_smoke.CLI_SCENES["scene"], chip_smoke.DEMO_FRAMES)
+    seeds = []
+    for seed in range(chip_smoke.DEMO_SEEDS):
+        out = os.path.join(workdir, f"{name}_seed{seed}")
+        argv = [*demo_argv(name, list_path, out), "--weights", chip_smoke.perturbed_weights(seed, workdir)]
+        t0 = time.perf_counter()
+        demo.main(demo.build_argparser().parse_args(argv))
+        wall = time.perf_counter() - t0
+        names, epe, d1 = chip_smoke.demo_png_metrics(out, list_path)
+        seeds.append({"seed": seed, "frames": len(names), "avg_epe": float(epe.mean()), "avg_d1": float(d1.mean()),
+                      "epe": epe.tolist(), "d1": d1.tolist(), "wall_s": wall})
+        print(f"{name} seed {seed}: D1 {seeds[-1]['avg_d1']:.4f}, {wall:.1f} s", flush=True)
+    first = seeds[0]
+    return {"cli": "demo", "session": "host", "scenes": list(chip_smoke.CLI_SCENES["scene"]),
+            "frames": first["frames"], "argv": portable(demo_argv(name, "LIST", "OUT")),
+            **{k: first[k] for k in ("avg_epe", "avg_d1", "epe", "d1", "wall_s")}, "seeds": seeds}
+
+
 def portable(argv: list) -> list:
     """``argv`` as recorded: paths in the checkout relative to its root."""
     return [a[len(str(ROOT)) + 1:] if a.startswith(str(ROOT) + os.sep) else a for a in argv]
@@ -205,8 +244,10 @@ def run_one(name: str, workdir: str, port: bool = False) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--runs", default=",".join([*chip_smoke.CLI_REFERENCE_RUNS, *chip_smoke.PHASE10_REFERENCE_RUNS]),
-                    help="comma-separated names from chip_smoke.CLI_REFERENCE_RUNS and PHASE10_REFERENCE_RUNS")
+    ap.add_argument("--runs", default=",".join([*chip_smoke.CLI_REFERENCE_RUNS, *chip_smoke.PHASE10_REFERENCE_RUNS,
+                                                *chip_smoke.DEMO_REFERENCE_RUNS]),
+                    help="comma-separated names from chip_smoke.CLI_REFERENCE_RUNS, PHASE10_REFERENCE_RUNS and "
+                         "DEMO_REFERENCE_RUNS")
     ap.add_argument("--json", default=str(chip_smoke.CLI_REFERENCE))
     ap.add_argument("--strict", action="store_true",
                     help="make the witness rows of the evaluate runs instead (see above)")
@@ -216,13 +257,18 @@ def main() -> int:
         names = list(chip_smoke.CLI_WITNESS_RUNS)
     else:
         names = [n for n in args.runs.split(",") if n]
-    unknown = set(names) - set(chip_smoke.CLI_REFERENCE_RUNS) - set(chip_smoke.PHASE10_REFERENCE_RUNS)
+    unknown = (set(names) - set(chip_smoke.CLI_REFERENCE_RUNS) - set(chip_smoke.PHASE10_REFERENCE_RUNS)
+               - set(chip_smoke.DEMO_REFERENCE_RUNS))
     if unknown:
         raise SystemExit(f"unknown runs {sorted(unknown)}")
 
-    rows, port_rows, phase10_rows = {}, {}, {}
+    rows, port_rows, phase10_rows, demo_rows = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:
+            if name in chip_smoke.DEMO_REFERENCE_RUNS:
+                demo_rows[name] = run_demo(name, tmp)
+                print(name, {k: v for k, v in demo_rows[name].items() if k.startswith(("avg", "wall"))}, flush=True)
+                continue
             if name in chip_smoke.PHASE10_REFERENCE_RUNS:
                 phase10_rows[name] = run_phase10(name, tmp)
                 print(name, {k: v for k, v in phase10_rows[name].items() if k.startswith(("avg", "final", "wall"))},
@@ -251,10 +297,14 @@ def main() -> int:
                     "adapt_continual in the host session; conv precision per row), over the list files of "
                     "chip_smoke.write_cli_list. runs: phase 9's; phase10_runs: adapt_continual (its "
                     "proxy column the scene's gt; epe and d1 read back from series.csv, 3 decimals; "
-                    "fetch_counter from histogram.csv), and train then evaluate at highest. wall_s: "
-                    "each run's main(), one after another in one process.")
+                    "fetch_counter from histogram.csv), and train then evaluate at highest; demo_runs: the "
+                    "JAX demo headless in its host session, epe and d1 of the PNGs it writes "
+                    "(chip_smoke.demo_png_metrics), from the weights (the row) and from each of "
+                    "chip_smoke.DEMO_SEEDS starting points (seeds; chip_smoke.perturbed_weights). "
+                    "wall_s: each run's main(), one after another in one process.")
     doc.setdefault("runs", {}).update(rows)
     doc.setdefault("phase10_runs", {}).update(phase10_rows)
+    doc.setdefault("demo_runs", {}).update(demo_rows)
     path.write_text(json.dumps(doc, indent=1) + "\n")
     print(f"wrote {path}")
     return 0
