@@ -2,7 +2,7 @@
 """Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only | --precision-only
-                           | --cli-only | --train-only | --demo-only]
+                           | --cli-only | --train-only | --demo-only | --parallel-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -52,7 +52,8 @@ Phases, each of which raises on failure (nothing is caught):
    ``cli/evaluate.py``; ``corr_bwd`` at MADNet's five scales, K5 at K1's
    last four (every variant) and the wide pair at [4,128,80,304], radius
    40, the shapes of a ``cli/train.py`` step, each backward bit-identical
-   in two runs.
+   in two runs; at batch 2, a data-parallel rank's piece of that step
+   (phase 12), K1 and K3 and their backward kernels again.
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -193,6 +194,41 @@ Phases, each of which raises on failure (nothing is caught):
    fetched; each CUDA graph holding its branch's launches; Adam's step
    count on the device one a frame; ``worker.fps`` and ``StepTimer``'s
    ``avg_ms`` printed.
+12. Several streams and several processes, at 320x1216. (a) The fused
+   session with ``num_streams`` N = 2 and 4, ``stream_impl`` "map" (a
+   graph per stream and branch) and "unroll" (a graph of the N streams'
+   steps per branch they all take), MADNet MAD with the bulkhead, ``warp_mode='mxu'``,
+   SEQUENTIAL, seeds ``[0] * N``, each stream on smooth frames of its own,
+   12 frame-batches: the first round counted frame-batch by frame-batch (5N
+   correlations, the sampled block's backward in each stream), each
+   graph's launches, the rest replayed with every host sync an error; each
+   stream's loss, EPE, fetch counter, scores and weights against a
+   single-stream session (seed 0) over its frames, at phase 6's bounds of a
+   replayed session against the eager one. Prints the graphs captured, ms
+   of device time (CUDA events) and wall time a frame-batch and a frame,
+   the same frames through N single-stream sessions stepped in turn, and
+   peak memory. Then PROBABILITY, N = 4, seeds ``[0, 1, 2, 3]``, 30
+   frame-batches: each stream against the single session with its seed,
+   and the graphs at most 5N ("map") and 5N + 5 ("unroll", which replays
+   map's graphs where the streams' blocks differ). (b) ``parallel.make_dp_train_step``
+   on two ranks of a ``gloo`` group on the one card (this script with
+   ``--dp-rank``, each with a time limit; the kernels built here first),
+   MADNet, 3 steps of a global batch of 4 smooth frames whose ground truth
+   has zeros spread unevenly over the two halves: at every step the loss
+   within 1e-5 relative of one process's on the whole batch at the same
+   weights (a mean of the ranks' own means must miss it), the gradient the
+   step took within 1e-5 of its largest entry of one process's over the
+   same two halves and within STEP_RTOL with the plain modes (the whole
+   batch's printed beside them), the two ranks' weights,
+   loss and gradient equal bit for bit, the losses within 1e-5 of a
+   one-process run's, its weights after the 3 steps at the JAX package's
+   tolerance (rtol 1e-3, atol 1e-6, where the gradient exceeds 1e-3 of its
+   largest entry), each rank's launches counted; the same under NCCL, one
+   GPU a rank, where the machine has two GPUs. (c) ``cli/train.py
+   --dataParallel`` on two ``gloo`` ranks, phase 10's frames, B = 4, 2
+   steps, against the one-process CLI: each step's loss within 1e-4
+   relative, rank 0's one checkpoint, its weights as in (b), rank 0 alone
+   logging. Prints each rank's ms a step beside one process's.
 
 Prints the card line, the ms/frame of the host and the fused sessions by
 mode and precision, a JSON line of the sixteen kernels, and as the last line
@@ -203,8 +239,10 @@ with no result, when no CUDA device is available or the port is missing.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -696,6 +734,7 @@ def check_kernels(ops):
         ))
 
     check_batch_kernels(ops, rows)
+    check_batch_kernels(ops, rows, DP_BATCH // DP_WORLD)
 
     for name, rs in rows.items():
         for r in rs:
@@ -703,9 +742,8 @@ def check_kernels(ops):
             log(f"kernel {name} {r}")
     for name, all_rs in rows.items():  # summed over the main-path shapes
         rs = [r for r in all_rs if "batch" not in r]
-        batch = [r for r in all_rs if "batch" in r]
-        if batch:
-            log(f"kernel {name} at batch {EVAL_BATCH}: {sum(r['ms'] for r in batch):.5f} ms over "
+        for b, batch in by_batch(all_rs).items():
+            log(f"kernel {name} at batch {b}: {sum(r['ms'] for r in batch):.5f} ms over "
                 f"{len(batch)} shape(s), bound {sum(r['bound_ms'] for r in batch):.5f}, "
                 f"plain {sum(r['plain_ms'] for r in batch):.5f}")
         ms, lib_ms = sum(r["ms"] for r in rs), [r["library_ms"] for r in rs]
@@ -866,18 +904,21 @@ def check_bf16_kernels(ops, rows):
         ))
 
 
-def check_batch_kernels(ops, rows):
-    """The kernels at the batch of ``cli/evaluate.py`` and ``cli/train.py``
-    (B = 4; one launch takes the batch, on a grid axis of its own) against
-    their plain versions, timed as at B = 1: K1 (fp32 and its bf16 instance,
-    radius 2) and K3, the evaluation's; its backward ``corr_bwd`` at
-    MADNet's five scales, K5 (``warp_features_bwd``, every variant) at
-    K1's last four and the wide pair at DispNet-Corr1D's [4,128,80,304],
-    radius 40, the training step's, each backward bit-identical in two
-    runs. Rows carry ``batch``; the bounds count the four frames."""
+def check_batch_kernels(ops, rows, b=EVAL_BATCH):
+    """The kernels at the batch ``b`` of ``cli/evaluate.py`` and
+    ``cli/train.py`` (B = 4; one launch takes the batch, on a grid axis of
+    its own) or of a data-parallel rank (phase 12, B = 2) against their
+    plain versions, timed as at B = 1: K1 (fp32, radius 2) and K3, the
+    evaluation's; its backward ``corr_bwd`` at MADNet's five scales, K5
+    (``warp_features_bwd``, every variant) at K1's last four, the training
+    step's, each backward bit-identical in two runs. At B = 4 also K1's
+    bf16 instance and the wide pair at DispNet-Corr1D's [4,128,80,304],
+    radius 40 (phase 12 trains MADNet only). Rows carry ``batch``; the
+    bounds count the ``b`` frames."""
     import torch.nn.functional as F
 
-    b, k = EVAL_BATCH, 2 * RADIUS + 1
+    k = 2 * RADIUS + 1
+    full = b == EVAL_BATCH
     for i, (c, f) in enumerate(CORR_LEVELS):
         shape = (b, c, H // f, W // f)
         n = b * shape[2] * shape[3]
@@ -892,20 +933,21 @@ def check_batch_kernels(ops, rows):
             library_ms=None,
             bound=bound(4.0 * n * (2 * c + k), 2.0 * n * c * k),
         ))
-        xb, yb = x.bfloat16(), y.bfloat16()
-        got, want = ops.correlation_cuda(xb, yb, RADIUS), ops.correlation_torch(xb, yb, RADIUS)
-        abs_fwd = ops.correlation_torch(xb.float().abs(), yb.float().abs(), RADIUS)
-        torch.cuda.synchronize()
-        rows["corr_fwd_bf16"].append(dict(
-            batch=b, shape=list(shape), radius=RADIUS,
-            tol="one bf16 ulp of each entry, plus 2 (n + 2) 2^-24 of its terms' magnitudes (n terms)",
-            err=bf16_err(got, want, abs_fwd, c, f"corr_fwd_bf16 {shape}"),
-            ms=time_ms(lambda: ops.correlation_cuda(xb, yb, RADIUS)),
-            fp32_ms=time_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
-            plain_ms=time_ms(lambda: ops.correlation_torch(xb, yb, RADIUS)),
-            library_ms=None,
-            bound=bound(2.0 * n * (2 * c + k), 2.0 * n * c * k, BF16_FLOPS),
-        ))
+        if full:
+            xb, yb = x.bfloat16(), y.bfloat16()
+            got, want = ops.correlation_cuda(xb, yb, RADIUS), ops.correlation_torch(xb, yb, RADIUS)
+            abs_fwd = ops.correlation_torch(xb.float().abs(), yb.float().abs(), RADIUS)
+            torch.cuda.synchronize()
+            rows["corr_fwd_bf16"].append(dict(
+                batch=b, shape=list(shape), radius=RADIUS,
+                tol="one bf16 ulp of each entry, plus 2 (n + 2) 2^-24 of its terms' magnitudes (n terms)",
+                err=bf16_err(got, want, abs_fwd, c, f"corr_fwd_bf16 {shape}"),
+                ms=time_ms(lambda: ops.correlation_cuda(xb, yb, RADIUS)),
+                fp32_ms=time_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
+                plain_ms=time_ms(lambda: ops.correlation_torch(xb, yb, RADIUS)),
+                library_ms=None,
+                bound=bound(2.0 * n * (2 * c + k), 2.0 * n * c * k, BF16_FLOPS),
+            ))
         g = seeded((b, k, *shape[2:]), 230 + i)
         got = ops.correlation_bwd_cuda(x, y, g, RADIUS)
         again = ops.correlation_bwd_cuda(x, y, g, RADIUS)
@@ -945,6 +987,8 @@ def check_batch_kernels(ops, rows):
             lambda s, o, neg=neg: ops.warp_features_clamped(s, o, neg, MAX_POS),
             FEATURE_MODES,
         ), batch=b))
+    if not full:
+        return
 
     shape, k = (b, *DN_CORR_SHAPE[1:]), 2 * DN_RADIUS + 1
     n, c = b * shape[2] * shape[3], shape[1]
@@ -972,6 +1016,15 @@ def check_batch_kernels(ops, rows):
         library_ms=None,
         bound=bound(4.0 * n * (4 * c + k), 4.0 * n * c * k),
     ))
+
+
+def by_batch(rs):
+    """The rows of ``rs`` taken at a batch, by its size."""
+    out = {}
+    for r in rs:
+        if "batch" in r:
+            out.setdefault(r["batch"], []).append(r)
+    return dict(sorted(out.items()))
 
 
 def check_warp_bwd(name, src, off, seed, grid, padding, kernel, plain_fwd, modes, same_as=None):
@@ -2926,6 +2979,565 @@ def run_demo_phase(state, profile_dir):
     return launches, ms
 
 
+# ----------------------------------------------------------------- phase 12
+STREAM_COUNTS = (2, 4)
+STREAM_IMPLS = ("map", "unroll")
+N_FRAMES_STREAMS = 12  # a round of the five blocks (eager steps and captures), then 7 replayed
+N_FRAMES_STREAMS_PROB = 30  # at N = 4, more tuples of the streams' blocks than the graphs allowed
+DP_WORLD = 2
+DP_BATCH = 4  # two a rank
+DP_STEPS = 3
+DP_TIMED_STEPS = 5
+# the share of each sample's ground truth set to 0: the halves' valid counts differ
+DP_ZERO_SHARE = (0.05, 0.1, 0.5, 0.7)
+DP_LOSS_RTOL = 1e-5
+# of the largest entry, against one process over the ranks' halves of the
+# batch with the kernels (the collectives); against it with the plain
+# modes, STEP_RTOL (phase 10's bound of kernels against plain modes). The
+# whole batch in one process is printed beside them, not bounded: cuDNN
+# picks its algorithms by batch size, and its gradient of a batch of 4 and
+# the sum of its halves' differed by 2.4e-5 to 3.2e-4 of the largest entry
+# on an H100, its deterministic algorithms too, and by 1.5e-5 with cuDNN
+# off; tests/test_torch_parallel.py holds the step to the JAX step on the
+# whole batch at 1e-5, on the CPU
+DP_GRAD_RTOL = 1e-5
+DP_CLI_STEPS = 2
+DP_CLI_LOSS_RTOL = 1e-4
+# Adam's steps compared where, at every step, Adam's first moment (its
+# step's numerator) exceeds DP_MOVED of its largest entry, at the tolerance
+# of the JAX package's own test (tests/test_parallel.py). Adam's step is
+# about lr * m / |m|: where m is float32 noise, or nearly cancels at a later
+# step (0.9 m + 0.1 g with g against m), two correct runs step apart by up
+# to 2*lr. After one step m is 0.1 of the gradient: the gradient's own mask
+DP_WEIGHT_TOL = dict(rtol=1e-3, atol=1e-6)
+DP_MOVED = 1e-3
+DP_JOIN_S = 300  # a rank's time limit
+
+
+def stream_frames(n_streams: int, n: int, seed: int):
+    """``n`` smooth frames of each stream (stream s from seed ``seed + 100 s``)."""
+    return [smooth_frames(n, seed + 100 * s) for s in range(n_streams)]
+
+
+def stacked(per, n_streams: int):
+    """Frame i of the first ``n_streams`` streams on a leading stream axis."""
+    return [{k: np.stack([per[s][i][k] for s in range(n_streams)]) for k in per[0][i]} for i in range(len(per[0]))]
+
+
+def events_ms(run, n: int, sync_error: bool = False):
+    """(device ms, wall ms) per call of ``run(i)`` for i < n: CUDA events
+    around the calls, and the host's clock to the last event; with
+    ``sync_error`` every host sync in the calls raises."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(n):
+            run(i)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def check_stream(tag, session, s, stats, ref, ref_flat, ref_flat0):
+    """Stream ``s`` of a multi-stream session against a single-stream
+    session over its frames: phase 6's bounds of a replayed session
+    against the eager one."""
+    one = {k: stats[k][s] for k in ("loss", "epe", "fetch_counter", "scores")}
+    assert_trajectory(one, ref, f"{tag} stream {s} against a single-stream session")
+    assert_controller(one, ref, f"{tag} stream {s} against a single-stream session")
+    moved = float((ref_flat - ref_flat0).abs().max())
+    err = float((session.arena.flat[s] - ref_flat).abs().max())
+    log(f"{tag} stream {s}: weights differ by {err:.3g} of {moved:.3g} moved")
+    if not (moved > 0 and err <= 1e-2 * moved):
+        raise AssertionError(f"{tag} stream {s}: adapted weights differ from the single-stream session's")
+
+
+def memory_base():
+    """(allocated, reserved) bytes on the card once what earlier sessions
+    left is freed; the peak statistics start again from here."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def memory_peak(base) -> str:
+    """Peak allocated and reserved (the CUDA graphs' pools) above ``base``."""
+    return (f"peak memory {(torch.cuda.max_memory_allocated() - base[0]) / 2**20:.1f} MiB allocated, "
+            f"{(torch.cuda.max_memory_reserved() - base[1]) / 2**20:.1f} reserved above the "
+            f"{base[0] / 2**20:.1f} allocated before")
+
+
+def run_streams(state):
+    """Phase 12 (a): multi-stream fused MAD sessions, N = 2 and 4, "map"
+    and "unroll", against single-stream sessions over each stream's
+    frames. cuDNN runs its deterministic algorithms throughout: the
+    default ones sum the weight gradient in a varying order, and over 12
+    frames two runs of one session then part by up to 1.1e-4 of the loss
+    on some frames (measured on an H100), which would hide what the
+    streams themselves do. Returns (launches by path, ms by path)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return streams_in(state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def streams_in(state):
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    launches, ms = {}, {}
+    n_max = max(STREAM_COUNTS)
+    per = stream_frames(n_max, N_FRAMES_STREAMS, 300)
+
+    # the references: a single-stream session (seed 0) per stream, stepped in turn
+    base = memory_base()
+    singles = [make_session(state, "MAD", warp="mxu", fused=True, **MAD_KW) for _ in range(n_max)]
+    n_blocks = len(singles[0].engine.blocks)
+    for i in range(n_blocks):
+        for s, single in enumerate(singles):
+            single.step(per[s][i])
+    single_ms = events_ms(lambda i: [sg.step(per[s][n_blocks + i]) for s, sg in enumerate(singles)],
+                          N_FRAMES_STREAMS - n_blocks)
+    log(f"{n_max} single-stream sessions in turn: {single_ms[0]:.3f} ms of device time a frame-batch "
+        f"({single_ms[1]:.3f} wall), {memory_peak(base)}")
+    refs = [(sg.finalize(), sg.arena.flat.clone(), sg.arena.flat0) for sg in singles]
+    for n in STREAM_COUNTS:  # the first n of them in turn, for the timing only
+        ms[f"SINGLES_IN_TURN_{n}_DEVICE"], ms[f"SINGLES_IN_TURN_{n}_WALL"] = events_ms(
+            lambda i, n=n: [sg.step(per[s][n_blocks + i]) for s, sg in enumerate(singles[:n])],
+            N_FRAMES_STREAMS - n_blocks)
+    del singles
+
+    for n in STREAM_COUNTS:
+        frames = stacked(per, n)
+        for impl in STREAM_IMPLS:
+            tag = f"STREAMS_{n}_{impl.upper()}"
+            base = memory_base()
+            session = make_session(state, "MAD", warp="mxu", fused=True, num_streams=n, stream_impl=impl,
+                                   **{**MAD_KW, "seed": [0] * n})
+            if not session.use_graphs:
+                raise AssertionError(f"{tag}: the session must replay graphs on the card")
+
+            def per_batch(i):
+                return {k: n * v for k, v in mad_tile_launches(i % n_blocks).items()}
+
+            cuda_lib.reset_launches()
+            first = []
+            for i in range(n_blocks):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step_counted(session, frames[i], per_batch(i), f"{tag} frame-batch {i}")
+                torch.cuda.synchronize()
+                first.append((time.perf_counter() - t0) * 1e3)
+            if impl == "map":
+                want = {(s, ("mad", (k,))): {c: v for c, v in mad_tile_launches(k).items() if v}
+                        for s in range(n) for k in range(n_blocks)}
+            else:
+                want = {(("mad", (k,)),) * n: {c: v for c, v in per_batch(k).items() if v} for k in range(n_blocks)}
+            if session.graph_launches != want:
+                raise AssertionError(f"{tag}: graphs hold {session.graph_launches}, want {want}")
+            dev, wall = events_ms(lambda i: session.step(frames[n_blocks + i]), N_FRAMES_STREAMS - n_blocks,
+                                  sync_error=True)
+            total = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+            for i in range(N_FRAMES_STREAMS):
+                for k, v in per_batch(i).items():
+                    total[k] += v
+            if dict(cuda_lib.LAUNCHES) != total:
+                raise AssertionError(f"{tag}: launches {dict(cuda_lib.LAUNCHES)}, want {total}")
+            launches[tag] = dict(cuda_lib.LAUNCHES)
+            peak = memory_peak(base)
+            stats = session.finalize()
+            if stats["steps"] != N_FRAMES_STREAMS or stats["loss"].shape != (n, N_FRAMES_STREAMS) or (
+                stats["reset_count"] != 0
+            ).any():
+                raise AssertionError(f"{tag}: {stats['steps']} steps, loss {stats['loss'].shape}, "
+                                     f"resets {stats['reset_count']}")
+            for s in range(n):
+                check_stream(tag, session, s, stats, *refs[s])
+            ms[f"{tag}_BATCH_DEVICE"], ms[f"{tag}_BATCH_WALL"] = dev, wall
+            ms[f"{tag}_FRAME_DEVICE"], ms[f"{tag}_FRAME_WALL"] = dev / n, wall / n
+            log(f"{tag}: {len(session._graphs)} graphs captured; launches a frame-batch {per_batch(1)} "
+                f"(K1 {per_batch(1)['corr_fwd']}); first round (eager steps and captures) ms {first}; steady "
+                f"{dev:.3f} ms of device time a frame-batch, {dev / n:.3f} a frame ({wall:.3f} and "
+                f"{wall / n:.3f} wall), with every host sync an error; {n} single-stream sessions in turn "
+                f"{ms[f'SINGLES_IN_TURN_{n}_DEVICE']:.3f} ({ms[f'SINGLES_IN_TURN_{n}_WALL']:.3f} wall) a "
+                f"frame-batch; {peak}")
+            del session
+
+    # PROBABILITY at N = 4, seeds [0, 1, 2, 3]: each stream follows the
+    # single session with its seed; the streams' branches differ, and the
+    # graphs stay bounded: "map" one a (stream, block), "unroll" also one a
+    # block all streams take together, where one a tuple of the streams'
+    # blocks would grow towards n_blocks ** N
+    per = stream_frames(n_max, N_FRAMES_STREAMS_PROB, 500)
+    refs = []
+    for s in range(n_max):
+        sg = make_session(state, "MAD", warp="mxu", fused=True, sample_mode="PROBABILITY", ssim_th=1e9, seed=s)
+        for f in per[s]:
+            sg.step(f)
+        refs.append((sg.finalize(), sg.arena.flat.clone(), sg.arena.flat0))
+        del sg
+    for impl in STREAM_IMPLS:
+        n = n_max
+        tag = f"STREAMS_{n}_{impl.upper()}_PROBABILITY"
+        session = make_session(state, "MAD", warp="mxu", fused=True, num_streams=n, stream_impl=impl,
+                               sample_mode="PROBABILITY", ssim_th=1e9, seed=list(range(n)))
+        cuda_lib.reset_launches()
+        picked = []
+        for i, f in enumerate(stacked(per, n)):
+            before = dict(cuda_lib.LAUNCHES)
+            session.step(f)
+            ks = [st.host_blocks for st in session._streams]
+            want = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+            for (k,) in ks:
+                for c, v in mad_tile_launches(k).items():
+                    want[c] += v
+            added = {c: cuda_lib.LAUNCHES[c] - before[c] for c in cuda_lib.LAUNCHES}
+            if added != want:
+                raise AssertionError(f"{tag} frame-batch {i}: blocks {ks}, launches {added}")
+            picked.append([k for (k,) in ks])
+        launches[tag] = dict(cuda_lib.LAUNCHES)
+        stats = session.finalize()
+        tuples = len({tuple(p) for p in picked})
+        most = n * n_blocks + (n_blocks if impl == "unroll" else 0)
+        log(f"{tag}: blocks by frame {picked}; {len(session._graphs)} graphs captured (at most {most}; "
+            f"{tuples} tuples of the streams' blocks seen)")
+        if len(session._graphs) > most:
+            raise AssertionError(f"{tag}: {len(session._graphs)} graphs, more than {most}")
+        for s in range(n):
+            check_stream(tag, session, s, stats, *refs[s])
+        del session
+    return launches, ms
+
+
+def dp_batches(n: int, seed: int):
+    """``n`` global batches of DP_BATCH smooth frames; sample i's ground
+    truth with a share DP_ZERO_SHARE[i] of it set to 0."""
+    r = np.random.default_rng(seed)
+    out = []
+    for j in range(n):
+        frames = [make_smooth_frame(seed + 10 * j + i, d=8 + 2 * i) for i in range(DP_BATCH)]
+        batch = {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+        for i, share in enumerate(DP_ZERO_SHARE):
+            batch["target"][i][r.random((H, W, 1)) < share] = 0.0
+        out.append(batch)
+    return out
+
+
+def flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def load_flat(model, flat) -> None:
+    at = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.as_tensor(flat[at : at + p.numel()]).view_as(p))
+            at += p.numel()
+
+
+def spawn_ranks(mode: str, workdir: Path, config: dict):
+    """The DP_WORLD ranks of ``mode`` (``python3 chip_smoke.py --dp-rank R``),
+    each killed after DP_JOIN_S seconds; a rank's failure fails the phase.
+    Returns each rank's output."""
+    (workdir / "config.json").write_text(json.dumps({"mode": mode, **config}))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r), "--dp-dir",
+                               str(workdir)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DP_WORLD)]
+    deadline = time.monotonic() + DP_JOIN_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-12:]:
+            log(f"  rank {r}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"{mode}: rank {r} exited with {p.returncode}")
+    return outs
+
+
+def dp_rank_main(rank: int, workdir: Path) -> int:
+    """One rank of phase 12's data-parallel runs (``--dp-rank``)."""
+    import torch.distributed as dist
+
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    config = json.loads((workdir / "config.json").read_text())
+    device = torch.device(config["device"].format(rank=rank))
+    torch.cuda.set_device(device)
+    dist.init_process_group(config["backend"], init_method=f"file://{workdir / 'pg'}", rank=rank,
+                            world_size=DP_WORLD)
+    try:
+        out = {}
+        if config["mode"] == "step":
+            from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+            from real_time_self_adaptive_deep_stereo_torch.parallel import (
+                batch_sharded,
+                make_dp_train_step,
+                make_mesh,
+                shard_batch,
+            )
+
+            mesh = make_mesh(device_type="cuda")
+            model = get_stereo_net("MADNet", device=device, seed=100 + rank)
+            if rank == 0:  # the other rank starts elsewhere: the broadcast must bring it over
+                with np.load(workdir / "weights.npz") as w:
+                    load_flat(model, w["flat"])
+            with np.load(workdir / "batches.npz") as b:
+                batches = [{k: torch.from_numpy(b[f"{j}_{k}"]).to(device) for k in ("left", "right", "target")}
+                           for j in range(DP_STEPS)]
+            sharding = batch_sharded(mesh)
+            step = make_dp_train_step(model, mesh, lr=LR)
+            cuda_lib.reset_launches()
+            for j, batch in enumerate(batches):
+                out[f"w{j}"] = flat_params(model).cpu().numpy()
+                out[f"loss{j}"] = np.float32(float(step(shard_batch(batch, sharding))))
+                out[f"g{j}"] = torch.cat([g.reshape(-1) for g in step.grads]).cpu().numpy()
+            out["w_final"] = flat_params(model).cpu().numpy()
+            out["launches"] = json.dumps(dict(cuda_lib.LAUNCHES))
+            piece = shard_batch(batches[0], sharding)
+            out["step_ms"] = np.float64(events_ms(lambda i: step(piece), DP_TIMED_STEPS)[0])
+        else:
+            from real_time_self_adaptive_deep_stereo_torch.cli import train
+
+            args = train.build_argparser().parse_args(config["argv"])
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            result = train.main(args, device=device)
+            out["wall_ms"] = np.float64((time.perf_counter() - t0) * 1e3 / result["steps"])
+            out["losses"] = np.asarray(result["losses"], np.float64)
+            out["launches"] = json.dumps(dict(cuda_lib.LAUNCHES))
+        np.savez(workdir / f"rank{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def adam_moments(grads):
+    """Adam's first moment after each step of the flat gradients ``grads``
+    (``utils/optim.py``'s b1 0.9), in float64."""
+    m, out = 0.0, []
+    for g in grads:
+        m = 0.9 * m + 0.1 * np.asarray(g, np.float64)
+        out.append(m)
+    return out
+
+
+def assert_weights_close(got, want, moments, what):
+    """Adam's steps: ``got`` against ``want`` at DP_WEIGHT_TOL where every
+    first moment of ``moments`` (one a step) exceeds DP_MOVED of its
+    largest entry; the worst entries printed."""
+    moved = np.logical_and.reduce([np.abs(m) > DP_MOVED * float(np.abs(m).max()) for m in moments])
+    bad = ~np.isclose(got, want, **DP_WEIGHT_TOL) & moved
+    log(f"{what}: {int(moved.sum())} weights compared (Adam's first moment over {DP_MOVED} of its largest at each "
+        f"of {len(moments)} steps), {int(bad.sum())} beyond rtol {DP_WEIGHT_TOL['rtol']} / atol "
+        f"{DP_WEIGHT_TOL['atol']}; largest difference anywhere {float(np.abs(got - want).max()):.3g}")
+    for i in np.flatnonzero(bad)[:5]:
+        log(f"  weight {i}: {got[i]!r} against {want[i]!r}; first moments, of their largest: "
+            f"{[float(abs(m[i]) / np.abs(m).max()) for m in moments]}")
+    if bad.any() or moved.sum() < 1000:
+        raise AssertionError(f"{what}: weights differ")
+
+
+def run_dp_step(launches, ms, workdir: Path, backend: str, device: str):
+    """Phase 12 (b): ``make_dp_train_step`` on DP_WORLD ranks against the
+    one-process step on the whole batch."""
+    from real_time_self_adaptive_deep_stereo_torch.cli.train import MAX_DISP, loss_and_grads, make_train_step
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_supervised_loss
+    from real_time_self_adaptive_deep_stereo_torch.losses.factory import supervised_invalid
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    tag = f"DP_STEP_{backend.upper()}"
+    model = get_stereo_net("MADNet", seed=0)
+    start = flat_params(model).cpu().numpy()
+    batches = dp_batches(DP_STEPS, 700)
+    np.savez(workdir / "weights.npz", flat=start)
+    np.savez(workdir / "batches.npz", **{f"{j}_{k}": v for j, b in enumerate(batches) for k, v in b.items()})
+    counts = [[int((b["target"][r * 2 : r * 2 + 2] != 0).sum()) for r in range(DP_WORLD)] for b in batches]
+    log(f"{tag}: valid pixels of each rank's half, by step: {counts}")
+    spawn_ranks("step", workdir, {"backend": backend, "device": device})
+    ranks = [dict(np.load(workdir / f"rank{r}.npz")) for r in range(DP_WORLD)]
+    per_step = {k: DP_STEPS * v for k, v in TRAIN_LAUNCHES["MADNet"].items()}
+    for r, got in enumerate(ranks):
+        counted = {k: v for k, v in json.loads(str(got["launches"])).items() if v}
+        if counted != per_step:
+            raise AssertionError(f"{tag} rank {r}: launches {counted}, want {per_step}")
+        launches[f"{tag}_RANK{r}"] = json.loads(str(got["launches"]))
+
+    loss_fn = get_supervised_loss("mean_l1", multiScale=True, max_disp=MAX_DISP)
+    sum_fn = get_supervised_loss("sum_l1", multiScale=True, max_disp=MAX_DISP)
+    plain = get_stereo_net("MADNet", corr_mode="torch", warp_mode="clamped")
+    cuda_batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in batches]
+    for j, batch in enumerate(cuda_batches):
+        for key in (f"w{j}", f"g{j}", f"loss{j}"):
+            if not np.array_equal(ranks[0][key], ranks[1][key]):
+                raise AssertionError(f"{tag} step {j}: the ranks' {key} differ")
+        # one process at the ranks' weights before step j: the loss and
+        # gradient of the whole batch, and the sum of the gradients of the
+        # ranks' two halves, each divided by the batch's valid count, with
+        # the kernels and with the plain modes
+        for net in (model, plain):
+            load_flat(net, torch.from_numpy(ranks[0][f"w{j}"]).cuda())
+        cuda_lib.reset_launches()
+        loss, g = loss_and_grads(model, loss_fn, batch)
+        count = float((~supervised_invalid(batch["target"], MAX_DISP)).sum())
+        halves, plain_halves = [], []
+        for r in range(DP_WORLD):
+            half = {k: v[r * 2 : r * 2 + 2] for k, v in batch.items()}
+            halves.append(loss_and_grads(model, lambda d, b: sum_fn(d, b) / count, half)[1])
+            plain_halves.append(loss_and_grads(plain, lambda d, b: sum_fn(d, b) / count, half)[1])
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        if launched != {k: 3 * v for k, v in TRAIN_LAUNCHES["MADNet"].items()}:  # B = 4, then the halves
+            raise AssertionError(f"{tag} step {j}: one process launched {launched}")
+        g, halves, plain_halves = (torch.cat([v.reshape(-1) for v in grads]).cpu().numpy() for grads in (
+            g, [a + b for a, b in zip(*halves)], [a + b for a, b in zip(*plain_halves)]))
+        g_scale = float(np.abs(g).max())
+
+        def rel(a, b):
+            return float(np.abs(a - b).max()) / g_scale
+
+        got = ranks[0][f"g{j}"]
+        loss_err = abs(float(ranks[0][f"loss{j}"]) - float(loss)) / float(loss)
+        g_err, g_err_plain = rel(got, halves), rel(got, plain_halves)
+        means = []
+        for r in range(DP_WORLD):  # what a mean of the ranks' own means would have read
+            half = {k: v[r * 2 : r * 2 + 2] for k, v in batch.items()}
+            with torch.no_grad():
+                means.append(float(loss_fn(model(half["left"], half["right"])["disparities"], half)))
+        miss = abs(np.mean(means) - float(loss)) / float(loss)
+        log(f"{tag} step {j}: loss {float(ranks[0][f'loss{j}']):.6f} against one process {float(loss):.6f} "
+            f"({loss_err:.3g} relative; a mean of the ranks' means would miss by {miss:.3g}); gradient, of its "
+            f"largest entry {g_scale:.3g}: against one process over the same halves {g_err:.3g} (bound "
+            f"{DP_GRAD_RTOL}), with the plain modes {g_err_plain:.3g} (bound {STEP_RTOL}); against the whole "
+            f"batch {rel(got, g):.3g} (one process: the whole batch against its halves {rel(g, halves):.3g}); "
+            f"the two ranks' weights, loss and gradient bit for bit equal")
+        if not (loss_err <= DP_LOSS_RTOL and g_err <= DP_GRAD_RTOL and g_err_plain <= STEP_RTOL
+                and miss > DP_LOSS_RTOL):
+            raise AssertionError(f"{tag} step {j}: the data-parallel step is not the one-process step")
+    if not np.array_equal(ranks[0]["w_final"], ranks[1]["w_final"]):
+        raise AssertionError(f"{tag}: the ranks' weights differ after the last step")
+
+    # the one-process run from the same weights over the same batches
+    load_flat(model, torch.from_numpy(start).cuda())
+    step = make_train_step(model, loss_fn, LR)
+    losses = [float(step(b)) for b in cuda_batches]
+    got = [float(ranks[0][f"loss{j}"]) for j in range(DP_STEPS)]
+    traj = max(abs(a - b) / b for a, b in zip(got, losses))
+    log(f"{tag}: losses {got} against the one-process run's {losses} ({traj:.3g} relative)")
+    if not traj <= DP_LOSS_RTOL:
+        raise AssertionError(f"{tag}: the losses part from the one-process run's")
+    assert_weights_close(ranks[0]["w_final"], flat_params(model).cpu().numpy(),
+                         adam_moments(ranks[0][f"g{j}"] for j in range(DP_STEPS)),
+                         f"{tag}: weights after {DP_STEPS} steps against one process")
+    one_ms = events_ms(lambda i: step(cuda_batches[0]), DP_TIMED_STEPS)[0]
+    ms[f"{tag}_MS"] = [float(r["step_ms"]) for r in ranks]
+    ms["DP_ONE_PROCESS_STEP_MS"] = one_ms
+    log(f"{tag}: {ms[f'{tag}_MS']} ms a step by rank (B = 2 each, CUDA events over {DP_TIMED_STEPS} steps), "
+        f"against {one_ms:.3f} ms of one process at B = {DP_BATCH}")
+
+
+def run_dp_cli(launches, ms, workdir: Path):
+    """Phase 12 (c): ``cli/train.py --dataParallel`` on two ``gloo`` ranks
+    on the card against the one-process CLI, on phase 10's fixture frames."""
+    from real_time_self_adaptive_deep_stereo_torch.cli import train
+    from real_time_self_adaptive_deep_stereo_torch.data import StereoDataset
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_supervised_loss
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.runtime import native
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import load_params, params_from_jax
+
+    tag = "DP_TRAIN_CLI_GLOO"
+    native.available()  # the loader built here, once, before the ranks load it
+    data = write_cli_list(workdir, CLI_SCENES["scene"], DP_BATCH * DP_CLI_STEPS)
+    argv = ["--trainingSet", data, "--weights", str(CLI_WEIGHTS), "--modelName", "MADNet", "--imageShape", str(H),
+            str(W), "--batchSize", str(DP_BATCH), "--numEpochs", "1", "--seed", "0", "--dataParallel"]
+    dp_out = workdir / "train_dp"
+    outs = spawn_ranks("cli", workdir, {"backend": "gloo", "device": "cuda:0", "argv": argv + ["-o", str(dp_out)]})
+    ranks = [dict(np.load(workdir / f"rank{r}.npz")) for r in range(DP_WORLD)]
+    per_step = {k: DP_CLI_STEPS * v for k, v in TRAIN_LAUNCHES["MADNet"].items()}
+    for r, got in enumerate(ranks):
+        counted = {k: v for k, v in json.loads(str(got["launches"])).items() if v}
+        if counted != per_step:
+            raise AssertionError(f"{tag} rank {r}: launches {counted}, want {per_step}")
+        launches[f"{tag}_RANK{r}"] = json.loads(str(got["launches"]))
+    if "Data-parallel over 2 ranks (gloo)" not in outs[0] or "Step:" in outs[1] or "All Done" in outs[1]:
+        raise AssertionError(f"{tag}: rank 0 alone logs")
+    if sorted(os.listdir(dp_out)) != [f"weights-{DP_CLI_STEPS}.npz"]:
+        raise AssertionError(f"{tag}: {sorted(os.listdir(dp_out))} in the output, want rank 0's one checkpoint")
+
+    args = train.build_argparser().parse_args(argv + ["-o", str(workdir / "train_one")])
+    t0 = time.perf_counter()
+    one = train.main(args)
+    one_ms = (time.perf_counter() - t0) * 1e3 / one["steps"]
+    errs = [float(np.max(np.abs(r["losses"] - one["losses"]) / np.abs(one["losses"]))) for r in ranks]
+    log(f"{tag}: losses {ranks[0]['losses'].tolist()} against one process {one['losses']} "
+        f"({max(errs):.3g} relative); {[float(r['wall_ms']) for r in ranks]} ms a step by rank against {one_ms:.1f} "
+        f"in one process (wall, with reading and set-up)")
+    if not (len(one["losses"]) == DP_CLI_STEPS and max(errs) <= DP_CLI_LOSS_RTOL):
+        raise AssertionError(f"{tag}: the losses part from the one-process CLI's")
+    ms[f"{tag}_STEP_WALL"] = [float(r["wall_ms"]) for r in ranks]
+    ms["TRAIN_CLI_ONE_PROCESS_STEP_WALL"] = one_ms
+
+    # Adam's steps compared where its first moment is not noise at either
+    # step: the gradients of a one-process run over the same batches
+    model = get_stereo_net("MADNet")
+    model.load_state_dict(params_from_jax(load_params(str(CLI_WEIGHTS))))
+    step = train.make_train_step(
+        model, get_supervised_loss("mean_l1", multiScale=True, max_disp=train.MAX_DISP), args.lr)
+    grads = []
+    for batch in StereoDataset(data, batch_size=DP_BATCH, crop_shape=(H, W), num_epochs=1, augment=False,
+                               is_training=True, shuffle=True, seed=0):
+        step({k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+        grads.append(torch.cat([v.reshape(-1) for v in step.grads]).cpu().numpy())
+    got, want = (get_stereo_net("MADNet") for _ in range(2))
+    got.load_state_dict(params_from_jax(load_params(str(dp_out / f"weights-{DP_CLI_STEPS}.npz"))))
+    want.load_state_dict(params_from_jax(load_params(str(workdir / "train_one" / f"weights-{DP_CLI_STEPS}.npz"))))
+    assert_weights_close(flat_params(got).cpu().numpy(), flat_params(want).cpu().numpy(), adam_moments(grads),
+                         f"{tag}: the checkpoint against the one-process CLI's")
+
+
+def run_parallel(state, profile_dir):
+    """Phase 12: multi-stream fused sessions and data-parallel training.
+    Returns (launches by path, ms by path)."""
+    import tempfile
+
+    del profile_dir
+    t0 = time.perf_counter()
+    launches, ms = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "gloo").mkdir()
+        run_dp_step(launches, ms, tmp / "gloo", "gloo", "cuda:0")
+        if torch.cuda.device_count() >= DP_WORLD:
+            (tmp / "nccl").mkdir()
+            run_dp_step(launches, ms, tmp / "nccl", "nccl", "cuda:{rank}")
+        else:
+            log(f"DP_STEP_NCCL not run: NCCL takes one GPU a rank, and this machine has "
+                f"{torch.cuda.device_count()} GPU(s) for {DP_WORLD} ranks")
+        (tmp / "cli").mkdir()
+        run_dp_cli(launches, ms, tmp / "cli")
+    stream_launches, stream_ms = run_streams(state)
+    launches.update(stream_launches)
+    ms.update(stream_ms)
+    log(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
+    return launches, ms
+
+
 def profile_frames(session, frames, out: Path, tag: str):
     """Kernel time by name over a few steady frames (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3016,10 +3628,16 @@ def main() -> int:
                     help="run the continual-adaptation and training phase (10) alone, without the result lines")
     ap.add_argument("--demo-only", action="store_true",
                     help="run the live demo's phase (11) alone, without the result lines")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run the streams' and data-parallel phase (12) alone, without the result lines")
+    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)  # a rank of phase 12
+    ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, Path(args.dp_dir))
 
     from real_time_self_adaptive_deep_stereo_torch import ops
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
@@ -3073,6 +3691,19 @@ def main() -> int:
         log(card)
         log("CLIs checked; no result lines (--cli-only, --train-only, --demo-only)")
         return 0
+    if args.parallel_only:
+        rows = {name: [] for name in REPLACES}
+        check_batch_kernels(ops, rows, DP_BATCH // DP_WORLD)
+        for name, rs in rows.items():
+            for r in rs:
+                r["bound_ms"], r["bound_by"] = r.pop("bound")
+                log(f"kernel {name} {r}")
+        _, frame_ms = run_parallel(params_from_jax(seeded_jax_params(0)), args.profile)
+        for path, ms in frame_ms.items():
+            log(f"session {path} ms {ms!r}")
+        log(card)
+        log("streams and data-parallel training checked; no result lines (--parallel-only)")
+        return 0
     if args.fused_only or args.dispnet_only:
         if args.fused_only:
             _, frame_ms = run_fused(params_from_jax(seeded_jax_params(0)), args.profile)
@@ -3094,7 +3725,7 @@ def main() -> int:
     check_steps_against_plain(state)
     check_reset(state)
     for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision, run_cli_phase,
-                  run_train_phase, run_demo_phase):
+                  run_train_phase, run_demo_phase, run_parallel):
         phase_launches, phase_ms = phase(state, args.profile)
         launches.update(phase_launches)
         frame_ms.update(phase_ms)
@@ -3102,7 +3733,6 @@ def main() -> int:
     kernels = []
     for name, all_rs in rows.items():
         rs = [r for r in all_rs if "batch" not in r]  # batch 1: the sums keep their meaning
-        batch = [r for r in all_rs if "batch" in r]
         lib_ms = [r["library_ms"] for r in rs]
         shape_keys = ("shape", "radius", "ms", "cold_ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms",
                       "library_ms", "variants", "wide_ms")
@@ -3129,12 +3759,13 @@ def main() -> int:
             **({"variants": summed_variants(rs), "modes": rs[0]["modes"]} if "variants" in rs[0] else {}),
             # bf16 instances: the fp32 instance's time at the same shapes
             **({"fp32_ms": sum(r["fp32_ms"] for r in rs)} if "fp32_ms" in rs[0] else {}),
-            # at the batch of cli/evaluate.py and cli/train.py: the same sums over those shapes
-            **({f"batch{EVAL_BATCH}": {
+            # at the batch of cli/evaluate.py and cli/train.py (4) and of a
+            # data-parallel rank (2): the same sums over those shapes
+            **{f"batch{b}": {
                 **{k: sum(r[k] for r in batch) for k in ("ms", "plain_ms", "bound_ms")},
                 "library_ms": None if any(r["library_ms"] is None for r in batch)
                 else sum(r["library_ms"] for r in batch),
-            }} if batch else {}),
+            } for b, batch in by_batch(all_rs).items()},
             "shapes": [{k: r[k] for k in ("batch", *shape_keys) if k in r} for r in all_rs],
         })
     idle = [k["name"] for k in kernels if not any(k["launches_by_path"].values())]

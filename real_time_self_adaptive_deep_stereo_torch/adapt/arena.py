@@ -23,6 +23,13 @@ slots and the pristine weights are further vectors of the same layout.
 The layout alone is :class:`ArenaSpec` (names, shapes, offsets, block
 ranges), which needs shapes only and serves the host-side unravel of a
 snapshot.
+
+A multi-stream session (``num_streams=N``) keeps N weight vectors in one
+``[N, P]`` arena, one row per stream, every row starting from the module's
+weights. The module's parameters are views of one row at a time:
+:meth:`Arena.bind` re-points them at another. A CUDA graph captured while
+row s is bound reads and writes row s at every replay, whatever row the
+module is bound to then.
 """
 
 from __future__ import annotations
@@ -102,9 +109,12 @@ class ArenaSpec:
         return bid
 
     def unravel_host(self, flat: np.ndarray) -> Dict[str, np.ndarray]:
-        """``{name: array}`` views of a host copy of the arena vector."""
+        """``{name: array}`` views of a host copy of the arena vector; the
+        axes before the last (a multi-stream arena's rows) lead every leaf."""
+        lead = tuple(flat.shape[:-1])
         return {
-            name: flat[off : off + size].reshape(shape) for name, shape, off, size in self.entries
+            name: flat[..., off : off + size].reshape(lead + shape)
+            for name, shape, off, size in self.entries
         }
 
 
@@ -115,23 +125,43 @@ class Arena:
     ``flat`` and its ``grad`` a view of ``grad``; ``flat0`` is a clone of
     the weights at construction (the pristine weights of the reset).
     Loading weights with ``load_state_dict`` keeps the views (it copies in
-    place); moving the module to another device does not."""
+    place); moving the module to another device does not.
 
-    def __init__(self, model: nn.Module, blocks: Sequence[Block]):
+    ``rows=N`` (N > 0) makes ``flat`` ``[N, P]``, every row a copy of the
+    weights, with the module bound to row 0; ``grad`` and ``flat0`` stay
+    ``[P]``, shared by the rows."""
+
+    def __init__(self, model: nn.Module, blocks: Sequence[Block], rows: int = 0):
         named = dict(model.named_parameters())
         if any(p.dtype != torch.float32 for p in named.values()):
             raise TypeError("the arena holds float32 parameters only")
         self.spec = ArenaSpec({n: p.shape for n, p in named.items()}, blocks)
         device = next(iter(named.values())).device
-        self.flat = torch.empty(self.spec.size, dtype=torch.float32, device=device)
-        self.grad = torch.zeros_like(self.flat)
-        for name, shape, off, size in self.spec.entries:
-            p = named[name]
-            view = self.flat[off : off + size].view(shape)
+        self.rows = int(rows)
+        lead = (self.rows,) if self.rows else ()
+        self.flat = torch.empty(lead + (self.spec.size,), dtype=torch.float32, device=device)
+        self.grad = torch.zeros(self.spec.size, dtype=torch.float32, device=device)
+        self._params = [named[name] for name, *_ in self.spec.entries]
+        # per row, the view of every parameter, in entry order
+        self._row_views = [
+            [row[off : off + size].view(shape) for _, shape, off, size in self.spec.entries]
+            for row in (self.flat if self.rows else [self.flat])
+        ]
+        for p, view, (_, shape, off, size) in zip(self._params, self._row_views[0], self.spec.entries):
             view.copy_(p.detach())
             p.data = view
             p.grad = self.grad[off : off + size].view(shape)
-        self.flat0 = self.flat.clone()
+        if self.rows:
+            self.flat[1:].copy_(self.flat[0])
+        self.flat0 = (self.flat[0] if self.rows else self.flat).clone()
+        self.bound = 0  # the row the module's parameters view
+
+    def bind(self, row: int) -> None:
+        """Point the module's parameters at row ``row`` of a multi-row arena."""
+        if row != self.bound:
+            for p, view in zip(self._params, self._row_views[row]):
+                p.data = view
+            self.bound = row
 
     # the layout's accessors, by the JAX arena's names
     @property
@@ -154,5 +184,5 @@ class Arena:
         return torch.zeros_like(self.flat)
 
 
-def build_arena(model: nn.Module, blocks: Sequence[Block]) -> Arena:
-    return Arena(model, blocks)
+def build_arena(model: nn.Module, blocks: Sequence[Block], rows: int = 0) -> Arena:
+    return Arena(model, blocks, rows)

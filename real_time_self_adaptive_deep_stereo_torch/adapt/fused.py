@@ -50,11 +50,31 @@ launches.
 
 On a CPU device (the tests) the same step function runs eagerly; on the
 card ``use_graphs=False`` does the same, for comparisons.
+
+``num_streams=N`` runs N independent adaptation streams, one per camera
+of a rig, as the JAX session's ``num_streams`` does: every state tensor
+carries a leading ``[N]`` axis (the arena is ``[N, P]``), each stream has
+its own ``torch.Generator``, and frames carry a leading ``[N]`` axis. One
+``step`` advances a frame of every stream, the streams one after another,
+each with its own branch (its sampled block's partial backward). With
+``stream_impl="map"`` each (stream, branch) pair is one captured graph, and
+a frame replays N of them in stream order. With ``"unroll"`` a frame whose
+N streams all take one branch is one replay of a graph that holds the N
+streams' steps in order (so SEQUENTIAL, FIXED, FULL and NONE replay one
+graph a frame); a frame whose streams take different branches (PROBABILITY,
+RANDOM, ARGMAX) replays map's graphs. A graph per tuple of branches would
+be up to ``n_actions ** N`` captures, each an eager step and a capture;
+this way a branch has at most N + 1 graphs. The graphs read their
+stream's row of the arena: the module is
+bound to that row (:meth:`.arena.Arena.bind`) while its step runs eagerly
+and while it is captured. Each stream's disparity is copied, inside its
+graph, into one ``[N, ...]`` buffer, which is ``last_disp``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+import gc
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -72,6 +92,19 @@ __all__ = ["FusedOnlineSession"]
 
 Branch = Tuple  # ("none",) | ("full",) | ("shared",) | ("mad", (k, ...))
 _FRAME_KEYS = ("left", "right", "target", "proxy")
+_NOT_PORTED = "is not ported: ROADMAP.md, queue 1, `parallel/` (`vmap` and `mesh`)"
+
+
+class _Stream:
+    """One stream's state: views of the session's tensors (row ``index``
+    of each where the session has a stream axis), its generator, and the
+    blocks its next train step takes, as the host knows them."""
+
+    def __init__(self, index: Optional[int], **tensors):
+        self.index = index
+        self.host_blocks: Tuple[int, ...] = ()
+        for k, v in tensors.items():
+            setattr(self, k, v)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -94,10 +127,14 @@ class FusedOnlineSession:
     optional ``state_dict`` loaded into it first. With ``arena=True`` the
     module's parameters become views of one flat vector.
 
+    ``num_streams=N`` (with ``arena=True``) runs N independent streams;
+    ``seed`` is then an int (stream s takes ``seed + s``) or a list of N
+    seeds, and ``stream_impl`` is ``"map"`` (``"auto"``) or ``"unroll"``.
+
     Not ported, each raising ``NotImplementedError``: ``mesh`` (width
-    sharding), ``num_streams > 0`` and ``stream_impl`` (several streams in
-    one program); see ``ROADMAP.md``, queue 1, ``parallel/``.
-    ``spatial_axis`` names the mesh axis and is kept for the signature only.
+    sharding, the stream axis over a mesh) and ``stream_impl="vmap"``; see
+    ``ROADMAP.md``, queue 1, ``parallel/``. ``spatial_axis`` names the mesh
+    axis and is kept for the signature only.
     """
 
     def __init__(
@@ -114,7 +151,7 @@ class FusedOnlineSession:
         uf: float = 0.01,
         dilation: int = 1,
         max_steps: int = 100_000,
-        seed: int = 0,
+        seed: Union[int, Sequence[int]] = 0,
         mesh=None,
         spatial_axis: str = "data",
         shared_forward: bool = False,
@@ -136,14 +173,18 @@ class FusedOnlineSession:
             raise ValueError(f"unknown mode {mode!r}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh (width-sharded adaptation) is not ported: "
-                "ROADMAP.md, queue 1, `parallel/`"
+                f"mesh (width sharding, the stream axis over a mesh) {_NOT_PORTED}"
             )
-        if num_streams or stream_impl != "auto":
-            raise NotImplementedError(
-                "num_streams / stream_impl (several streams in one program) are not "
-                "ported: ROADMAP.md, queue 1, `parallel/`"
-            )
+        if stream_impl == "vmap":
+            raise NotImplementedError(f'stream_impl="vmap" {_NOT_PORTED}')
+        if stream_impl not in ("auto", "map", "unroll"):
+            raise ValueError(f"unknown stream_impl {stream_impl!r}")
+        self.num_streams = int(num_streams)
+        self.stream_impl = "map" if stream_impl == "auto" else stream_impl
+        if self.num_streams < 0:
+            raise ValueError(f"num_streams must be >= 0, got {num_streams}")
+        if self.num_streams and not arena:
+            raise ValueError("num_streams requires arena=True")
         if mode == "MAD" and not engine.blocks:
             raise ValueError("mode MAD needs an engine built with blocks")
         self.engine = engine
@@ -194,18 +235,20 @@ class FusedOnlineSession:
         self._names = list(engine._named_params)
         self._all_params = list(engine._named_params.values())
         self._index = {name: i for i, name in enumerate(self._names)}
-        self.arena = build_arena(engine.model, engine.blocks) if arena else None
+        self.arena = build_arena(engine.model, engine.blocks, self.num_streams) if arena else None
         self.spec = self.arena.spec if arena else None
         self._host_step = 0
-        self._host_blocks: Tuple[int, ...] = ()  # the blocks the next train step takes
         self._init_state(seed)
 
         self.last_disp: Optional[torch.Tensor] = None
         self._pending_disp: Optional[Callable] = None
         # by branch: the captured graph with its output disparity, and the
         # kernel launches one replay of it stands for
-        self._graphs: Dict[Branch, Tuple] = {}
-        self.graph_launches: Dict[Branch, Dict[str, int]] = {}
+        # (keyed by the branch; with streams by (stream, branch), and under
+        # "unroll" also by the N-tuple of a branch all streams take)
+        self._graphs: Dict[Tuple, Tuple] = {}
+        self.graph_launches: Dict[Tuple, Dict[str, int]] = {}
+        self._disp_out: Optional[torch.Tensor] = None  # [N, ...]: the streams' disparities
         if on_cuda:
             self._side_stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle() if self.use_graphs else None
@@ -216,10 +259,18 @@ class FusedOnlineSession:
         self._fetches = 0
 
     # ------------------------------------------------------------------ state
-    def _init_state(self, seed: int) -> None:
+    def _init_state(self, seed) -> None:
+        """The state tensors, with a leading ``[num_streams]`` axis where
+        the session has streams, and one :class:`_Stream` of views per
+        stream (one in all without streams)."""
         eng, dev, n = self.engine, self.device, self.n_actions
+        ns = self.num_streams
+        lead = (ns,) if ns else ()
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
+        seeds = list(seed) if isinstance(seed, (list, tuple)) else [int(seed) + s for s in range(max(ns, 1))]
+        if len(seeds) != max(ns, 1):
+            raise ValueError(f"need {max(ns, 1)} seeds, got {len(seeds)}")
         # the parameters, their pristine copies and the optimizer slots,
         # each as a list of tensors: one flat vector with the arena
         if self.arena is not None:
@@ -235,24 +286,40 @@ class FusedOnlineSession:
         elif eng.optimizer == "momentum":
             self.opt = {"acc": new_slot()}
         else:  # adam: one step count for the whole optimizer, on the device
-            self.opt = {"m": new_slot(), "v": new_slot(), "t": torch.zeros((), **i32)}
-        self.scores = torch.zeros(n, **f32)
-        self.loss_t1 = torch.zeros((), **f32)
-        self.loss_t2 = torch.zeros((), **f32)
-        self.last_mask = torch.zeros(n, **f32)
-        self.step_count = torch.zeros((), **i32)
-        self.reset_count = torch.zeros((), **i32)
-        self.fetch_counter = torch.zeros(n, **i32)
-        self.cur_blocks = torch.zeros(self.num_blocks, **i32)
-        self.metrics = torch.zeros(self.max_steps, 4, **f32) if self.compute_metrics else None
-        self._generator = torch.Generator(device=dev).manual_seed(int(seed))
+            self.opt = {"m": new_slot(), "v": new_slot(), "t": torch.zeros(lead, **i32)}
+        self.scores = torch.zeros(lead + (n,), **f32)
+        self.loss_t1 = torch.zeros(lead, **f32)
+        self.loss_t2 = torch.zeros(lead, **f32)
+        self.last_mask = torch.zeros(lead + (n,), **f32)
+        self.step_count = torch.zeros(lead, **i32)
+        self.reset_count = torch.zeros(lead, **i32)
+        self.fetch_counter = torch.zeros(lead + (n,), **i32)
+        self.cur_blocks = torch.zeros(lead + (self.num_blocks,), **i32)
+        self.metrics = torch.zeros(lead + (self.max_steps, 4), **f32) if self.compute_metrics else None
         self._arange_n = torch.arange(n, **i32)
+
+        def row(t, s):
+            return t if not ns or t is None else t[s]
+
+        self._streams = [
+            _Stream(
+                s if ns else None,
+                params=[row(p, s) for p in self._params],
+                opt={k: row(v, s) if k == "t" else [row(x, s) for x in v] for k, v in self.opt.items()},
+                **{k: row(getattr(self, k), s) for k in (
+                    "scores", "loss_t1", "loss_t2", "last_mask", "step_count", "reset_count",
+                    "fetch_counter", "cur_blocks", "metrics")},
+                generator=torch.Generator(device=dev).manual_seed(int(seeds[s])),
+            )
+            for s in range(max(ns, 1))
+        ]
         if self.mode == "MAD":
             m = self.num_blocks
             if self.sample_mode == "FIXED":
                 ids = [int(k) for k in np.atleast_1d(self.fixed_id)]
                 self.cur_blocks.copy_(torch.tensor(ids, dtype=torch.int32))
-                self._host_blocks = tuple(sorted(set(ids)))
+                for st in self._streams:
+                    st.host_blocks = tuple(sorted(set(ids)))
             elif self.sample_mode == "SEQUENTIAL":
                 # the n possible draws, on the device: a resample is one
                 # device-to-device copy
@@ -294,54 +361,65 @@ class FusedOnlineSession:
         return torch.topk(scores + gumbel, m).indices.to(torch.int32)
 
     def _resample(self, step: int) -> None:
-        """Draw this frame's blocks into ``cur_blocks`` and, where the host
-        must pick a graph by them, into ``_host_blocks``."""
+        """Draw this frame's blocks of every stream into ``cur_blocks`` and,
+        where the host must pick a graph by them, into each stream's
+        ``host_blocks``."""
         n = self.n_actions
         if self.sample_mode == "FIXED":
             return  # set once, at construction
         if self.sample_mode == "SEQUENTIAL":
             base = (step // self.sample_frequency) % n
-            self.cur_blocks.copy_(self._seq_blocks[base])
-            self._host_blocks = tuple(sorted({(base + j) % n for j in range(self.num_blocks)}))
+            self.cur_blocks.copy_(self._seq_blocks[base])  # every stream's row
+            for st in self._streams:
+                st.host_blocks = tuple(sorted({(base + j) % n for j in range(self.num_blocks)}))
             return
-        fresh = self._sample(self.scores, self._generator, step)
-        self.cur_blocks.copy_(fresh)
+        for st in self._streams:
+            st.cur_blocks.copy_(self._sample(st.scores, st.generator, step))
         if not self.shared_forward:
-            # the one host read of a frame: [num_blocks] ids, which depend
-            # on the scores and so on the previous frame's loss
-            self._host_blocks = tuple(sorted(set(fresh.tolist())))
+            # the one host read of a frame: the [num_blocks] ids of every
+            # stream, which depend on the scores and so on the previous
+            # frame's loss
+            ids = self.cur_blocks.tolist()
+            for st, row in zip(self._streams, ids if self.num_streams else [ids]):
+                st.host_blocks = tuple(sorted(set(row)))
 
-    def _pick_branch(self, step: int) -> Branch:
+    @property
+    def _host_blocks(self) -> Tuple[int, ...]:
+        """The blocks the next train step of the (first) stream takes."""
+        return self._streams[0].host_blocks
+
+    def _pick_branches(self, step: int) -> List[Branch]:
+        """Each stream's branch for the frame the host counts as ``step``."""
         if self.mode == "NONE":
-            return ("none",)
+            return [("none",)] * len(self._streams)
         train = step % self.dilation == 0
         if self.mode == "FULL":
-            return ("full",) if train else ("none",)
+            return [("full",) if train else ("none",)] * len(self._streams)
         if step % self.sample_frequency == 0:
             self._resample(step)
         if not train:
-            return ("none",)
-        return ("shared",) if self.shared_forward else ("mad", self._host_blocks)
+            return [("none",)] * len(self._streams)
+        return [("shared",) if self.shared_forward else ("mad", st.host_blocks) for st in self._streams]
 
     # ------------------------------------------------------------ the device step
-    def _views(self, block: Optional[int]):
-        """(parameters, optimizer slots) of block ``block`` (None: of
-        everything) as lists of tensors: with the arena one slice of each
-        vector."""
+    def _views(self, st: _Stream, block: Optional[int]):
+        """(parameters, optimizer slots) of stream ``st``'s block ``block``
+        (None: of everything) as lists of tensors: with the arena one slice
+        of each vector."""
         if self.arena is not None:
             cut = (
                 (lambda v: v)
                 if block is None
                 else (lambda v: self.arena.block_slice(v, block))
             )
-            slots = {k: [cut(v[0])] for k, v in self.opt.items() if k != "t"}
-            return [cut(self.arena.flat)], slots
+            slots = {k: [cut(v[0])] for k, v in st.opt.items() if k != "t"}
+            return [cut(st.params[0])], slots
         if block is None:
             idx = range(len(self._names))
         else:
             idx = [self._index[name] for name in self.engine.blocks[block].names]
-        slots = {k: [v[i] for i in idx] for k, v in self.opt.items() if k != "t"}
-        return [self._params[i] for i in idx], slots
+        slots = {k: [v[i] for i in idx] for k, v in st.opt.items() if k != "t"}
+        return [st.params[i] for i in idx], slots
 
     def _grads(self, loss: torch.Tensor, block: Optional[int], retain: bool) -> List[torch.Tensor]:
         """The gradient of ``loss`` with respect to block ``block``'s
@@ -358,27 +436,27 @@ class FusedOnlineSession:
         return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
     @torch.no_grad()
-    def _apply(self, block: Optional[int], grads: List[torch.Tensor], t) -> None:
+    def _apply(self, st: _Stream, block: Optional[int], grads: List[torch.Tensor], t) -> None:
         eng = self.engine
-        params, slots = self._views(block)
+        params, slots = self._views(st, block)
         if eng.optimizer == "momentum":
             optim.momentum_update(params, slots["acc"], grads, eng.lr, eng.momentum)
         else:
             optim.adam_update(params, slots["m"], slots["v"], grads, eng.lr, t)
 
-    def _train_full(self, frame):
+    def _train_full(self, st: _Stream, frame):
         eng = self.engine
         eng._set_trainable()
         out = eng.model(frame["left"], frame["right"])
         loss = eng._full_loss_fn(out["disparities"], frame)
         grads = self._grads(loss, None, retain=False)
-        t = self.opt["t"] + 1 if "t" in self.opt else None
-        self._apply(None, grads, t)
+        t = st.opt["t"] + 1 if "t" in st.opt else None
+        self._apply(st, None, grads, t)
         if t is not None:
-            self.opt["t"].copy_(t)
+            st.opt["t"].copy_(t)
         return loss.detach(), out["full_res_disp"].detach()
 
-    def _train_blocks(self, ks: Sequence[int], frame):
+    def _train_blocks(self, st: _Stream, ks: Sequence[int], frame):
         """The sampled blocks in one step: one forward, each block's loss
         differentiated with respect to that block's parameters at the
         pre-step weights, the disjoint updates applied together; Adam's
@@ -392,15 +470,15 @@ class FusedOnlineSession:
         ]
         with torch.no_grad():
             loss = eng._full_loss_fn(out["disparities"], frame)
-            t = self.opt["t"] + 1 if "t" in self.opt else None
+            t = st.opt["t"] + 1 if "t" in st.opt else None
             for k, g in zip(ks, grads):
-                self._apply(k, g, t)
+                self._apply(st, k, g, t)
             if t is not None:
-                self.opt["t"].add_(len(ks))
+                st.opt["t"].add_(len(ks))
         eng._set_trainable()
         return loss, out["full_res_disp"].detach()
 
-    def _train_shared(self, frame):
+    def _train_shared(self, st: _Stream, frame):
         """One forward, the block losses stacked and selected by the
         sampled id on the device, one backward through everything, and a
         momentum update masked by block ownership: the block-k restriction
@@ -411,12 +489,12 @@ class FusedOnlineSession:
         inputs, prep = eng.block_loss_inputs(frame)
         out = eng.model(frame["left"], frame["right"])
         stacked = torch.stack([prep(out["disparities"][i]) for i in range(self.n_actions)], 0)
-        k = self.cur_blocks[0]
+        k = st.cur_blocks[0]
         sel = stacked.index_select(0, k.view(1).long())[0]
         grads = self._grads(eng._block_base_loss([sel], inputs), None, retain=False)
         with torch.no_grad():
             loss = eng._full_loss_fn(out["disparities"], frame)
-            for p, acc, g, bid in zip(self._params, self.opt["acc"], grads, self._block_ids):
+            for p, acc, g, bid in zip(st.params, st.opt["acc"], grads, self._block_ids):
                 own = k == bid
                 acc.copy_(torch.where(own, eng.momentum * acc + g, acc))
                 p.copy_(torch.where(own, p - eng.lr * acc, p))
@@ -433,58 +511,69 @@ class FusedOnlineSession:
                 loss = eng._full_loss_fn(out["disparities"], frame)
         return loss, out["full_res_disp"]
 
-    def _device_step(self, branch: Branch, frame: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One frame on the device: the branch's forward (and training),
-        then the controller. Reads and writes tensors only, so that it can
-        be captured once and replayed."""
+    def _device_step(self, st: _Stream, branch: Branch, frame: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One frame of stream ``st`` on the device: the branch's forward
+        (and training), then the controller. Reads and writes tensors only,
+        so that it can be captured once and replayed."""
         kind = branch[0]
         if kind == "none":
             new_loss, disp = self._forward_only(frame)
         elif kind == "full":
-            new_loss, disp = self._train_full(frame)
+            new_loss, disp = self._train_full(st, frame)
         elif kind == "shared":
-            new_loss, disp = self._train_shared(frame)
+            new_loss, disp = self._train_shared(st, frame)
         else:
-            new_loss, disp = self._train_blocks(branch[1], frame)
+            new_loss, disp = self._train_blocks(st, branch[1], frame)
 
         with torch.no_grad():
-            step = self.step_count
+            step = st.step_count
             if self.mode == "MAD":
                 # reward bookkeeping (Stereo_Online_Adaptation.py:211-224),
                 # every frame: only the train ops are dilation-gated
                 first = step == 0
-                loss_t1 = torch.where(first, new_loss, self.loss_t1)
-                loss_t2 = torch.where(first, new_loss, self.loss_t2)
+                loss_t1 = torch.where(first, new_loss, st.loss_t1)
+                loss_t2 = torch.where(first, new_loss, st.loss_t2)
                 gain = (2.0 * loss_t1 - loss_t2) - new_loss
-                self.scores.copy_(self.decay * self.scores + self.uf * gain * self.last_mask)
-                cur_mask = (self.cur_blocks[:, None] == self._arange_n[None, :]).sum(0)
+                st.scores.copy_(self.decay * st.scores + self.uf * gain * st.last_mask)
+                cur_mask = (st.cur_blocks[:, None] == self._arange_n[None, :]).sum(0)
                 if self.sample_frequency == 1:
-                    self.fetch_counter.add_(cur_mask.to(torch.int32))
+                    st.fetch_counter.add_(cur_mask.to(torch.int32))
                 else:
                     resample = (step % self.sample_frequency) == 0
-                    self.fetch_counter.add_(
+                    st.fetch_counter.add_(
                         torch.where(resample, cur_mask, torch.zeros_like(cur_mask)).to(torch.int32)
                     )
-                self.loss_t2.copy_(loss_t1)
-                self.loss_t1.copy_(new_loss)
-                self.last_mask.copy_(cur_mask.to(torch.float32))
+                st.loss_t2.copy_(loss_t1)
+                st.loss_t1.copy_(new_loss)
+                st.last_mask.copy_(cur_mask.to(torch.float32))
             if self.mode != "NONE":
                 # reset safeguard (Stereo_Online_Adaptation.py:241-244):
                 # model weights only, the optimizer state stays
                 do_reset = new_loss > self.ssim_th
-                for p, p0 in zip(self._params, self._params0):
+                for p, p0 in zip(st.params, self._params0):
                     p.copy_(torch.where(do_reset, p0, p))
-                self.reset_count.add_(do_reset.to(torch.int32))
+                st.reset_count.add_(do_reset.to(torch.int32))
             if self.compute_metrics:
                 epe, bad3 = disparity_metrics(disp, frame["target"])
                 _, d1 = d1_metric(disp, frame["target"])
                 row = torch.stack([epe, bad3, d1, new_loss]).view(1, 4)
                 at = torch.clamp(step, max=self.max_steps - 1).view(1).long()
-                self.metrics.index_copy_(0, at, row)
-            self.step_count.add_(1)
+                st.metrics.index_copy_(0, at, row)
+            st.step_count.add_(1)
             if self.disp_dtype is not None:
                 disp = disp.to(self.disp_dtype)
         return disp
+
+    def _stream_step(self, st: _Stream, branch: Branch, frame: Dict[str, torch.Tensor]) -> None:
+        """Stream ``st``'s step with the module bound to its arena row, its
+        disparity copied into row ``st.index`` of ``_disp_out``."""
+        self.arena.bind(st.index)
+        disp = self._device_step(st, branch, {k: v[st.index] for k, v in frame.items()})
+        if self._disp_out is None:  # the first (eager) step: never under capture
+            self._disp_out = torch.empty(
+                (self.num_streams, *disp.shape), dtype=disp.dtype, device=self.device
+            )
+        self._disp_out[st.index].copy_(disp)
 
     # ----------------------------------------------------------- frames, graphs
     def _load_frame(self, frame: Dict) -> Dict[str, torch.Tensor]:
@@ -526,34 +615,48 @@ class FusedOnlineSession:
         self._stage_events[slot] = event
         return {k: self._frame_bufs[k] for k in keys}
 
-    def _dispatch(self, branch: Branch, frame: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _dispatch(self, key: Tuple, run: Callable[[], Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
+        """Run ``run`` (the device work of graph ``key``): eagerly without
+        graphs, else as a replay of its graph, captured at first use."""
         if not self.use_graphs:
-            return self._device_step(branch, frame)
-        if branch in self._graphs:
-            graph, disp = self._graphs[branch]
+            return run()
+        if key in self._graphs:
+            graph, out = self._graphs[key]
             graph.replay()
-            for name, n in self.graph_launches[branch].items():
+            for name, n in self.graph_launches[key].items():
                 cuda_lib.LAUNCHES[name] += n
-            return disp
+            return out
         # first use: the frame's real step, eagerly, on the stream the
         # capture will use; then the capture, which runs nothing
         current = torch.cuda.current_stream(self.device)
         side = self._side_stream
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            disp = self._device_step(branch, frame)
+            out = run()
         current.wait_stream(side)
-        disp.record_stream(current)  # allocated on the side stream, read on this one
+        if out is not None:
+            out.record_stream(current)  # allocated on the side stream, read on this one
         before = dict(cuda_lib.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=side):
-            graph_disp = self._device_step(branch, frame)
+        # A garbage collection during the capture, in this thread or any
+        # other, can free the CUDA objects (events, graphs, streams) of dead
+        # sessions, and such a call ends the capture
+        # (cudaErrorStreamCaptureInvalidated). gc.disable stops collections
+        # in every thread of the process until the capture is done.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                graph_out = run()
+        finally:
+            if collecting:
+                gc.enable()
         launches = {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items() if v != before[k]}
         for name, n in launches.items():
             cuda_lib.LAUNCHES[name] -= n  # a capture launches nothing
-        self._graphs[branch] = (graph, graph_disp)
-        self.graph_launches[branch] = launches
-        return disp
+        self._graphs[key] = (graph, graph_out)
+        self.graph_launches[key] = launches
+        return out
 
     # -------------------------------------------------------------------- api
     def step(self, frame: Dict) -> None:
@@ -561,12 +664,32 @@ class FusedOnlineSession:
         disparity is kept as ``last_disp``, a device tensor that holds its
         values until the next step (it lives in the graphs' memory pool):
         fetch it with :meth:`fetch_disp`, or clone it, before stepping on.
+        With streams the frame's arrays carry a leading ``[N]`` axis, one
+        frame of every stream, and ``last_disp`` is ``[N, 1, H, W, 1]``.
         Raises if the conv precision in force is no longer the engine's: a
         graph captured under one mode would replay that mode."""
         self.engine.check_precision()
+        ns = self.num_streams
+        if ns and any(len(frame[k]) != ns for k in _FRAME_KEYS if k in frame):
+            raise ValueError(f"a frame of a {ns}-stream session carries a leading [{ns}] axis")
         bufs = self._load_frame(frame)
-        branch = self._pick_branch(self._host_step)
-        self.last_disp = self._dispatch(branch, bufs)
+        branches = self._pick_branches(self._host_step)
+        if not ns:
+            (branch,) = branches
+            st = self._streams[0]
+            self.last_disp = self._dispatch(branch, lambda: self._device_step(st, branch, bufs))
+        elif self.stream_impl == "unroll" and len(set(branches)) == 1:
+            def run_all():  # the N streams' steps in one graph
+                for st, branch in zip(self._streams, branches):
+                    self._stream_step(st, branch, bufs)
+            self._dispatch(tuple(branches), run_all)
+            self.last_disp = self._disp_out
+        else:
+            for st, branch in zip(self._streams, branches):
+                self._dispatch((st.index, branch), lambda: self._stream_step(st, branch, bufs))
+            self.last_disp = self._disp_out
+        if ns:
+            self.arena.bind(0)  # between steps the module shows stream 0
         self._host_step += 1
 
     def fetch_disp(self) -> Callable[[], np.ndarray]:
@@ -635,10 +758,11 @@ class FusedOnlineSession:
 
     def step_chunk(self, frames: Dict, unroll: int = 1) -> None:
         """Dispatch K frames from one call: ``frames`` carries a leading
-        ``[K]`` axis. The trajectory is that of K ``step`` calls (the
-        frames' graphs are replayed in order); ``last_disp`` holds the
-        ``[K]`` stacked disparities. ``unroll`` is accepted for the JAX
-        signature's sake and has no effect: there is no scan to unroll."""
+        ``[K]`` axis (``[K, N]`` with streams). The trajectory is that of K
+        ``step`` calls (the frames' graphs are replayed in order);
+        ``last_disp`` holds the ``[K]`` stacked disparities. ``unroll`` is
+        accepted for the JAX signature's sake and has no effect: there is
+        no scan to unroll."""
         del unroll
         k = len(frames["left"])
         stacked = None
@@ -655,24 +779,33 @@ class FusedOnlineSession:
         """Wait for the device and transfer the accumulated statistics
         (the one sync): ``scores``, ``fetch_counter``, ``reset_count``,
         ``steps`` and, with metrics, ``epe``, ``bad3``, ``d1``, ``loss``
-        per frame."""
-        nsteps = int(self.step_count.item())
+        per frame. With streams every array has a leading ``[N]`` axis and
+        ``steps`` is the count common to the streams."""
+        nsteps = int(self.step_count.max().item())
         host = {
             "scores": self.scores.cpu().numpy(),
             "fetch_counter": self.fetch_counter.cpu().numpy(),
             "reset_count": self.reset_count.cpu().numpy(),
         }
         if self.compute_metrics:
-            m = self.metrics[: min(nsteps, self.max_steps)].cpu().numpy()
+            m = self.metrics[..., : min(nsteps, self.max_steps), :].cpu().numpy()
             for j, k in enumerate(("epe", "bad3", "d1", "loss")):
-                host[k] = m[:, j]
+                host[k] = m[..., j]
         host["steps"] = nsteps
         return host
 
     def current_params(self) -> Dict[str, torch.Tensor]:
         """The adapted weights as a ``state_dict``: the module's own live
-        tensors (views of the arena when it is on). Clone what must outlive
-        the next step."""
+        tensors (views of the arena when it is on). With streams, views of
+        the ``[N, P]`` arena, each with a leading ``[N]`` axis. Clone what
+        must outlive the next step."""
+        if self.num_streams:
+            at = {name: (shape, off, size) for name, shape, off, size in self.spec.entries}
+            flat = self.arena.flat
+            return {
+                name: flat[:, at[name][1] : at[name][1] + at[name][2]].view(self.num_streams, *at[name][0])
+                for name in self._names
+            }
         return self.engine.model.state_dict()
 
     def snapshot_params(self) -> Callable[[], Dict[str, np.ndarray]]:
@@ -680,8 +813,9 @@ class FusedOnlineSession:
         weights on the device first (the live ones are updated in place by
         the next step), starts the copy to the host without waiting, and
         returns a zero-argument callable that gives ``{name: numpy array}``
-        when called. With the arena it is one contiguous transfer, and the
-        unravel happens on the host."""
+        when called (with streams, each with a leading ``[N]`` axis). With
+        the arena it is one contiguous transfer, and the unravel happens on
+        the host."""
         cuda = self.device.type == "cuda"
 
         def to_host(t: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,25 @@ Run:  python -m real_time_self_adaptive_deep_stereo_torch.cli.train \\
 ``--weights`` takes a JAX-layout ``.npz`` or a reference TF1 checkpoint
 (``utils/checkpoint.py``); a ``weights-N.npz`` in ``--output`` is resumed
 first, from step N. It runs on the GPU; ``main(args, device="cpu")`` runs
-the plain PyTorch versions on the CPU. ``--dataParallel`` on one device
-takes the single-device step, as the JAX CLI does; over several GPUs it
-is not ported (``ROADMAP.md``, queue 1, ``parallel/``).
+the plain PyTorch versions on the CPU.
+
+``--dataParallel`` trains on several GPUs, one process (rank) a GPU:
+
+    torchrun --standalone --nproc-per-node N \
+        -m real_time_self_adaptive_deep_stereo_torch.cli.train --dataParallel ...
+
+``cli()`` then joins an NCCL group from torchrun's environment and runs
+rank r on ``cuda:LOCAL_RANK``; it raises where the ranks outnumber the
+GPUs. Every rank draws the same shuffled sequence of global batches of
+``--batchSize``, decodes only its contiguous slice of each
+(``StereoDataset(shard=...)``) and trains on it with
+``parallel.make_dp_train_step``, whose loss and Adam update are those of
+one process on the whole batch; rank 0 alone writes checkpoints and logs
+and runs the validation. ``main(args, device)`` takes that path wherever
+a group of more than one rank is already initialized (a caller's own
+``gloo`` group, on the CPU or sharing one GPU). With one rank
+``--dataParallel`` takes the single-device step, as the JAX CLI does on
+one device.
 """
 
 from __future__ import annotations
@@ -80,11 +96,13 @@ def loss_and_grads(model, loss_fn, batch):
     return loss.detach(), torch.autograd.grad(loss, params)
 
 
-def make_train_step(model, loss_fn, lr: float):
+def make_train_step(model, loss_fn, lr: float, reduce=None):
     """``step(batch) -> loss``: :func:`loss_and_grads`, then one TF-form
     Adam update of every parameter in place (``utils/optim.py``), with the
-    optimizer state the returned function keeps. The loss stays on the
-    device."""
+    optimizer state the returned function keeps as ``step.opt``. The loss
+    stays on the device. ``reduce(loss, grads) -> (loss, grads)``, where
+    given, runs between the two (the data-parallel step's all-reduce);
+    ``step.grads`` is the gradient the last update took."""
     from real_time_self_adaptive_deep_stereo_torch.utils import optim
 
     weights = [p for _, p in model.named_parameters()]
@@ -92,20 +110,37 @@ def make_train_step(model, loss_fn, lr: float):
 
     def step(batch):
         loss, grads = loss_and_grads(model, loss_fn, batch)
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
+        step.grads = grads
         opt["t"] += 1
         optim.adam_update(weights, opt["m"], opt["v"], grads, lr, opt["t"])
         return loss
 
+    step.opt = opt
     return step
 
 
 def main(args, device=None) -> dict:
     """Train as ``args`` (``build_argparser``) say on ``device``: ``cuda``
-    unless ``device="cpu"``; raises where no GPU is available."""
+    unless ``device="cpu"``; raises where no GPU is available. Where a
+    process group of several ranks is initialized, this rank's part of the
+    data-parallel run (``--dataParallel``). Returns the loss of every step
+    (``losses``), the last logged one and the step count."""
     import torch
+    import torch.distributed as dist
+
+    dp = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    if dp and not args.dataParallel:
+        raise ValueError(
+            f"a process group of {dist.get_world_size()} ranks is initialized: pass "
+            "--dataParallel, or run one process"
+        )
+    main_rank = not dp or dist.get_rank() == 0
+    log = print if main_rank else (lambda *a, **k: None)
 
     if getattr(args, "decayStep", 500000) != 500000:
-        print(
+        log(
             "WARNING: --decayStep has no effect — matching the reference, "
             "which computes the decayed lr but passes the raw --lr to Adam "
             "(Train.py:94-95)."
@@ -124,9 +159,12 @@ def main(args, device=None) -> dict:
     from real_time_self_adaptive_deep_stereo_torch.utils.device import resolve_device
 
     device = resolve_device(device)
-    if args.dataParallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--dataParallel over several GPUs is not ported: ROADMAP.md, queue 1, `parallel/`"
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)  # the kernels launch on the current device
+    if args.dataParallel and not dp and device.type == "cuda" and torch.cuda.device_count() > 1:
+        log(
+            f"--dataParallel in one process trains on {device} alone; torchrun "
+            "--nproc-per-node N starts one rank a GPU"
         )
     os.makedirs(args.output, exist_ok=True)
 
@@ -139,8 +177,10 @@ def main(args, device=None) -> dict:
         is_training=True,
         shuffle=True,
         seed=args.seed,
+        # rank r decodes only its slice of each global batch
+        shard=(dist.get_rank(), dist.get_world_size()) if dp else None,
     )
-    print(f"Decoding frames with {train_set.decoding()}", flush=True)
+    log(f"Decoding frames with {train_set.decoding()}", flush=True)
     val_set = (
         StereoDataset(
             args.validationSet,
@@ -152,7 +192,7 @@ def main(args, device=None) -> dict:
             shuffle=True,
             seed=args.seed,
         )
-        if args.validationSet
+        if args.validationSet and main_rank
         else None
     )
 
@@ -161,12 +201,26 @@ def main(args, device=None) -> dict:
         args.output, params_to_jax(model.state_dict()), args.weights, model
     )
     model.load_state_dict(params_from_jax(params))
-    print(f"Restored?: {restored} from step {start_step}")
+    log(f"Restored?: {restored} from step {start_step}")
 
-    loss_fn = get_supervised_loss(
-        args.lossType, multiScale=True, weights=args.lossWeights, max_disp=MAX_DISP
-    )
-    train_step = make_train_step(model, loss_fn, args.lr)
+    if dp:
+        from real_time_self_adaptive_deep_stereo_torch.parallel import make_dp_train_step, make_mesh
+
+        mesh = make_mesh(device_type=device.type)
+        train_step = make_dp_train_step(
+            model,
+            mesh,
+            lr=args.lr,
+            loss_name=args.lossType,
+            max_disp=MAX_DISP,
+            loss_weights=args.lossWeights,
+        )
+        log(f"Data-parallel over {mesh.size()} ranks ({dist.get_backend()})")
+    else:
+        loss_fn = get_supervised_loss(
+            args.lossType, multiScale=True, weights=args.lossWeights, max_disp=MAX_DISP
+        )
+        train_step = make_train_step(model, loss_fn, args.lr)
 
     @torch.no_grad()
     def val_step(batch):
@@ -177,12 +231,16 @@ def main(args, device=None) -> dict:
     step = start_step
     start = time.perf_counter()
     last_loss = float("nan")
+    losses, pending = [], []  # read at the logging syncs
     val_iter = iter(prefetch_to_device(iter(val_set), 1, device=device)) if val_set else None
 
     for batch in prefetch_to_device(iter(train_set), size=2, device=device):
         loss = train_step(batch)
+        pending.append(loss)
         if step % 100 == 0:
-            last_loss = float(loss)
+            losses += torch.stack(pending).tolist()
+            pending = []
+            last_loss = losses[-1]
             dt = time.perf_counter() - start
             eta = datetime.timedelta(seconds=int((max_steps - step) * dt / 100))
             msg = f"Step:{step:6d}\tLoss:{last_loss:.3f}\tf/b time:{dt / 100:.3f}\tMissing time:{eta}"
@@ -192,27 +250,56 @@ def main(args, device=None) -> dict:
                     msg += f"\tval EPE:{float(epe):.2f} bad3:{float(bad3):.3f}"
                 except StopIteration:
                     val_iter = None
-            print(msg)
+            log(msg)
             start = time.perf_counter()
-        if step % args.ckptEvery == 0 and step > start_step:
+        if step % args.ckptEvery == 0 and step > start_step and main_rank:
             save_step_checkpoint(args.output, model.state_dict(), step)
         step += 1
         if args.maxSteps is not None and step - start_step >= args.maxSteps:
             break
 
-    save_step_checkpoint(args.output, model.state_dict(), step)
-    print("All Done")
-    return {"final_loss": last_loss, "steps": step}
+    if pending:
+        losses += torch.stack(pending).tolist()
+    if main_rank:
+        save_step_checkpoint(args.output, model.state_dict(), step)
+    log("All Done")
+    return {"final_loss": last_loss, "steps": step, "losses": losses}
 
 
 def cli() -> None:
+    """The command line. Under ``torchrun`` (``WORLD_SIZE`` > 1) with
+    ``--dataParallel``: one rank a GPU, an NCCL group from torchrun's
+    environment, rank r on ``cuda:LOCAL_RANK``."""
     args = build_argparser().parse_args()
-    os.makedirs(args.output, exist_ok=True)
-    with open(os.path.join(args.output, "params.sh"), "w") as f:
-        argv = list(sys.argv)
-        argv[0] = os.path.join(os.getcwd(), argv[0])
-        f.write("#!/bin/bash\npython3 " + " ".join(argv) + "\n")
-    main(args)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if int(os.environ.get("RANK", "0")) == 0:
+        os.makedirs(args.output, exist_ok=True)
+        with open(os.path.join(args.output, "params.sh"), "w") as f:
+            argv = list(sys.argv)
+            argv[0] = os.path.join(os.getcwd(), argv[0])
+            f.write("#!/bin/bash\npython3 " + " ".join(argv) + "\n")
+    if world == 1:
+        main(args)
+        return
+    import torch
+    import torch.distributed as dist
+
+    if not args.dataParallel:
+        raise ValueError(f"{world} ranks were started: pass --dataParallel, or start one process")
+    local_rank = int(os.environ["LOCAL_RANK"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if local_world > gpus:
+        raise RuntimeError(
+            f"--dataParallel runs one rank a GPU (NCCL), but {local_world} ranks were started on a "
+            f"machine with {gpus} GPU(s): start at most {gpus} (torchrun --nproc-per-node {gpus})"
+        )
+    torch.cuda.set_device(local_rank)
+    dist.init_process_group("nccl")
+    try:
+        main(args, device=f"cuda:{local_rank}")
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["read_png", "read_pngs", "write_png"]
+__all__ = ["png_size", "read_png", "read_pngs", "write_png"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels: grey, RGB, RGBA (palette and grey+alpha are not taken)
@@ -150,6 +150,17 @@ def _parse(path: str):
     if filters.max(initial=0) > 4:
         raise ValueError(f"{path}: unknown PNG row filter {int(filters.max())}")
     return (h, w, depth, channels), filters, rows[:, 1:].reshape(h, w, bpp)
+
+
+def png_size(path: str) -> Tuple[int, int]:
+    """(height, width) of the PNG at ``path`` from its header (IHDR, the
+    first chunk), without decoding it."""
+    with open(path, "rb") as f:
+        head = f.read(len(_SIGNATURE) + 16)
+    if head[: len(_SIGNATURE)] != _SIGNATURE or head[len(_SIGNATURE) + 4 : len(_SIGNATURE) + 8] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[len(_SIGNATURE) + 8 :])
+    return h, w
 
 
 def read_pngs(paths: Sequence[str]) -> List[np.ndarray]:

@@ -34,7 +34,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from real_time_self_adaptive_deep_stereo_torch.data.png import read_pngs
+from real_time_self_adaptive_deep_stereo_torch.data.png import png_size, read_pngs
 
 __all__ = [
     "read_pfm",
@@ -124,13 +124,18 @@ def random_crop(
     crop_shape: Sequence[int], tensors: List[np.ndarray], rng: np.random.Generator
 ) -> List[np.ndarray]:
     """Aligned random crop (preprocessing.py:31-56)."""
-    h, w = tensors[0].shape[:2]
+    ch, cw = crop_shape
+    r0, c0 = _crop_origin(crop_shape, *tensors[0].shape[:2], rng)
+    return [t[r0 : r0 + ch, c0 : c0 + cw] for t in tensors]
+
+
+def _crop_origin(crop_shape: Sequence[int], h: int, w: int, rng: np.random.Generator) -> Tuple[int, int]:
+    """The top-left corner of :func:`random_crop`'s crop of an ``h x w``
+    image: its two draws from ``rng``."""
     ch, cw = crop_shape
     max_row = max(h - ch - 1, 1)
     max_col = max(w - cw - 1, 1)
-    r0 = int(rng.integers(0, max_row))
-    c0 = int(rng.integers(0, max_col))
-    return [t[r0 : r0 + ch, c0 : c0 + cw] for t in tensors]
+    return int(rng.integers(0, max_row)), int(rng.integers(0, max_col))
 
 
 def center_crop_or_pad(img: np.ndarray, th: int, tw: int) -> np.ndarray:
@@ -227,6 +232,16 @@ def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
     return np.stack([r, g, b], axis=-1).reshape(in_shape)
 
 
+def _augment_draws(rng: np.random.Generator):
+    """:func:`augment`'s draws from ``rng``: the brightness delta, the
+    contrast factor and the hue shift, each None where its op is off."""
+    active = rng.random(4)
+    brightness = rng.uniform(-0.05, 0.05) if active[1] <= 0.5 else None
+    factor = rng.uniform(0.8, 1.2) if active[2] <= 0.5 else None
+    delta = rng.uniform(0.8, 1.2) if active[3] <= 0.5 else None
+    return brightness, factor, delta
+
+
 def augment(
     left: np.ndarray, right: np.ndarray, rng: np.random.Generator
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -235,24 +250,21 @@ def augment(
     'active' draw is <= 0.5; brightness delta +-0.05, contrast 0.8..1.2,
     hue 0.8..1.2, taken mod 1 as the reference's shift is). The draws from
     ``rng`` come in the JAX package's order."""
-    active = rng.random(4)
+    brightness, factor, delta = _augment_draws(rng)
     left = left.astype(np.float32)
     right = right.astype(np.float32)
 
-    if active[1] <= 0.5:
-        delta = rng.uniform(-0.05, 0.05)
-        left = left + delta
-        right = right + delta
-    if active[2] <= 0.5:
-        factor = rng.uniform(0.8, 1.2)
+    if brightness is not None:
+        left = left + brightness
+        right = right + brightness
+    if factor is not None:
 
         def contrast(x):
             mean = x.mean(axis=(0, 1), keepdims=True)
             return (x - mean) * factor + mean
 
         left, right = contrast(left), contrast(right)
-    if active[3] <= 0.5:
-        delta = rng.uniform(0.8, 1.2)
+    if delta is not None:
 
         def hue(x):
             hsv = _rgb_to_hsv(np.clip(x / 255.0, 0, 1))
@@ -279,7 +291,14 @@ class StereoDataset:
     frame's crop and ``augment`` from one ``rng``; ``auto``, ``native``
     where the loader builds and ``augment`` is off (augmentation is
     Python's), else ``python``. Either way in the JAX package's order.
-    ``backend`` keeps the one taken."""
+    ``backend`` keeps the one taken.
+
+    ``shard=(index, parts)`` (training only) yields piece ``index`` of
+    ``parts`` of every batch of ``batch_size``, the piece rank ``index``
+    of a data-parallel run trains on (``parallel.local_slice``'s cut): it
+    draws the same shuffle, crops and augmentation as the whole batch but
+    decodes only its own frames, so the pieces of all ranks make up the
+    batches of one process."""
 
     def __init__(
         self,
@@ -294,9 +313,19 @@ class StereoDataset:
         seed: Optional[int] = None,
         num_workers: int = 2,
         backend: str = "auto",
+        shard: Optional[Tuple[int, int]] = None,
     ):
         if backend not in ("auto", "python", "native"):
             raise ValueError(f"unknown backend {backend!r}")
+        self.keep = range(batch_size)  # the positions of a batch this dataset decodes
+        if shard is not None:
+            index, parts = shard
+            if not is_training:
+                raise ValueError("shard cuts training batches; an eval set is read whole")
+            if batch_size % parts:
+                raise ValueError(f"a batch of {batch_size} does not split evenly over {parts} ranks")
+            size = batch_size // parts
+            self.keep = range(index * size, (index + 1) * size)
         if backend == "native" and augment:
             raise ValueError("augment runs in Python: take backend 'python' or 'auto' with it")
         if not os.path.exists(path_file):
@@ -364,6 +393,14 @@ class StereoDataset:
             out["real_width"] = np.int32(real_width)
         return out
 
+    def _skip_one(self, idx: int) -> None:
+        """Draw from ``rng`` what :meth:`_load_one` draws for sample
+        ``idx``, without decoding it (another rank's frame)."""
+        if self.is_training:
+            _crop_origin(self.crop_shape, *png_size(self.samples[idx][0]), self.rng)
+        if self.augment:
+            _augment_draws(self.rng)
+
     # ------------------------------------------------------------- iteration
     def _index_stream(self) -> Iterator[int]:
         epoch = 0
@@ -387,11 +424,15 @@ class StereoDataset:
         def producer():
             batch: List[Dict[str, np.ndarray]] = []
             try:
-                for idx in self._index_stream():
+                for n, idx in enumerate(self._index_stream()):
                     if stop.is_set():
                         return
-                    batch.append(self._load_one(int(idx)))
-                    if len(batch) == self.batch_size:
+                    pos = n % self.batch_size
+                    if pos in self.keep:
+                        batch.append(self._load_one(int(idx)))
+                    else:
+                        self._skip_one(int(idx))
+                    if pos == self.batch_size - 1:
                         q.put(self._stack(batch))
                         batch = []
                 if batch and not self.is_training:
@@ -424,8 +465,10 @@ class StereoDataset:
         # has no end (the JAX package's loader lists it first, and hangs)
         indices = self._index_stream()
         try:
+            n = 0  # frames of the index stream read, this dataset's or not
             submitted = 0
             delivered = 0
+            ends: List[int] = []  # the submitted count at each batch's end, not yet yielded
             batch: List[Dict[str, np.ndarray]] = []
             ahead = 8
             while True:
@@ -433,14 +476,19 @@ class StereoDataset:
                     idx = next(indices, None)
                     if idx is None:
                         break
-                    lp, rp, gp = self.samples[int(idx)]
-                    pp = self.proxies[int(idx)] if self.proxies is not None else ""
-                    loader.submit(
-                        lp, rp, gp or "", pp,
-                        train=self.is_training,
-                        seed=(base_seed << 20) + submitted,
-                    )
-                    submitted += 1
+                    pos = n % self.batch_size
+                    if pos in self.keep:
+                        lp, rp, gp = self.samples[int(idx)]
+                        pp = self.proxies[int(idx)] if self.proxies is not None else ""
+                        loader.submit(
+                            lp, rp, gp or "", pp,
+                            train=self.is_training,
+                            seed=(base_seed << 20) + n,
+                        )
+                        submitted += 1
+                    if pos == self.batch_size - 1:
+                        ends.append(submitted)
+                    n += 1
                 if delivered == submitted:
                     break
                 sample = loader.next()
@@ -449,7 +497,8 @@ class StereoDataset:
                     sample.pop("proxy", None)
                     sample.pop("real_width", None)
                 batch.append(sample)
-                if len(batch) == self.batch_size:
+                if ends and delivered == ends[0]:
+                    ends.pop(0)
                     yield self._stack(batch)
                     batch = []
             if batch and not self.is_training:

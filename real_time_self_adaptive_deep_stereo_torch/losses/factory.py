@@ -29,6 +29,7 @@ __all__ = [
     "SSIM_ALPHA",
     "get_supervised_loss",
     "get_proxy_loss",
+    "supervised_invalid",
     "get_reprojection_loss",
     "l1",
     "mean_SSIM_L1",
@@ -259,6 +260,13 @@ def _target_loss(base, weights, multiScale, reduced, label_key, invalid):
     return compute_loss
 
 
+def supervised_invalid(target: torch.Tensor, max_disp: Optional[float] = None) -> torch.Tensor:
+    """The pixels a supervised loss leaves out: no ground truth (0), or at
+    or beyond ``max_disp`` (1000 where None)."""
+    max_disp = 1000.0 if max_disp is None else max_disp
+    return (target == 0) | (target >= max_disp)
+
+
 def get_supervised_loss(
     name: str,
     multiScale: bool = False,
@@ -267,12 +275,11 @@ def get_supervised_loss(
     max_disp: Optional[float] = None,
 ):
     """GT-supervised loss closure (loss_factory.py:256-302). Valid pixels:
-    ``0 < target < max_disp``."""
+    those :func:`supervised_invalid` leaves in, ``0 < target < max_disp``."""
     weights = [1.0] * 10 if weights is None else list(weights)
-    max_disp = 1000.0 if max_disp is None else max_disp
     return _target_loss(
         _resolve(name), weights, multiScale, reduced, "target",
-        lambda t: (t == 0) | (t >= max_disp),
+        lambda t: supervised_invalid(t, max_disp),
     )
 
 

@@ -547,7 +547,7 @@ def test_fused_probability_session_reads_its_blocks_and_counts_them(su):
 
 def test_fused_session_refuses_what_it_cannot_run(su):
     eng = su.engine()
-    for kw in (dict(mesh=object()), dict(num_streams=2), dict(stream_impl="vmap")):
+    for kw in (dict(mesh=object()), dict(stream_impl="vmap")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, `parallel/`"):
             TorchFused(eng, **kw)
     with pytest.raises(ValueError, match="unknown mode"):
