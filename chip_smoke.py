@@ -2,7 +2,7 @@
 """Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only | --precision-only
-                           | --cli-only | --train-only | --demo-only | --parallel-only]
+                           | --cli-only | --train-only | --demo-only | --parallel-only | --spatial-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -53,7 +53,11 @@ Phases, each of which raises on failure (nothing is caught):
    last four (every variant) and the wide pair at [4,128,80,304], radius
    40, the shapes of a ``cli/train.py`` step, each backward bit-identical
    in two runs; at batch 2, a data-parallel rank's piece of that step
-   (phase 12), K1 and K3 and their backward kernels again.
+   (phase 12), K1 and K3 and their backward kernels again. Last the five
+   kernel Functions under ``torch.func.vmap`` over 2 and 4 streams at
+   [N, 1, ...] of MADNet's shapes (phase 13), forward and backward (the
+   warps' both gradients): one launch a vmapped call, against the plain
+   version stream by stream, timed beside it on the folded batch.
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -229,6 +233,30 @@ Phases, each of which raises on failure (nothing is caught):
    steps, against the one-process CLI: each step's loss within 1e-4
    relative, rank 0's one checkpoint, its weights as in (b), rank 0 alone
    logging. Prints each rank's ms a step beside one process's.
+13. Batched streams and width sharding, at 320x1216, deterministic cuDNN.
+   (a) ``stream_impl="vmap"``, MADNet MAD through the shared-forward step
+   (bulkhead, ``mxu``, SEQUENTIAL, seeds ``[0] * N``, each stream on its
+   own smooth frames), N = 2 and 4, 8 frame-batches: every frame-batch
+   launching each kernel as one shared-forward frame does (K1 5, not 5N),
+   one graph, the steady ones replayed with every host sync an error; each
+   stream against a single shared-forward session over its first round
+   (each block trained once) at phase 6's bounds, the later frames
+   printed (``check_round``); ms a frame-batch by CUDA events beside
+   "map" and "unroll" on the same frames, graphs and peak memory. Then
+   PROBABILITY at N = 4 (seeds 0-3), FULL at N = 2 with dilation 2 (its
+   forward-only graph), NONE serving at N = 4 against single sessions'
+   disparities. (b) Two ``gloo`` ranks sharing the card (this script with
+   ``--dp-rank``): ``parallel.make_spatial_adapt_step`` over 3 frames,
+   each step against one process from the same weights (loss 1e-4, the
+   gradient STEP_RTOL of its largest entry, the first update at the JAX
+   package's rtol 1e-3 / atol 1e-6), the ranks bit for bit; the
+   width-sharded fused MAD session over 5 frames against the single
+   session at ``tests/test_parallel.py``'s bounds, its disparity pieces
+   within 1e-3 of the largest; each rank's launches and its halo audit
+   (every conv fetched its halo, all-gathers by the warps alone). (c)
+   Four vmap streams over the two ranks against (a)'s single sessions,
+   both ranks' gathered results equal. Prints ms a step and a frame a
+   rank beside one process.
 
 Prints the card line, the ms/frame of the host and the fused sessions by
 mode and precision, a JSON line of the sixteen kernels, and as the last line
@@ -735,17 +763,25 @@ def check_kernels(ops):
 
     check_batch_kernels(ops, rows)
     check_batch_kernels(ops, rows, DP_BATCH // DP_WORLD)
+    for n in VMAP_COUNTS:
+        check_vmap_kernels(rows, n)
 
     for name, rs in rows.items():
         for r in rs:
             r["bound_ms"], r["bound_by"] = r.pop("bound")
             log(f"kernel {name} {r}")
     for name, all_rs in rows.items():  # summed over the main-path shapes
-        rs = [r for r in all_rs if "batch" not in r]
+        rs = [r for r in all_rs if "batch" not in r and "vmap" not in r]
         for b, batch in by_batch(all_rs).items():
             log(f"kernel {name} at batch {b}: {sum(r['ms'] for r in batch):.5f} ms over "
                 f"{len(batch)} shape(s), bound {sum(r['bound_ms'] for r in batch):.5f}, "
                 f"plain {sum(r['plain_ms'] for r in batch):.5f}")
+        for n in VMAP_COUNTS:
+            vr = [r for r in all_rs if r.get("vmap") == n]
+            if vr:
+                log(f"kernel {name} under vmap over {n} streams: {sum(r['ms'] for r in vr):.5f} ms over "
+                    f"{len(vr)} shape(s), bound {sum(r['bound_ms'] for r in vr):.5f}, "
+                    f"plain {sum(r['plain_ms'] for r in vr):.5f}")
         ms, lib_ms = sum(r["ms"] for r in rs), [r["library_ms"] for r in rs]
         ratio = "no library call" if None in lib_ms else f"{ms / sum(lib_ms):.3f} of the library's {sum(lib_ms):.5f} ms"
         if rs and "cold_ms" in rs[0]:
@@ -3044,15 +3080,16 @@ def events_ms(run, n: int, sync_error: bool = False):
     return start.elapsed_time(end) / n, (time.perf_counter() - t0) * 1e3 / n
 
 
-def check_stream(tag, session, s, stats, ref, ref_flat, ref_flat0):
-    """Stream ``s`` of a multi-stream session against a single-stream
-    session over its frames: phase 6's bounds of a replayed session
-    against the eager one."""
+def check_stream(tag, flats, s, stats, ref, ref_flat, ref_flat0):
+    """Stream ``s`` of a multi-stream session (its statistics ``stats``,
+    its ``[N, P]`` weights ``flats``) against a single-stream session over
+    its frames: phase 6's bounds of a replayed session against the eager
+    one."""
     one = {k: stats[k][s] for k in ("loss", "epe", "fetch_counter", "scores")}
     assert_trajectory(one, ref, f"{tag} stream {s} against a single-stream session")
     assert_controller(one, ref, f"{tag} stream {s} against a single-stream session")
     moved = float((ref_flat - ref_flat0).abs().max())
-    err = float((session.arena.flat[s] - ref_flat).abs().max())
+    err = float((flats[s] - ref_flat).abs().max())
     log(f"{tag} stream {s}: weights differ by {err:.3g} of {moved:.3g} moved")
     if not (moved > 0 and err <= 1e-2 * moved):
         raise AssertionError(f"{tag} stream {s}: adapted weights differ from the single-stream session's")
@@ -3160,7 +3197,7 @@ def streams_in(state):
                 raise AssertionError(f"{tag}: {stats['steps']} steps, loss {stats['loss'].shape}, "
                                      f"resets {stats['reset_count']}")
             for s in range(n):
-                check_stream(tag, session, s, stats, *refs[s])
+                check_stream(tag, session.arena.flat, s, stats, *refs[s])
             ms[f"{tag}_BATCH_DEVICE"], ms[f"{tag}_BATCH_WALL"] = dev, wall
             ms[f"{tag}_FRAME_DEVICE"], ms[f"{tag}_FRAME_WALL"] = dev / n, wall / n
             log(f"{tag}: {len(session._graphs)} graphs captured; launches a frame-batch {per_batch(1)} "
@@ -3212,7 +3249,7 @@ def streams_in(state):
         if len(session._graphs) > most:
             raise AssertionError(f"{tag}: {len(session._graphs)} graphs, more than {most}")
         for s in range(n):
-            check_stream(tag, session, s, stats, *refs[s])
+            check_stream(tag, session.arena.flat, s, stats, *refs[s])
         del session
     return launches, ms
 
@@ -3270,7 +3307,8 @@ def spawn_ranks(mode: str, workdir: Path, config: dict):
 
 
 def dp_rank_main(rank: int, workdir: Path) -> int:
-    """One rank of phase 12's data-parallel runs (``--dp-rank``)."""
+    """One rank of phase 12's data-parallel runs or of phase 13's
+    width-sharded ones (``--dp-rank``)."""
     import torch.distributed as dist
 
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
@@ -3282,7 +3320,9 @@ def dp_rank_main(rank: int, workdir: Path) -> int:
                             world_size=DP_WORLD)
     try:
         out = {}
-        if config["mode"] == "step":
+        if config["mode"] == "spatial":
+            out = spatial_rank(rank, workdir, device)
+        elif config["mode"] == "step":
             from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
             from real_time_self_adaptive_deep_stereo_torch.parallel import (
                 batch_sharded,
@@ -3538,6 +3578,719 @@ def run_parallel(state, profile_dir):
     return launches, ms
 
 
+# ----------------------------------------------------------------- phase 13
+VMAP_COUNTS = (2, 4)
+N_FRAMES_VMAP = 8  # a SEQUENTIAL round of the five blocks (eager steps and captures), then 3 replayed
+N_TIMED_VMAP = 3
+# the loss of every frame of a vmap stream against its single session: a
+# grouped convolution (the stream axis) rounds apart from a plain one, and
+# the random-weight network carries that along an adapting trajectory (on
+# an H100, 8 frames part by up to 1.65e-3 under FULL, 6.7e-4 under MAD,
+# where the first rounds agree within 1e-4); about three times that
+LATER_LOSS_RTOL = 5e-3
+SP_WORLD = 2
+SP_STEPS = 3
+SP_FRAMES = 5
+SP_STREAMS = 4
+SP_JOIN_S = 420  # a rank's time limit
+# the width-sharded step and session against one process on the whole
+# frame, at tests/test_parallel.py's bounds (as tests/test_torch_spatial.py)
+SP_LOSS_RTOL = 1e-4
+SP_WEIGHT_TOL = dict(rtol=1e-3, atol=1e-6)
+SP_MESH_LOSS = dict(rtol=5e-4, atol=1e-6)
+SP_MESH_EPE = dict(rtol=5e-4, atol=1e-5)
+SP_DISP_RTOL = 1e-3  # of the largest disparity, the pieces against one process's
+# a FULL step of every rank with the default (cuda) warps
+FULL_CUDA = {"corr_fwd": 5, "corr_bwd": 5, "warp_image_fwd": 1, "warp_image_bwd": 1,
+             "warp_features_fwd": 4, "warp_features_bwd": 4}
+
+
+def mad_cuda_launches(k: int):
+    """``mad_tile_launches`` on the default (cuda) warps."""
+    return {name.replace("warp_tile_", "warp_"): v for name, v in mad_tile_launches(k).items()}
+
+
+def check_vmap_kernels(rows, n: int):
+    """Phase 13: the five kernel Functions under ``torch.func.vmap`` over
+    ``n`` streams at MADNet's main-path shapes ([n, 1, ...]), forward and
+    backward (its rule of its own): each vmapped call one launch, against
+    the plain version stream by stream, timed beside the plain version on
+    the folded [n, ...] batch, which is what the rule launches. The warp
+    backward asks for both gradients. Rows carry ``vmap``: n."""
+    import importlib
+
+    import torch.nn.functional as F
+    from torch.func import vmap
+
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.ops import warp as pw
+
+    corr = importlib.import_module("real_time_self_adaptive_deep_stereo_torch.ops.correlation")
+    wk = importlib.import_module("real_time_self_adaptive_deep_stereo_torch.ops.warp_kernels")
+    k = 2 * RADIUS + 1
+
+    def once(name, call):
+        before = cuda_lib.LAUNCHES[name]
+        out = call()
+        if cuda_lib.LAUNCHES[name] - before != 1:
+            raise AssertionError(f"{name} under vmap over {n} streams: "
+                                 f"{cuda_lib.LAUNCHES[name] - before} launches, want 1")
+        return out
+
+    def row(name, shape, err, call, plain_ms, bytes_flops, library=None, tol=None):
+        rows[name].append(dict(
+            vmap=n, shape=[n, *shape], err=err, tol=tol or f"{BWD_RTOL} of the largest entry",
+            ms=time_ms(call), plain_ms=plain_ms, library_ms=None if library is None else time_ms(library),
+            bound=bound(*bytes_flops),
+        ))
+
+    fold = lambda t: t.flatten(0, 1)  # noqa: E731
+    for i, (c, f) in enumerate(CORR_LEVELS):
+        shape = (1, c, H // f, W // f)
+        m = n * shape[2] * shape[3]
+        x, y = seeded((n, *shape), 610 + i), seeded((n, *shape), 620 + i)
+        g = seeded((n, 1, k, *shape[2:]), 630 + i)
+        fwd = lambda: vmap(lambda a, b: corr._CorrelationCUDA.apply(a, b, RADIUS, False))(x, y)  # noqa: E731
+        bwd = lambda: vmap(  # noqa: E731
+            lambda a, b, d: corr._CorrelationBwdCUDA.apply(a, b, d, RADIUS, False))(x, y, g)
+        got = once("corr_fwd", fwd)
+        want = torch.stack([corr.correlation_torch(x[s], y[s], RADIUS) for s in range(n)])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **CORR_TOL)
+        row("corr_fwd", shape, float((got - want).abs().max()), fwd,
+            time_ms(lambda: corr.correlation_torch(fold(x), fold(y), RADIUS)),
+            (4.0 * m * (2 * c + k), 2.0 * m * c * k),
+            tol=CORR_TOL)
+        got = once("corr_bwd", bwd)
+        want = [torch.stack(t) for t in zip(*[corr.correlation_torch_bwd(x[s], y[s], g[s], RADIUS)
+                                               for s in range(n)])]
+        errs = [assert_grad_close(a, b, f"corr_bwd under vmap {shape} {nm}") for a, b, nm in zip(got, want, "xy")]
+        row("corr_bwd", shape, max(errs), bwd,
+            time_ms(lambda: corr.correlation_torch_bwd(fold(x), fold(y), fold(g), RADIUS)),
+            (4.0 * m * (4 * c + k), 6.0 * m * c * k))
+
+    # the image warp at full resolution (the loss's), the feature warp at
+    # K1's last four levels; the default and the tiled kernels
+    img = seeded((n, 1, 3, H, W), 640, 0.0, 1.0)
+    disp = seeded((n, 1, 1, H, W), 641, -8.0, 200.0)
+    cases = [("image", img, disp, (MAX_DISP,), 3, "border", -1.0, 642)]
+    for i, (c, f) in enumerate(FEAT_LEVELS):
+        neg = -(-MAX_DISP // f)
+        cases.append(("features", seeded((n, 1, c, H // f, W // f), 650 + i),
+                      seeded((n, 1, 1, H // f, W // f), 660 + i, -neg - 10.0, MAX_POS + 6.0),
+                      (neg, MAX_POS), c, "zeros", 1.0, 670 + i))
+    for kind, src, off, bounds, c, padding, sign, seed in cases:
+        m = n * src.shape[3] * src.shape[4]
+        g = seeded(tuple(src.shape), seed)
+        lo, hi = (0.0, bounds[0]) if kind == "image" else (-bounds[0], bounds[1])
+        grid = grid_for(fold(off).clamp(lo, hi), sign)
+        for tiled in (False, True):
+            if kind == "image":
+                fn = wk._WarpImageTile if tiled else wk._WarpImageCUDA
+                plain = (lambda s, o: pw.warp_image_onehot(s, o, *bounds, align=128)) if tiled else (
+                    lambda s, o: pw.warp_image_clamped(s, o, *bounds))
+            else:
+                fn = wk._WarpFeaturesTile if tiled else wk._WarpFeaturesCUDA
+                plain = (lambda s, o: pw.warp_features_onehot(s, o, *bounds, align=128)) if tiled else (
+                    lambda s, o: pw.warp_features_clamped(s, o, *bounds))
+            name = fn.FWD
+            fwd = lambda fn=fn: vmap(lambda s, o: fn.apply(s, o, *bounds))(src, off)  # noqa: E731
+            got = once(name, fwd)
+            want = torch.stack([plain(src[s], off[s]) for s in range(n)])
+            torch.cuda.synchronize()
+            tol = ONEHOT_TOL if tiled else WARP_TOL
+            torch.testing.assert_close(got, want, **tol)
+            row(name, tuple(src.shape[1:]), float((got - want).abs().max()), fwd,
+                time_ms(lambda: plain(fold(src), fold(off)), inner=2 if tiled else 20),
+                (4.0 * m * (2 * c + 1), 3.0 * c * m),
+                library=lambda: F.grid_sample(fold(src), grid, "bilinear", padding, align_corners=True), tol=tol)
+            fbounds = tuple(float(b) for b in bounds)
+            bwd = lambda fn=fn: vmap(  # noqa: E731
+                lambda s, o, d: wk._WarpBwd.apply(fn.LIB, fn.BWD, s, o, d, True, True, fbounds))(src, off, g)
+            got = once(fn.BWD, bwd)
+            want = []
+            for s in range(n):
+                s_g, o_g = src[s].clone().requires_grad_(), off[s].clone().requires_grad_()
+                want.append(torch.autograd.grad(plain(s_g, o_g), (s_g, o_g), g[s]))
+            want = [torch.stack(t) for t in zip(*want)]
+            errs = [assert_grad_close(a, b, f"{fn.BWD} under vmap {nm}")
+                    for a, b, nm in zip(got, want, ("dsrc", "doff"))]
+            plain_out_src, plain_out_off = fold(src).clone().requires_grad_(), fold(off).clone().requires_grad_()
+            plain_out = plain(plain_out_src, plain_out_off)
+            row(fn.BWD, tuple(src.shape[1:]), max(errs), bwd,
+                call_ms(lambda: torch.autograd.grad(plain_out, (plain_out_src, plain_out_off), fold(g),
+                                                    retain_graph=True), 50),
+                (4.0 * m * (3 * c + 2), 8.0 * c * m),
+                library=lambda: grid_sample_bwd(fold(g), fold(src), grid, padding, (True, True)))
+
+
+def vmap_session(state, mode, n, impl="vmap", **kw):
+    """An n-stream fused session of MADNet on the tiled warps (phase 12's
+    configuration)."""
+    return make_session(state, mode, warp="mxu", fused=True, num_streams=n, stream_impl=impl, **kw)
+
+
+def record_draw(trail, session):
+    """Append the blocks a session's streams took in the frame it just
+    stepped, and their scores after it (device copies; read at the end)."""
+    if trail is not None:
+        trail.append((session.cur_blocks.clone(), session.scores.clone()))
+
+
+def host_trail(trail):
+    """(blocks ``[frames, ...]``, scores ``[frames, ...]``) of a trail."""
+    return tuple(np.stack([t[j].cpu().numpy() for t in trail]) for j in (0, 1))
+
+
+def counted_steps(session, frames, per_batch, tag, at=0, trail=None):
+    """Step ``session`` over ``frames`` frame-batch by frame-batch, each
+    adding exactly ``per_batch`` launches (a dict, or a function of the
+    frame's index), each frame's draw appended to ``trail``; returns the
+    wall ms of each."""
+    out = []
+    for i, f in enumerate(frames, start=at):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_counted(session, f, per_batch(i) if callable(per_batch) else per_batch, f"{tag} frame-batch {i}")
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+        record_draw(trail, session)
+    return out
+
+
+def single_refs(state, mode, per, seeds, n_round, **kw):
+    """A single-stream session per stream over its frames: ((finalize,
+    weights, pristine weights) after the first ``n_round`` frames, the
+    final finalize, the blocks and scores of every frame) each, and one
+    frame's launches."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    refs, per_frame = [], None
+    for s, seed in enumerate(seeds):
+        sg = make_session(state, mode, warp="mxu", fused=True, seed=seed, **kw)
+        cuda_lib.reset_launches()
+        trail = []
+        for i, f in enumerate(per[s]):
+            sg.step(f)
+            per_frame = per_frame or {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+            record_draw(trail, sg)
+            if i + 1 == n_round:
+                first = (sg.finalize(), sg.arena.flat.clone(), sg.arena.flat0)
+        refs.append((first, sg.finalize(), host_trail(trail)))
+        del sg
+    return refs, per_frame
+
+
+def explain_flip(tag, s, i, seed, got_scores, ref_scores, got, want):
+    """A block that a vmap stream drew at frame ``i`` where its single
+    session drew another: a PROBABILITY draw (``seed`` the stream's) with
+    the same Gumbel noise on scores that differ by rounding can fall on
+    either side of the draw's boundary, and only then. Raises unless the
+    single session's two best candidates were within twice the scores'
+    difference of each other."""
+    what = f"{tag} stream {s} frame {i}: blocks {got.tolist()} where the single session drew {want.tolist()}"
+    if seed is None:
+        raise AssertionError(f"{what} (no random draw)")
+    n = ref_scores.shape[-1]
+    before_ref = ref_scores[i - 1] if i else np.zeros(n, np.float32)
+    before_got = got_scores[i - 1] if i else np.zeros(n, np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(int(seed))
+    for _ in range(i + 1):  # one draw a frame, as the session's sampler
+        u = torch.rand(n, generator=gen, device="cuda", dtype=torch.float32)
+    gumbel = (-torch.log(-torch.log(u + 1e-20) + 1e-20)).cpu().numpy()
+    top = np.sort(np.asarray(before_ref, np.float64) + gumbel)[::-1]
+    margin, diff = float(top[0] - top[1]), float(np.abs(before_got - before_ref).max())
+    log(f"{what}: the draw's best two candidates {margin:.3g} apart, the scores {diff:.3g}")
+    if not margin <= 2 * diff:
+        raise AssertionError(f"{what}, a margin of {margin:.3g} that scores within {diff:.3g} cannot flip")
+
+
+def check_round(tag, first, flats, final, refs, trail, seeds=None):
+    """Each stream of a vmap session against its single session. Over the
+    first round (each block trained once from the same weights, or FULL's
+    first update) at phase 6's bounds, the weights at its end too. Over
+    every frame: the sampled blocks equal (``trail``, the vmap session's
+    blocks and scores by frame), the fetch counters equal, the loss
+    within LATER_LOSS_RTOL. Where a PROBABILITY draw (``seeds``, the
+    streams' seeds) flipped by rounding (:func:`explain_flip`), the frames
+    from the flip on are not compared: the trajectories part there."""
+    blocks, scores = trail
+    for s, (ref_first, ref_final, (ref_blocks, ref_scores)) in enumerate(refs):
+        check_stream(tag, flats, s, first, *ref_first)
+        n = len(ref_blocks)
+        flip = next((i for i in range(n) if not np.array_equal(blocks[i][s], ref_blocks[i])), None)
+        if flip is not None:
+            explain_flip(tag, s, flip, None if seeds is None else seeds[s], scores[:, s], ref_scores,
+                         blocks[flip][s], ref_blocks[flip])
+            n = flip
+        elif not np.array_equal(final["fetch_counter"][s], ref_final["fetch_counter"]):
+            raise AssertionError(f"{tag} stream {s}: fetch counters {final['fetch_counter'][s].tolist()} against "
+                                 f"{np.asarray(ref_final['fetch_counter']).tolist()}")
+        a, b = np.asarray(final["loss"][s][:n], np.float64), np.asarray(ref_final["loss"][:n], np.float64)
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        log(f"{tag} stream {s}: the blocks of {n} frames equal, "
+            f"{'the draw of frame ' + str(flip) + ' flipped by rounding, ' if flip is not None else ''}"
+            f"loss within {rel:.3g} (bound {LATER_LOSS_RTOL}) by frame "
+            f"{np.round(np.abs(a - b) / np.abs(b), 9).tolist()}")
+        if not rel <= LATER_LOSS_RTOL:
+            raise AssertionError(f"{tag} stream {s}: the loss of the later frames differs by {rel:.3g}")
+
+
+def run_vmap_streams(state, launches, ms):
+    """Phase 13 (a): ``stream_impl="vmap"`` at 320x1216. Shared-forward MAD
+    (SEQUENTIAL, the bulkhead, the tiled warps, seeds [0] * N, each stream
+    on frames of its own) at N = 2 and 4: a frame-batch launches each kernel
+    as one frame of a single shared-forward session does (K1 5 times, not
+    5N), one graph (the shared branch) replayed with every host sync an
+    error, each stream against a single shared-forward session
+    (:func:`check_round`); timed by CUDA events beside "map" and "unroll"
+    on the same frames, with the graphs captured and the peak memory.
+    Then PROBABILITY at N = 4 (seeds 0-3), FULL at N = 2 with dilation 2
+    (the forward-only graph of the frames between train steps), NONE
+    serving at N = 4 through ``serve``. cuDNN runs its deterministic
+    algorithms, as in phase 12. Returns the single-stream references of
+    the SEQUENTIAL streams, and their frames."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    n_max = max(VMAP_COUNTS)
+    per = stream_frames(n_max, N_FRAMES_VMAP, 700)
+    n_blocks = 5
+    mad_kw = {k: v for k, v in MAD_KW.items() if k != "seed"}
+    refs, per_frame = single_refs(state, "MAD", per, [0] * n_max, n_blocks, shared_forward=True, **mad_kw)
+    if per_frame.get("corr_fwd") != 5:
+        raise AssertionError(f"a shared-forward frame launches {per_frame}")
+    log(f"VMAP: a single shared-forward frame launches {per_frame}")
+    for n in VMAP_COUNTS:
+        frames = stacked(per, n)
+        for impl in ("vmap", "map", "unroll"):
+            tag = f"VMAP_{n}_{impl.upper()}"
+            base = memory_base()
+            session = vmap_session(state, "MAD", n, impl, **{**MAD_KW, "seed": [0] * n})
+            cuda_lib.reset_launches()
+            trail = [] if impl == "vmap" else None
+            if impl == "vmap":
+                first = counted_steps(session, frames[:n_blocks], per_frame, tag, trail=trail)
+                round_stats, round_flat = session.finalize(), session.arena.flat.clone()
+            else:
+                first = []
+                for f in frames[:n_blocks]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    session.step(f)
+                    torch.cuda.synchronize()
+                    first.append((time.perf_counter() - t0) * 1e3)
+            dev, wall = events_ms(lambda i: (session.step(frames[n_blocks + i]), record_draw(trail, session)),
+                                  N_TIMED_VMAP, sync_error=True)
+            peak = memory_peak(base)
+            ms[f"{tag}_BATCH_DEVICE"], ms[f"{tag}_BATCH_WALL"] = dev, wall
+            log(f"{tag}: {len(session._graphs)} graphs captured; first round (eager steps and captures) ms "
+                f"{[round(t, 1) for t in first]}; steady {dev:.3f} ms of device time a frame-batch, {dev / n:.3f} "
+                f"a frame ({wall:.3f} and {wall / n:.3f} wall), every host sync an error; {peak}")
+            if impl == "vmap":
+                total = {k: v * N_FRAMES_VMAP for k, v in per_frame.items()}
+                got = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+                if got != total or set(session._graphs) != {("shared",)}:
+                    raise AssertionError(f"{tag}: launches {got}, want {total}; graphs {list(session._graphs)}")
+                launches[tag] = dict(cuda_lib.LAUNCHES)
+                check_round(tag, round_stats, round_flat, session.finalize(), refs[:n], host_trail(trail))
+            del session
+
+    # PROBABILITY, seeds 0-3: each stream follows the single session with its seed
+    seeds = list(range(n_max))
+    kw = dict(sample_mode="PROBABILITY", ssim_th=1e9)
+    prob_refs, _ = single_refs(state, "MAD", per, seeds, n_blocks, shared_forward=True, **kw)
+    tag = f"VMAP_{n_max}_PROBABILITY"
+    session = vmap_session(state, "MAD", n_max, seed=seeds, **kw)
+    cuda_lib.reset_launches()
+    frames = stacked(per, n_max)
+    trail = []
+    counted_steps(session, frames[:n_blocks], per_frame, tag, trail=trail)
+    round_stats, round_flat = session.finalize(), session.arena.flat.clone()
+    counted_steps(session, frames[n_blocks:], per_frame, tag, at=n_blocks, trail=trail)
+    launches[tag] = dict(cuda_lib.LAUNCHES)
+    final = session.finalize()
+    log(f"{tag}: fetch counters {final['fetch_counter'].tolist()}; graphs {list(session._graphs)}")
+    if set(session._graphs) != {("shared",)}:
+        raise AssertionError(f"{tag}: graphs {list(session._graphs)}")
+    check_round(tag, round_stats, round_flat, final, prob_refs, host_trail(trail), seeds)
+    del session, prob_refs
+
+    # FULL with dilation 2: the full step on even frames, the forward-only
+    # graph on odd ones; the first round is the first update and the frame
+    # that sees it
+    n = min(VMAP_COUNTS)
+    full_refs, full_frame = single_refs(state, "FULL", per, [0] * n, 2, dilation=2, ssim_th=1e9)
+    tag = f"VMAP_{n}_FULL"
+    session = vmap_session(state, "FULL", n, dilation=2, ssim_th=1e9)
+    cuda_lib.reset_launches()
+    frames = stacked(per, n)
+    per_batch = lambda i: full_frame if i % 2 == 0 else {**TILE_SERVE, "warp_tile_image_fwd": 1}  # noqa: E731
+    trail = []
+    counted_steps(session, frames[:2], per_batch, tag, trail=trail)
+    round_stats, round_flat = session.finalize(), session.arena.flat.clone()
+    counted_steps(session, frames[2:], per_batch, tag, at=2, trail=trail)
+    launches[tag] = dict(cuda_lib.LAUNCHES)
+    if set(session._graphs) != {("full",), ("none",)}:
+        raise AssertionError(f"{tag}: graphs {list(session._graphs)}")
+    check_round(tag, round_stats, round_flat, session.finalize(), full_refs, host_trail(trail))
+    del session, full_refs
+
+    # NONE serving: each stream's disparities are its single session's
+    tag = f"VMAP_{n_max}_SERVE"
+    serve_frames = [{k: f[k] for k in ("left", "right")} for f in stacked(per, n_max)]
+    session = vmap_session(state, "NONE", n_max, compute_metrics=False)
+    cuda_lib.reset_launches()
+    served = list(session.serve(serve_frames))
+    want = {k: v * len(serve_frames) for k, v in TILE_SERVE.items()}
+    if {k: v for k, v in cuda_lib.LAUNCHES.items() if v} != want:
+        raise AssertionError(f"{tag}: launches {dict(cuda_lib.LAUNCHES)}, want {want}")
+    launches[tag] = dict(cuda_lib.LAUNCHES)
+    dev, wall = events_ms(lambda i: session.step(serve_frames[i]), N_TIMED_VMAP, sync_error=True)
+    ms[f"{tag}_BATCH_DEVICE"], ms[f"{tag}_BATCH_WALL"] = dev, wall
+    worst = 0.0
+    for s in range(n_max):
+        single = make_session(state, "NONE", warp="mxu", fused=True, compute_metrics=False)
+        for i, d in enumerate(single.serve({k: f[k] for k in ("left", "right")} for f in per[s])):
+            worst = max(worst, float(np.abs(served[i][s] - d).max()) / float(np.abs(d).max()))
+        del single
+    log(f"{tag}: {dev:.3f} ms of device time a frame-batch ({wall:.3f} wall); disparities within {worst:.3g} "
+        f"of the largest of the single sessions'")
+    if not worst <= MODEL_RTOL:
+        raise AssertionError(f"{tag}: served disparities differ from the single sessions' by {worst:.3g}")
+    del session
+    return refs, per
+
+
+def spatial_rank(rank: int, workdir: Path, device) -> dict:
+    """One rank of phase 13 (b) and (c) (``--dp-rank`` with mode
+    ``spatial``): ``make_spatial_adapt_step`` over SP_STEPS frames, the
+    width-sharded fused MAD session over SP_FRAMES, with the reprojection
+    loss and then with the proxy labels, then SP_STREAMS vmap streams
+    sharded over the ranks."""
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.parallel import (
+        batch_sharded,
+        make_mesh,
+        make_spatial_adapt_step,
+        shard_batch,
+        width_sharded,
+    )
+
+    out = {}
+    mesh = make_mesh(device_type="cuda")
+    with np.load(workdir / "state.npz") as w:
+        state = {k: torch.from_numpy(w[k]) for k in w.files}
+    with np.load(workdir / "frames.npz") as f:
+        frames = [{k: torch.from_numpy(f[f"{i}_{k}"]).to(device) for k in ("left", "right", "target", "proxy")}
+                  for i in range(SP_FRAMES)]
+    pieces = [shard_batch({k: v for k, v in f.items() if k != "proxy"}, width_sharded(mesh)) for f in frames]
+
+    model = get_stereo_net("MADNet", device=device, seed=100 + rank)
+    if rank == 0:  # the other rank starts elsewhere: the broadcast must bring it over
+        model.load_state_dict(state)
+    step = make_spatial_adapt_step(model, mesh, lr=LR)
+    cuda_lib.reset_launches()
+    for j in range(SP_STEPS):
+        out[f"w{j}"] = flat_params(model).cpu().numpy()
+        out[f"loss{j}"] = np.float32(float(step(pieces[j])))
+        out[f"g{j}"] = torch.cat([g.reshape(-1) for g in step.grads]).cpu().numpy()
+    out["step_launches"] = json.dumps(dict(cuda_lib.LAUNCHES))
+    out["step_audit"] = json.dumps([[*k, v] for k, v in sorted(step.layout.audit.items())])
+    out["w_final"] = flat_params(model).cpu().numpy()
+    out["step_ms"] = np.float64(events_ms(lambda i: step(pieces[i]), 2)[0])
+
+    session = make_session(state, "MAD", fused=True, mesh=mesh, **MAD_KW)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    for i, piece in enumerate(pieces):
+        if i == len(pieces) - 1:
+            session._layout.audit.clear()
+        session.step(piece)
+        out[f"disp{i}"] = session.last_disp.cpu().numpy()
+    out["mesh_ms"] = np.float64((time.perf_counter() - t0) * 1e3 / len(pieces))
+    out["mesh_launches"] = json.dumps(dict(cuda_lib.LAUNCHES))
+    out["mesh_audit"] = json.dumps([[*k, v] for k, v in sorted(session._layout.audit.items())])
+    for k, v in session.finalize().items():
+        out[f"mesh_{k}"] = np.asarray(v)
+    out["mesh_flat"] = session.arena.flat.cpu().numpy()
+    out["mesh_graphs"] = np.int64(session.use_graphs)
+    del session
+
+    session = make_session(state, "MAD", fused=True, mesh=mesh, adaptation="proxy", **MAD_KW)
+    for f in frames:
+        session.step(shard_batch(f, width_sharded(mesh)))
+    for k, v in session.finalize().items():
+        out[f"proxy_{k}"] = np.asarray(v)
+    out["proxy_flat"] = session.arena.flat.cpu().numpy()
+    del session
+
+    with np.load(workdir / "streams.npz") as f:
+        streams = [{k: torch.from_numpy(f[f"{i}_{k}"]).to(device) for k in ("left", "right", "target")}
+                   for i in range(N_FRAMES_VMAP)]
+    session = vmap_session(state, "MAD", SP_STREAMS, "auto", mesh=mesh, **{**MAD_KW, "seed": [0] * SP_STREAMS})
+    cuda_lib.reset_launches()
+    trail = []
+    for i, f in enumerate(streams):
+        session.step(shard_batch(f, batch_sharded(mesh)))
+        # every rank's streams' blocks and scores after the frame
+        trail.append([session._gather_rows(t).cpu().numpy() for t in (session.cur_blocks, session.scores)])
+        if i == 4:  # the first round: each block trained once
+            for k, v in session.finalize().items():
+                out[f"round_{k}"] = np.asarray(v)
+            out["round_flat"] = session._gather_rows(session.arena.flat).cpu().numpy()
+    out["streams_launches"] = json.dumps(dict(cuda_lib.LAUNCHES))
+    out["streams_graphs"] = json.dumps([list(map(str, k)) for k in session._graphs])
+    for k, v in session.finalize().items():
+        out[f"streams_{k}"] = np.asarray(v)
+    out["streams_flat"] = session._gather_rows(session.arena.flat).cpu().numpy()
+    out["streams_rows"] = np.int64(session.arena.flat.shape[0])
+    out["trail_blocks"], out["trail_scores"] = (np.stack([t[j] for t in trail]) for j in (0, 1))
+    return out
+
+
+def check_audit(records, what):
+    """tests/test_torch_spatial.py's halo audit on one rank's fetches."""
+    from real_time_self_adaptive_deep_stereo_torch.ops.conv import _same_1d
+
+    tags = {}
+    for tag, w, left, right, whole, n in records:
+        kind = tag.split()[0]
+        tags[kind] = tags.get(kind, 0) + n
+        if kind == "conv":
+            k_eff, stride = (int(t[1:]) for t in tag.split()[1:])
+            pad_left, _ = _same_1d(w, k_eff, stride, 1)
+            ok = (left, right) == (pad_left, k_eff - stride - pad_left)
+        elif kind == "correlation":
+            ok = (left, right) == (RADIUS, RADIUS)
+        elif kind == "ssim":
+            ok = (left, right) == (1, 1)
+        elif kind == "resize":
+            ok = left == 0 and 0 <= right <= 1
+        else:
+            ok = kind in ("warp_features", "warp_image", "enter", "leave")
+        if not ok or (whole and kind not in ("warp_features", "warp_image")):
+            raise AssertionError(f"{what}: {tag} at width {w} fetched {left} left, {right} right (whole {whole})")
+    if tags.get("conv", 0) % 49 or not tags.get("conv"):
+        raise AssertionError(f"{what}: fetches by caller {tags}")
+    log(f"{what}: fetches by caller {tags}; every conv its halo, all-gathers by the warps alone")
+
+
+def run_spatial(state, launches, ms, refs, per):
+    """Phase 13 (b) and (c): two ``gloo`` ranks sharing the card (this
+    script with ``--dp-rank``, mode ``spatial``). (b) ``make_spatial_adapt_step``
+    over SP_STEPS frames against one process's unsharded step from the
+    rank's weights before each step (the loss within SP_LOSS_RTOL, the
+    gradient within STEP_RTOL of its largest entry, the first update at
+    SP_WEIGHT_TOL), the ranks' weights, losses and gradients bit for bit,
+    its launches, its halo audit; the
+    width-sharded fused MAD session (bulkhead, SEQUENTIAL, the default
+    warps, eager) over SP_FRAMES against the single-device session at
+    tests/test_parallel.py's bounds, the ranks bit for bit, the disparity
+    pieces against the single session's; the same session adapting to
+    proxy labels (noisy disparities, 10-60% invalid, more on rank 0's
+    side) against the single-device one at the same bounds. (c)
+    SP_STREAMS vmap streams over the two ranks on (a)'s frames: each
+    stream against (a)'s single shared-forward sessions
+    (:func:`check_round`, every frame's blocks), both ranks' gathered
+    results equal. Prints
+    ms a step a rank beside one process: a correctness check, not a speed
+    one (one card, gloo through host memory, eager)."""
+    import tempfile
+
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_reprojection_loss
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.utils import optim
+
+    frames = smooth_frames(SP_FRAMES, 900)
+    rng = np.random.default_rng(910)
+    for f in frames:  # proxy labels: the disparity with noise, 0 (invalid) more often on the left
+        t = f["target"]
+        drop = rng.random(t.shape) < np.linspace(0.6, 0.1, t.shape[2])[None, None, :, None]
+        f["proxy"] = np.where(drop | (t == 0), 0.0, t + rng.normal(0.0, 0.5, t.shape)).astype(np.float32)
+    # (a)'s graph pools and cached blocks back to the card: the ranks share it
+    memory_base()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        np.savez(work / "state.npz", **{k: v.cpu().numpy() for k, v in state.items()})
+        np.savez(work / "frames.npz", **{f"{i}_{k}": v for i, f in enumerate(frames) for k, v in f.items()})
+        np.savez(work / "streams.npz", **{f"{i}_{k}": v for i, f in enumerate(stacked(per, SP_STREAMS))
+                                          for k, v in f.items()})
+        (work / "config.json").write_text(json.dumps({"mode": "spatial", "backend": "gloo", "device": "cuda:0"}))
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r), "--dp-dir",
+                                   str(work)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(SP_WORLD)]
+        deadline = time.monotonic() + SP_JOIN_S
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            for line in text.strip().splitlines()[-12:]:
+                log(f"  rank {r}: {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"spatial: rank {r} exited with {p.returncode}")
+        ranks = []
+        for r in range(SP_WORLD):
+            with np.load(work / f"rank{r}.npz") as f:
+                ranks.append({k: f[k] for k in f.files})
+    r0, r1 = ranks
+
+    # (b) the step, against one process on the whole frame, at every step
+    # from the rank's weights before it (as phase 12's DP step): a FULL
+    # step moves every weight, and the random-weight network carries the
+    # rounding of the sharded sums along a trajectory (3 steps part by
+    # 1.1e-3 of the loss on an H100)
+    model = get_stereo_net("MADNet")
+    model.load_state_dict(state)
+    params = list(model.parameters())
+    loss_fn = get_reprojection_loss("mean_SSIM_l1", reduced=True)
+    dev = [{k: torch.from_numpy(v).cuda() for k, v in f.items()} for f in frames]
+
+    def loss_and_grad(f):
+        loss = loss_fn(model(f["left"], f["right"])["disparities"], f)
+        grads = torch.autograd.grad(loss, params)
+        return float(loss), torch.cat([g.reshape(-1) for g in grads])
+
+    for key in [f"{k}{j}" for j in range(SP_STEPS) for k in ("w", "loss", "g")] + ["w_final"]:
+        if not np.array_equal(r0[key], r1[key]):
+            raise AssertionError(f"SPATIAL_STEP: the ranks differ in {key}")
+    for j in range(SP_STEPS):
+        load_flat(model, r0[f"w{j}"])
+        loss, g = loss_and_grad(dev[j])
+        g = g.cpu().numpy()
+        rel = abs(float(r0[f"loss{j}"]) - loss) / abs(loss)
+        g_err = float(np.abs(r0[f"g{j}"] - g).max()) / float(np.abs(g).max())
+        log(f"SPATIAL_STEP step {j}: loss {float(r0[f'loss{j}'])!r} against one process's {loss!r} ({rel:.3g}); "
+            f"gradient within {g_err:.3g} of its largest entry")
+        if not (rel <= SP_LOSS_RTOL and g_err <= STEP_RTOL):
+            raise AssertionError(f"SPATIAL_STEP step {j}: loss {rel:.3g}, gradient {g_err:.3g}")
+        if j == 0:  # the first update, from the same weights and a zero momentum
+            first = float(np.abs(r0["w1"] - (r0["w0"] - LR * g)).max())
+            if not np.allclose(r0["w1"], r0["w0"] - LR * g, **SP_WEIGHT_TOL):
+                raise AssertionError(f"SPATIAL_STEP: the first update differs by {first:.3g}")
+    log(f"SPATIAL_STEP: the ranks' weights, losses and gradients equal bit for bit; the first update within "
+        f"{first:.3g} of one process's")
+    acc = optim.momentum_init(params)
+
+    def one_step(f):
+        loss = loss_fn(model(f["left"], f["right"])["disparities"], f)
+        optim.momentum_update(params, acc, torch.autograd.grad(loss, params), LR)
+
+    one_ms = events_ms(lambda i: one_step(dev[i]), 2)[0]
+    for r, rk in enumerate(ranks):
+        got_launches = {k: v for k, v in json.loads(str(rk["step_launches"])).items() if v}
+        if got_launches != {k: v * SP_STEPS for k, v in FULL_CUDA.items()}:
+            raise AssertionError(f"SPATIAL_STEP rank {r}: launches {got_launches}")
+        check_audit(json.loads(str(rk["step_audit"])), f"SPATIAL_STEP rank {r}")
+    launches["SPATIAL_STEP"] = json.loads(str(r0["step_launches"]))
+    ms["SPATIAL_STEP_RANK"], ms["SPATIAL_STEP_ONE_PROCESS"] = float(r0["step_ms"]), one_ms
+    log(f"SPATIAL_STEP: {float(r0['step_ms']):.3f} ms a step on rank 0 ({float(r1['step_ms']):.3f} on rank 1), "
+        f"one process on the whole frame {one_ms:.3f} ms")
+    del model
+
+    # (b) the width-sharded session, against the single-device session
+    single = make_session(state, "MAD", fused=True, **MAD_KW)
+    disps = []
+    for f in frames:
+        single.step({k: v for k, v in f.items() if k != "proxy"})
+        disps.append(single.last_disp.cpu().numpy())
+    want = single.finalize()
+    for key in ("mesh_loss", "mesh_epe", "mesh_fetch_counter", "mesh_flat", "mesh_scores"):
+        if not np.array_equal(r0[key], r1[key]):
+            raise AssertionError(f"SPATIAL_MESH: the ranks differ in {key}")
+    if int(r0["mesh_graphs"]):
+        raise AssertionError("SPATIAL_MESH: a gloo mesh session must run eagerly")
+    np.testing.assert_allclose(r0["mesh_loss"], want["loss"], **SP_MESH_LOSS)
+    np.testing.assert_allclose(r0["mesh_epe"], want["epe"], **SP_MESH_EPE)
+    np.testing.assert_array_equal(r0["mesh_fetch_counter"], want["fetch_counter"])
+    spec = {name: (off, size) for name, _, off, size in single.spec.entries}
+    off, size = spec["estimator_6.disp1.weight"]
+    np.testing.assert_allclose(r0["mesh_flat"][off : off + size],
+                               single.arena.flat[off : off + size].cpu().numpy(), **SP_WEIGHT_TOL)
+    worst = 0.0
+    for i, d in enumerate(disps):
+        whole = np.concatenate([r0[f"disp{i}"], r1[f"disp{i}"]], axis=2)
+        worst = max(worst, float(np.abs(whole - d).max()) / float(np.abs(d).max()))
+    log(f"SPATIAL_MESH: loss {r0['mesh_loss'].tolist()} against {want['loss'].tolist()}; epe "
+        f"{r0['mesh_epe'].tolist()} against {want['epe'].tolist()}; weights within "
+        f"{float(np.abs(r0['mesh_flat'] - single.arena.flat.cpu().numpy()).max()):.3g}; disparity pieces within "
+        f"{worst:.3g} of the largest")
+    if not worst <= SP_DISP_RTOL:
+        raise AssertionError(f"SPATIAL_MESH: the disparity pieces differ by {worst:.3g}")
+    for r, rk in enumerate(ranks):
+        total = dict.fromkeys(FULL_CUDA, 0)
+        for i in range(SP_FRAMES):
+            for k, v in mad_cuda_launches(i % 5).items():
+                total[k] = total.get(k, 0) + v
+        got_launches = {k: v for k, v in json.loads(str(rk["mesh_launches"])).items() if v}
+        if got_launches != {k: v for k, v in total.items() if v}:
+            raise AssertionError(f"SPATIAL_MESH rank {r}: launches {got_launches}, want {total}")
+        check_audit(json.loads(str(rk["mesh_audit"])), f"SPATIAL_MESH rank {r} (its last frame)")
+    launches["SPATIAL_MESH"] = json.loads(str(r0["mesh_launches"]))
+    ms["SPATIAL_MESH_RANK_FRAME"] = float(r0["mesh_ms"])
+    log(f"SPATIAL_MESH: {float(r0['mesh_ms']):.3f} ms a frame on rank 0 (wall, eager)")
+    del single
+
+    # (b) the width-sharded session adapting to proxy labels (each rank's
+    # masked L1 sum over the frame's valid count), against the single-device one
+    single = make_session(state, "MAD", fused=True, adaptation="proxy", **MAD_KW)
+    for f in frames:
+        single.step(f)
+    want = single.finalize()
+    for key in ("proxy_loss", "proxy_epe", "proxy_fetch_counter", "proxy_flat"):
+        if not np.array_equal(r0[key], r1[key]):
+            raise AssertionError(f"SPATIAL_MESH_PROXY: the ranks differ in {key}")
+    np.testing.assert_allclose(r0["proxy_loss"], want["loss"], **SP_MESH_LOSS)
+    np.testing.assert_allclose(r0["proxy_epe"], want["epe"], **SP_MESH_EPE)
+    np.testing.assert_array_equal(r0["proxy_fetch_counter"], want["fetch_counter"])
+    moved = float(np.abs(r0["proxy_flat"] - single.arena.flat0.cpu().numpy()).max())
+    np.testing.assert_allclose(r0["proxy_flat"][off : off + size],
+                               single.arena.flat[off : off + size].cpu().numpy(), **SP_WEIGHT_TOL)
+    log(f"SPATIAL_MESH_PROXY: loss {r0['proxy_loss'].tolist()} against {want['loss'].tolist()}; epe "
+        f"{r0['proxy_epe'].tolist()} against {want['epe'].tolist()}; weights within "
+        f"{float(np.abs(r0['proxy_flat'] - single.arena.flat.cpu().numpy()).max()):.3g} of {moved:.3g} moved")
+    if not moved > 0:
+        raise AssertionError("SPATIAL_MESH_PROXY: the weights did not move")
+    del single
+
+    # (c) the streams over the mesh, against (a)'s single sessions
+    for key in ("streams_loss", "streams_epe", "streams_fetch_counter", "streams_flat", "trail_blocks"):
+        if not np.array_equal(r0[key], r1[key]):
+            raise AssertionError(f"SPATIAL_STREAMS: the ranks' gathered {key} differ")
+    if int(r0["streams_rows"]) != SP_STREAMS // SP_WORLD:
+        raise AssertionError(f"SPATIAL_STREAMS: rank 0 holds {int(r0['streams_rows'])} streams")
+    round_stats = {k[len("round_"):]: r0[k] for k in r0 if k.startswith("round_")}
+    final = {k[len("streams_"):]: r0[k] for k in r0 if k.startswith("streams_")}
+    check_round("SPATIAL_STREAMS", round_stats, torch.from_numpy(r0["round_flat"]).cuda(), final, refs,
+                (r0["trail_blocks"], r0["trail_scores"]))
+    launches["SPATIAL_STREAMS"] = json.loads(str(r0["streams_launches"]))
+    log(f"SPATIAL_STREAMS: rank 0's graphs {json.loads(str(r0['streams_graphs']))}; launches "
+        f"{ {k: v for k, v in launches['SPATIAL_STREAMS'].items() if v} }")
+
+
+def run_phase13(state, profile_dir):
+    """Phase 13: batched streams, the width-sharded step and session, and
+    streams over a mesh. Returns (launches by path, ms by path)."""
+    del profile_dir
+    t0 = time.perf_counter()
+    launches, ms = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        refs, per = run_vmap_streams(state, launches, ms)
+        run_spatial(state, launches, ms, refs, per)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
+    return launches, ms
+
+
 def profile_frames(session, frames, out: Path, tag: str):
     """Kernel time by name over a few steady frames (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3630,7 +4383,9 @@ def main() -> int:
                     help="run the live demo's phase (11) alone, without the result lines")
     ap.add_argument("--parallel-only", action="store_true",
                     help="run the streams' and data-parallel phase (12) alone, without the result lines")
-    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)  # a rank of phase 12
+    ap.add_argument("--spatial-only", action="store_true",
+                    help="run the batched streams' and width sharding's phase (13) alone, without the result lines")
+    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)  # a rank of phase 12 or 13
     ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3704,6 +4459,20 @@ def main() -> int:
         log(card)
         log("streams and data-parallel training checked; no result lines (--parallel-only)")
         return 0
+    if args.spatial_only:
+        rows = {name: [] for name in REPLACES}
+        for n in VMAP_COUNTS:
+            check_vmap_kernels(rows, n)
+        for name, rs in rows.items():
+            for r in rs:
+                r["bound_ms"], r["bound_by"] = r.pop("bound")
+                log(f"kernel {name} {r}")
+        _, frame_ms = run_phase13(params_from_jax(seeded_jax_params(0)), args.profile)
+        for path, ms in frame_ms.items():
+            log(f"session {path} ms {ms!r}")
+        log(card)
+        log("batched streams and width sharding checked; no result lines (--spatial-only)")
+        return 0
     if args.fused_only or args.dispnet_only:
         if args.fused_only:
             _, frame_ms = run_fused(params_from_jax(seeded_jax_params(0)), args.profile)
@@ -3725,14 +4494,15 @@ def main() -> int:
     check_steps_against_plain(state)
     check_reset(state)
     for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision, run_cli_phase,
-                  run_train_phase, run_demo_phase, run_parallel):
+                  run_train_phase, run_demo_phase, run_parallel, run_phase13):
         phase_launches, phase_ms = phase(state, args.profile)
         launches.update(phase_launches)
         frame_ms.update(phase_ms)
 
     kernels = []
     for name, all_rs in rows.items():
-        rs = [r for r in all_rs if "batch" not in r]  # batch 1: the sums keep their meaning
+        # batch 1 and no vmap: the sums keep their meaning
+        rs = [r for r in all_rs if "batch" not in r and "vmap" not in r]
         lib_ms = [r["library_ms"] for r in rs]
         shape_keys = ("shape", "radius", "ms", "cold_ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms",
                       "library_ms", "variants", "wide_ms")
@@ -3766,6 +4536,12 @@ def main() -> int:
                 "library_ms": None if any(r["library_ms"] is None for r in batch)
                 else sum(r["library_ms"] for r in batch),
             } for b, batch in by_batch(all_rs).items()},
+            # under vmap over n streams ([n, 1, ...], one launch): the same sums
+            **{f"vmap{n}": {
+                **{k: sum(r[k] for r in vr) for k in ("ms", "plain_ms", "bound_ms")},
+                "library_ms": None if any(r["library_ms"] is None for r in vr)
+                else sum(r["library_ms"] for r in vr),
+            } for n in VMAP_COUNTS for vr in [[r for r in all_rs if r.get("vmap") == n]] if vr},
             "shapes": [{k: r[k] for k in ("batch", *shape_keys) if k in r} for r in all_rs],
         })
     idle = [k["name"] for k in kernels if not any(k["launches_by_path"].values())]

@@ -29,7 +29,9 @@ A multi-stream session (``num_streams=N``) keeps N weight vectors in one
 weights. The module's parameters are views of one row at a time:
 :meth:`Arena.bind` re-points them at another. A CUDA graph captured while
 row s is bound reads and writes row s at every replay, whatever row the
-module is bound to then.
+module is bound to then. Under ``torch.func`` (the batched streams of
+``stream_impl="vmap"``) the module runs instead on
+:meth:`ArenaSpec.views` of a row, by ``functional_call``.
 """
 
 from __future__ import annotations
@@ -99,6 +101,13 @@ class ArenaSpec:
         """Block ``block``'s range of an arena vector (a view)."""
         start, end = self.block_ranges[block]
         return flat[start:end]
+
+    def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``{name: tensor}`` views of one arena vector (a row), shaped as
+        the parameters: what ``torch.func.functional_call`` takes, and the
+        gradient of a function of the row comes back in the arena's
+        layout."""
+        return {name: flat[off : off + size].view(shape) for name, shape, off, size in self.entries}
 
     def block_ids(self) -> np.ndarray:
         """int32 vector over the arena: the owning block of every element,

@@ -39,10 +39,11 @@ from real_time_self_adaptive_deep_stereo_torch.losses import (
 )
 from real_time_self_adaptive_deep_stereo_torch.ops.conv import get_conv_precision
 from real_time_self_adaptive_deep_stereo_torch.ops.resize import resize_bilinear
+from real_time_self_adaptive_deep_stereo_torch.ops import shard_context
 from real_time_self_adaptive_deep_stereo_torch.utils import optim
 from real_time_self_adaptive_deep_stereo_torch.utils.device import resolve_device
 
-__all__ = ["AdaptationEngine", "PIXEL_TH", "disparity_metrics", "d1_metric"]
+__all__ = ["AdaptationEngine", "PIXEL_TH", "disparity_metrics", "d1_metric", "metric_sums", "metrics_from_sums"]
 
 PIXEL_TH = 3.0  # bad-pixel threshold (Stereo_Online_Adaptation.py:20)
 
@@ -51,27 +52,40 @@ def _squeeze_c1(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0] if x.dim() == 4 and x.shape[-1] == 1 else x
 
 
+def metric_sums(full_disp: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """The sums that the metrics divide, one float32 vector: the absolute
+    error over pixels with gt != 0, their count, the count of those with
+    error > PIXEL_TH; the KITTI D1 outliers (error > 3px AND >= 5% of gt,
+    over gt > 0), the count of gt > 0, the absolute error over them.
+    Summed over the pieces of a frame they are the whole frame's."""
+    full_disp, gt = _squeeze_c1(full_disp), _squeeze_c1(gt)
+    valid = (gt != 0).float()
+    err = torch.abs(full_disp - gt)
+    masked = err * valid
+    valid_d1 = gt > 0
+    out = valid_d1 & (err > 3.0) & (err / torch.clamp(gt, min=1e-9) >= 0.05)
+    return torch.stack([
+        masked.sum(), valid.sum(), (masked > PIXEL_TH).float().sum(),
+        out.sum().float(), valid_d1.sum().float(), torch.where(valid_d1, err, torch.zeros_like(err)).sum(),
+    ])
+
+
+def metrics_from_sums(sums: torch.Tensor):
+    """``(epe, bad3, d1_epe, d1)`` from :func:`metric_sums`."""
+    n_valid = torch.clamp(sums[4], min=1)
+    return sums[0] / sums[1], sums[2] / sums[1], sums[5] / n_valid, 100.0 * sums[3] / n_valid
+
+
 def disparity_metrics(full_disp: torch.Tensor, gt: torch.Tensor):
     """EPE and bad3 over pixels with gt != 0; bad3 = fraction of them
     with error > 3."""
-    full_disp, gt = _squeeze_c1(full_disp), _squeeze_c1(gt)
-    valid = (gt != 0).float()
-    err = torch.abs(full_disp - gt) * valid
-    denom = valid.sum()
-    epe = err.sum() / denom
-    bad3 = (err > PIXEL_TH).float().sum() / denom
+    epe, bad3, _, _ = metrics_from_sums(metric_sums(full_disp, gt))
     return epe, bad3
 
 
 def d1_metric(full_disp: torch.Tensor, gt: torch.Tensor):
     """KITTI D1: % of valid pixels with error > 3px AND >= 5% of gt."""
-    full_disp, gt = _squeeze_c1(full_disp), _squeeze_c1(gt)
-    valid = gt > 0
-    err = torch.abs(full_disp - gt)
-    out = valid & (err > 3.0) & (err / torch.clamp(gt, min=1e-9) >= 0.05)
-    n_valid = torch.clamp(valid.sum(), min=1).float()
-    d1 = 100.0 * out.sum().float() / n_valid
-    epe = torch.where(valid, err, torch.zeros_like(err)).sum() / n_valid
+    _, _, epe, d1 = metrics_from_sums(metric_sums(full_disp, gt))
     return epe, d1
 
 
@@ -80,10 +94,11 @@ def _resize_nhwc(t: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 
 def _scale_tensor(t: torch.Tensor, scale: int) -> torch.Tensor:
-    """NHWC ``t`` resized to ``shape // scale``."""
+    """NHWC ``t`` resized to ``shape // scale`` (the global width's under
+    width sharding)."""
     if scale == 1:
         return t
-    return _resize_nhwc(t, t.shape[1] // scale, t.shape[2] // scale)
+    return _resize_nhwc(t, t.shape[1] // scale, shard_context.width(t, 2) // scale)
 
 
 class AdaptationEngine:
@@ -215,7 +230,7 @@ class AdaptationEngine:
 
         def prep(p: torch.Tensor) -> torch.Tensor:
             multiplier = float(frame["left"].shape[1] // p.shape[1])
-            return _resize_nhwc(p, left.shape[1], left.shape[2]) * multiplier
+            return _resize_nhwc(p, left.shape[1], shard_context.width(left, 2)) * multiplier
 
         return inputs, prep
 

@@ -69,6 +69,29 @@ stream's row of the arena: the module is
 bound to that row (:meth:`.arena.Arena.bind`) while its step runs eagerly
 and while it is captured. Each stream's disparity is copied, inside its
 graph, into one ``[N, ...]`` buffer, which is ``last_disp``.
+
+With ``stream_impl="vmap"`` the N streams run batched, as the JAX
+session's ``jax.vmap`` runs them: one function of a stream's arena row,
+sampled block and frame (``torch.func.functional_call`` on views of the
+row, ``grad_and_value`` with respect to the row) is vmapped over the
+stream axis. Convolutions with per-stream weights become grouped ones,
+and each kernel Function folds the streams into its batch axis, so a
+frame-batch launches each kernel once. MAD then runs the shared-forward
+step (a vmapped choice between block branches would run every branch):
+one graph a branch for all N streams, and no host read. The samplers stay
+on the host side, each stream drawing into its row of ``cur_blocks``
+from its own generator, and the optimizer updates and the controller
+run over the ``[N]`` state elementwise.
+
+With a ``mesh`` and no streams the frame is sharded along its width over
+the mesh axis's ranks (:mod:`..parallel.spatial`): each rank runs the
+step on its columns, exchanging halos, backpropagates its own term of
+the loss, and sums the loss and the gradient over the ranks, so the
+controller, replicated, sees the whole frame's loss on every rank and
+every rank takes the same update. Under ``gloo`` the exchanges go through
+host memory and the step runs eagerly. With a mesh and streams the
+stream axis is sharded instead: rank r runs streams ``local_slice(N, R,
+r)`` under ``vmap``, with no collective a frame.
 """
 
 from __future__ import annotations
@@ -78,21 +101,23 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Un
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from real_time_self_adaptive_deep_stereo_torch.adapt.arena import build_arena
 from real_time_self_adaptive_deep_stereo_torch.adapt.engine import (
     AdaptationEngine,
-    d1_metric,
-    disparity_metrics,
+    metric_sums,
+    metrics_from_sums,
 )
 from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+from real_time_self_adaptive_deep_stereo_torch.parallel import spatial
+from real_time_self_adaptive_deep_stereo_torch.parallel.sharding import local_slice
 from real_time_self_adaptive_deep_stereo_torch.utils import optim
 
 __all__ = ["FusedOnlineSession"]
 
 Branch = Tuple  # ("none",) | ("full",) | ("shared",) | ("mad", (k, ...))
 _FRAME_KEYS = ("left", "right", "target", "proxy")
-_NOT_PORTED = "is not ported: ROADMAP.md, queue 1, `parallel/` (`vmap` and `mesh`)"
 
 
 class _Stream:
@@ -129,12 +154,19 @@ class FusedOnlineSession:
 
     ``num_streams=N`` (with ``arena=True``) runs N independent streams;
     ``seed`` is then an int (stream s takes ``seed + s``) or a list of N
-    seeds, and ``stream_impl`` is ``"map"`` (``"auto"``) or ``"unroll"``.
+    seeds, and ``stream_impl`` is ``"map"``, ``"unroll"`` or ``"vmap"``
+    (``"auto"``: ``"vmap"`` under a mesh, else ``"map"``). Under
+    ``"vmap"`` MAD needs ``num_blocks=1`` and momentum, and runs the
+    shared-forward step.
 
-    Not ported, each raising ``NotImplementedError``: ``mesh`` (width
-    sharding, the stream axis over a mesh) and ``stream_impl="vmap"``; see
-    ``ROADMAP.md``, queue 1, ``parallel/``. ``spatial_axis`` names the mesh
-    axis and is kept for the signature only.
+    ``mesh`` (a ``DeviceMesh`` over an initialized process group, axis
+    ``spatial_axis``): without streams every frame is sharded along its
+    width over the axis's ranks (``shard_batch(frame,
+    width_sharded(mesh))``'s pieces in, the disparity's piece of the same
+    cut out) and the controller is replicated; with streams (``"vmap"``)
+    the stream axis is sharded instead, rank r running the streams
+    ``local_slice(N, R, r)`` (``shard_batch(frames, batch_sharded(mesh))``'s
+    pieces), and ``finalize`` and ``current_params`` gather all N.
     """
 
     def __init__(
@@ -171,20 +203,49 @@ class FusedOnlineSession:
         CUDA device, never on the CPU) or run every step eagerly."""
         if mode not in ("NONE", "FULL", "MAD"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh (width sharding, the stream axis over a mesh) {_NOT_PORTED}"
-            )
-        if stream_impl == "vmap":
-            raise NotImplementedError(f'stream_impl="vmap" {_NOT_PORTED}')
-        if stream_impl not in ("auto", "map", "unroll"):
+        if stream_impl not in ("auto", "map", "vmap", "unroll"):
             raise ValueError(f"unknown stream_impl {stream_impl!r}")
+        if stream_impl == "auto":
+            stream_impl = "vmap" if mesh is not None else "map"
         self.num_streams = int(num_streams)
-        self.stream_impl = "map" if stream_impl == "auto" else stream_impl
+        self.stream_impl = stream_impl
         if self.num_streams < 0:
             raise ValueError(f"num_streams must be >= 0, got {num_streams}")
-        if self.num_streams and not arena:
-            raise ValueError("num_streams requires arena=True")
+        if self.num_streams:
+            if not arena:
+                raise ValueError("num_streams requires arena=True")
+            if stream_impl in ("map", "unroll") and mesh is not None:
+                raise ValueError(
+                    f"stream_impl={stream_impl!r} composes streams inside "
+                    "one device program — use 'vmap' for stream-parallel "
+                    "execution over a mesh"
+                )
+            if stream_impl == "vmap" and mode == "MAD":
+                if num_blocks != 1 or engine.optimizer != "momentum":
+                    raise ValueError(
+                        "num_streams MAD under vmap requires num_blocks=1 "
+                        "+ momentum (the shared-forward step)"
+                    )
+                shared_forward = True
+        self.mesh, self.spatial_axis = mesh, spatial_axis
+        self._group = mesh.get_group(spatial_axis) if mesh is not None else None
+        # the width-sharded step: its layout is made at the first frame
+        self._sharded = mesh is not None and not self.num_streams
+        self._layout: Optional[spatial.Layout] = None
+        if self._sharded:
+            spatial.check_model(engine.model)
+        # the streams this process runs: all N, or with a mesh its piece
+        self._stream_rows = (
+            local_slice(self.num_streams, self._group.size(), self._group.rank())
+            if self.num_streams and mesh is not None
+            else slice(0, self.num_streams)
+        )
+        self._rows = self._stream_rows.stop - self._stream_rows.start
+        if self.num_streams and not self._rows:
+            raise ValueError(
+                f"{self.num_streams} streams over {self._group.size()} ranks leave rank "
+                f"{self._group.rank()} none"
+            )
         if mode == "MAD" and not engine.blocks:
             raise ValueError("mode MAD needs an engine built with blocks")
         self.engine = engine
@@ -226,16 +287,26 @@ class FusedOnlineSession:
             )
         self.shared_forward = bool(shared_forward)
         on_cuda = self.device.type == "cuda"
-        self.use_graphs = on_cuda if use_graphs is None else bool(use_graphs)
+        self.use_graphs = (on_cuda and not self._sharded) if use_graphs is None else bool(use_graphs)
         if self.use_graphs and not on_cuda:
             raise ValueError("use_graphs=True needs a CUDA device")
+        if self.use_graphs and self._sharded:
+            if dist.get_backend(self._group) == "gloo":
+                raise ValueError(
+                    "a width-sharded session exchanges its halos every frame, and "
+                    "gloo's collectives cannot be captured in a CUDA graph: use_graphs=False"
+                )
+            raise NotImplementedError(
+                "CUDA graphs of a width-sharded session under NCCL are not ported: "
+                "ROADMAP.md, queue 1"
+            )
 
         if params is not None:
             engine.model.load_state_dict(params)
         self._names = list(engine._named_params)
         self._all_params = list(engine._named_params.values())
         self._index = {name: i for i, name in enumerate(self._names)}
-        self.arena = build_arena(engine.model, engine.blocks, self.num_streams) if arena else None
+        self.arena = build_arena(engine.model, engine.blocks, self._rows) if arena else None
         self.spec = self.arena.spec if arena else None
         self._host_step = 0
         self._init_state(seed)
@@ -247,6 +318,7 @@ class FusedOnlineSession:
         # (keyed by the branch; with streams by (stream, branch), and under
         # "unroll" also by the N-tuple of a branch all streams take)
         self._graphs: Dict[Tuple, Tuple] = {}
+        self._vmapped: Dict[str, Callable] = {}  # by branch kind: the vmapped step
         self.graph_launches: Dict[Tuple, Dict[str, int]] = {}
         self._disp_out: Optional[torch.Tensor] = None  # [N, ...]: the streams' disparities
         if on_cuda:
@@ -264,13 +336,15 @@ class FusedOnlineSession:
         the session has streams, and one :class:`_Stream` of views per
         stream (one in all without streams)."""
         eng, dev, n = self.engine, self.device, self.n_actions
-        ns = self.num_streams
+        ns = self._rows
         lead = (ns,) if ns else ()
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
-        seeds = list(seed) if isinstance(seed, (list, tuple)) else [int(seed) + s for s in range(max(ns, 1))]
-        if len(seeds) != max(ns, 1):
-            raise ValueError(f"need {max(ns, 1)} seeds, got {len(seeds)}")
+        total = max(self.num_streams, 1)
+        seeds = list(seed) if isinstance(seed, (list, tuple)) else [int(seed) + s for s in range(total)]
+        if len(seeds) != total:
+            raise ValueError(f"need {total} seeds, got {len(seeds)}")
+        seeds = seeds[self._stream_rows] if ns else seeds
         # the parameters, their pristine copies and the optimizer slots,
         # each as a list of tensors: one flat vector with the arena
         if self.arena is not None:
@@ -313,6 +387,15 @@ class FusedOnlineSession:
             )
             for s in range(max(ns, 1))
         ]
+        # the vmapped step's view: every stream's rows at once
+        self._all = _Stream(
+            None,
+            params=self._params,
+            opt=self.opt,
+            **{k: getattr(self, k) for k in (
+                "scores", "loss_t1", "loss_t2", "last_mask", "step_count", "reset_count",
+                "fetch_counter", "cur_blocks", "metrics")},
+        )
         if self.mode == "MAD":
             m = self.num_blocks
             if self.sample_mode == "FIXED":
@@ -431,29 +514,52 @@ class FusedOnlineSession:
             g = self.arena.grad if block is None else self.arena.block_slice(self.arena.grad, block)
             g.zero_()
             loss.backward(inputs=params, retain_graph=retain)
-            return [g]
-        grads = torch.autograd.grad(loss, params, retain_graph=retain, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            grads = [g]
+        else:
+            grads = torch.autograd.grad(loss, params, retain_graph=retain, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        # width-sharded: each rank took the gradient of its own term of the
+        # loss; the whole loss's is their sum, which every rank applies
+        for g in grads:
+            self._reduce(g)
+        return grads
 
     @torch.no_grad()
     def _apply(self, st: _Stream, block: Optional[int], grads: List[torch.Tensor], t) -> None:
+        """The optimizer update of ``st``'s block ``block`` (None: of every
+        parameter) as Adam's step ``t``. ``st`` is one stream, or under
+        ``vmap`` every stream, each row of the arena with its own count."""
         eng = self.engine
         params, slots = self._views(st, block)
         if eng.optimizer == "momentum":
             optim.momentum_update(params, slots["acc"], grads, eng.lr, eng.momentum)
         else:
-            optim.adam_update(params, slots["m"], slots["v"], grads, eng.lr, t)
+            optim.adam_update(params, slots["m"], slots["v"], grads, eng.lr, t[:, None] if t.dim() else t)
+
+    def _update_all(self, st: _Stream, grads: List[torch.Tensor]) -> None:
+        """The FULL update of every parameter; Adam's count advances once."""
+        t = st.opt["t"] + 1 if "t" in st.opt else None
+        self._apply(st, None, grads, t)
+        if t is not None:
+            st.opt["t"].copy_(t)
+
+    @torch.no_grad()
+    def _update_owned(self, st: _Stream, k: torch.Tensor, grads: List[torch.Tensor]) -> None:
+        """The shared-forward momentum update, masked by block ownership:
+        an element moves only where its block is the sampled ``k`` (one
+        stream's id, or under ``vmap`` the ``[N]`` ids along the rows)."""
+        eng = self.engine
+        for p, acc, g, bid in zip(st.params, st.opt["acc"], grads, self._block_ids):
+            own = k.reshape(k.shape + (1,) * (p.dim() - k.dim())) == bid
+            acc.copy_(torch.where(own, eng.momentum * acc + g, acc))
+            p.copy_(torch.where(own, p - eng.lr * acc, p))
 
     def _train_full(self, st: _Stream, frame):
         eng = self.engine
         eng._set_trainable()
         out = eng.model(frame["left"], frame["right"])
         loss = eng._full_loss_fn(out["disparities"], frame)
-        grads = self._grads(loss, None, retain=False)
-        t = st.opt["t"] + 1 if "t" in st.opt else None
-        self._apply(st, None, grads, t)
-        if t is not None:
-            st.opt["t"].copy_(t)
+        self._update_all(st, self._grads(loss, None, retain=False))
         return loss.detach(), out["full_res_disp"].detach()
 
     def _train_blocks(self, st: _Stream, ks: Sequence[int], frame):
@@ -494,10 +600,7 @@ class FusedOnlineSession:
         grads = self._grads(eng._block_base_loss([sel], inputs), None, retain=False)
         with torch.no_grad():
             loss = eng._full_loss_fn(out["disparities"], frame)
-            for p, acc, g, bid in zip(st.params, st.opt["acc"], grads, self._block_ids):
-                own = k == bid
-                acc.copy_(torch.where(own, eng.momentum * acc + g, acc))
-                p.copy_(torch.where(own, p - eng.lr * acc, p))
+            self._update_owned(st, k, grads)
         return loss, out["full_res_disp"].detach()
 
     def _forward_only(self, frame):
@@ -524,45 +627,158 @@ class FusedOnlineSession:
             new_loss, disp = self._train_shared(st, frame)
         else:
             new_loss, disp = self._train_blocks(st, branch[1], frame)
-
         with torch.no_grad():
-            step = st.step_count
-            if self.mode == "MAD":
-                # reward bookkeeping (Stereo_Online_Adaptation.py:211-224),
-                # every frame: only the train ops are dilation-gated
-                first = step == 0
-                loss_t1 = torch.where(first, new_loss, st.loss_t1)
-                loss_t2 = torch.where(first, new_loss, st.loss_t2)
-                gain = (2.0 * loss_t1 - loss_t2) - new_loss
-                st.scores.copy_(self.decay * st.scores + self.uf * gain * st.last_mask)
-                cur_mask = (st.cur_blocks[:, None] == self._arange_n[None, :]).sum(0)
-                if self.sample_frequency == 1:
-                    st.fetch_counter.add_(cur_mask.to(torch.int32))
-                else:
-                    resample = (step % self.sample_frequency) == 0
-                    st.fetch_counter.add_(
-                        torch.where(resample, cur_mask, torch.zeros_like(cur_mask)).to(torch.int32)
-                    )
-                st.loss_t2.copy_(loss_t1)
-                st.loss_t1.copy_(new_loss)
-                st.last_mask.copy_(cur_mask.to(torch.float32))
-            if self.mode != "NONE":
-                # reset safeguard (Stereo_Online_Adaptation.py:241-244):
-                # model weights only, the optimizer state stays
-                do_reset = new_loss > self.ssim_th
-                for p, p0 in zip(st.params, self._params0):
-                    p.copy_(torch.where(do_reset, p0, p))
-                st.reset_count.add_(do_reset.to(torch.int32))
-            if self.compute_metrics:
-                epe, bad3 = disparity_metrics(disp, frame["target"])
-                _, d1 = d1_metric(disp, frame["target"])
-                row = torch.stack([epe, bad3, d1, new_loss]).view(1, 4)
-                at = torch.clamp(step, max=self.max_steps - 1).view(1).long()
-                st.metrics.index_copy_(0, at, row)
-            st.step_count.add_(1)
-            if self.disp_dtype is not None:
-                disp = disp.to(self.disp_dtype)
+            new_loss = self._reduce(new_loss)
+            row = self._metrics_row(disp, frame, new_loss) if self.compute_metrics else None
+            self._control(st, new_loss, row)
+        return disp if self.disp_dtype is None else disp.to(self.disp_dtype)
+
+    def _metrics_row(self, disp, frame, loss) -> torch.Tensor:
+        """``[epe, bad3, d1, loss]`` of one stream's disparity (with a
+        width-sharded frame, of the whole frame: the ranks' sums added)."""
+        epe, bad3, _, d1 = metrics_from_sums(self._reduce(metric_sums(disp, frame["target"])))
+        return torch.stack([epe, bad3, d1, loss], -1)
+
+    def _control(self, st: _Stream, new_loss: torch.Tensor, row: Optional[torch.Tensor]) -> None:
+        """The controller after a step: the reward bookkeeping, the reset,
+        the metrics ring and the step count. ``st`` holds one stream's
+        state (a scalar ``new_loss``) or, under ``vmap``, every stream's
+        (``new_loss`` ``[N]``): each state tensor has the loss's leading
+        axes."""
+        step = st.step_count
+        if self.mode == "MAD":
+            # reward bookkeeping (Stereo_Online_Adaptation.py:211-224),
+            # every frame: only the train ops are dilation-gated
+            first = step == 0
+            loss_t1 = torch.where(first, new_loss, st.loss_t1)
+            loss_t2 = torch.where(first, new_loss, st.loss_t2)
+            gain = (2.0 * loss_t1 - loss_t2) - new_loss
+            st.scores.copy_(self.decay * st.scores + self.uf * gain[..., None] * st.last_mask)
+            cur_mask = (st.cur_blocks[..., :, None] == self._arange_n).sum(-2)
+            if self.sample_frequency == 1:
+                st.fetch_counter.add_(cur_mask.to(torch.int32))
+            else:
+                resample = (step % self.sample_frequency) == 0
+                st.fetch_counter.add_(
+                    torch.where(resample[..., None], cur_mask, torch.zeros_like(cur_mask)).to(torch.int32)
+                )
+            st.loss_t2.copy_(loss_t1)
+            st.loss_t1.copy_(new_loss)
+            st.last_mask.copy_(cur_mask.to(torch.float32))
+        if self.mode != "NONE":
+            # reset safeguard (Stereo_Online_Adaptation.py:241-244):
+            # model weights only, the optimizer state stays
+            do_reset = new_loss > self.ssim_th
+            for p, p0 in zip(st.params, self._params0):
+                at = do_reset.reshape(do_reset.shape + (1,) * (p.dim() - do_reset.dim()))
+                p.copy_(torch.where(at, p0, p))
+            st.reset_count.add_(do_reset.to(torch.int32))
+        if row is not None:
+            at = torch.clamp(step.reshape(-1)[:1], max=self.max_steps - 1).long()
+            st.metrics.index_copy_(-2, at, row.unsqueeze(-2))
+        st.step_count.add_(1)
+
+    def _reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """A rank's term of a width-sharded frame's loss summed over the
+        ranks (in place); the tensor itself otherwise."""
+        if self._layout is not None:
+            dist.all_reduce(t, group=self._group)
+        return t
+
+    # ------------------------------------------------------------- vmap streams
+    def _stream_fn(self, kind: str) -> Callable:
+        """The step of branch ``kind`` of one stream as a function of
+        tensors alone, ``(flat, k, frame) -> (grad, loss, disp, row)``
+        (``grad`` for the train branches only, ``row`` the metrics where
+        the session computes them), vmapped over the stream axis with
+        ``torch.func``: the module runs on views of the stream's arena row
+        (``functional_call``), the gradient is taken with respect to the
+        whole row (``grad_and_value``), and every kernel Function folds the
+        streams into its batch axis and launches once. ``k`` is the
+        stream's sampled block (shared-forward MAD); ``flat`` is not
+        updated here."""
+        fn = self._vmapped.get(kind)
+        if fn is not None:
+            return fn
+        eng, model, n, spec = self.engine, self.engine.model, self.n_actions, self.spec
+
+        def forward(flat, frame):
+            return torch.func.functional_call(model, spec.views(flat), (frame["left"], frame["right"]))
+
+        def tail(loss, disp, frame):
+            row = (self._metrics_row(disp, frame, loss),) if self.compute_metrics else ()
+            return (loss, disp if self.disp_dtype is None else disp.to(self.disp_dtype)) + row
+
+        def none(flat, k, frame):
+            out = forward(flat, frame)
+            if self.mode == "NONE" and not self.compute_metrics:
+                loss = torch.zeros((), dtype=torch.float32, device=flat.device)
+            else:
+                loss = eng._full_loss_fn(out["disparities"], frame)
+            return tail(loss, out["full_res_disp"], frame)
+
+        def full(flat, k, frame):
+            def loss_fn(f):
+                out = forward(f, frame)
+                return eng._full_loss_fn(out["disparities"], frame), out["full_res_disp"]
+
+            g, (loss, disp) = torch.func.grad_and_value(loss_fn, has_aux=True)(flat)
+            return (g,) + tail(loss, disp, frame)
+
+        def shared(flat, k, frame):
+            # one forward, the block losses stacked and selected by the
+            # stream's block, one backward through everything
+            inputs, prep = eng.block_loss_inputs(frame)
+
+            def loss_fn(f):
+                out = forward(f, frame)
+                stacked = torch.stack([prep(out["disparities"][i]) for i in range(n)], 0)
+                sel = stacked.index_select(0, k.view(1).long())[0]
+                return eng._block_base_loss([sel], inputs), out
+
+            g, (_, out) = torch.func.grad_and_value(loss_fn, has_aux=True)(flat)
+            with torch.no_grad():
+                loss = eng._full_loss_fn(out["disparities"], frame)
+            return (g,) + tail(loss, out["full_res_disp"], frame)
+
+        fn = torch.func.vmap({"none": none, "full": full, "shared": shared}[kind])
+        self._vmapped[kind] = fn
+        return fn
+
+    def _vmap_step(self, branch: Branch, frame: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One frame of every stream under ``vmap``: the vmapped branch,
+        then the optimizer updates and the controller of one stream, over
+        the ``[N]`` state."""
+        kind, st = branch[0], self._all
+        k = st.cur_blocks[:, 0] if self.mode == "MAD" else st.step_count
+        fn = self._stream_fn(kind)
+        if kind == "none":
+            with torch.no_grad():
+                loss, disp, *row = fn(st.params[0], k, frame)
+        else:
+            g, loss, disp, *row = fn(st.params[0], k, frame)
+        with torch.no_grad():
+            if kind == "full":
+                self._update_all(st, [g])
+            elif kind == "shared":
+                self._update_owned(st, k, [g])
+            self._control(st, loss, row[0] if row else None)
         return disp
+
+    # ------------------------------------------------------------ width sharding
+    def _sharded_step(self, st: _Stream, branch: Branch, frame: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """:meth:`_device_step` on the rank's piece of a width-sharded
+        frame: the frame is moved from the even cut into the step's layout
+        (:mod:`..parallel.spatial`), the step runs under it (the ops fetch
+        their halos, the loss and the gradients are summed over the
+        ranks), and the disparity goes back to the even cut."""
+        if self._layout is None:
+            self._layout = spatial.Layout.for_pieces(self._group, frame["left"].shape[2])
+        lay = self._layout
+        with spatial.sharded(lay):
+            inside = {k: lay.enter(v) for k, v in frame.items()}
+            disp = self._device_step(st, branch, inside)
+            return lay.leave(disp)
 
     def _stream_step(self, st: _Stream, branch: Branch, frame: Dict[str, torch.Tensor]) -> None:
         """Stream ``st``'s step with the module bound to its arena row, its
@@ -571,7 +787,7 @@ class FusedOnlineSession:
         disp = self._device_step(st, branch, {k: v[st.index] for k, v in frame.items()})
         if self._disp_out is None:  # the first (eager) step: never under capture
             self._disp_out = torch.empty(
-                (self.num_streams, *disp.shape), dtype=disp.dtype, device=self.device
+                (self._rows, *disp.shape), dtype=disp.dtype, device=self.device
             )
         self._disp_out[st.index].copy_(disp)
 
@@ -665,11 +881,14 @@ class FusedOnlineSession:
         values until the next step (it lives in the graphs' memory pool):
         fetch it with :meth:`fetch_disp`, or clone it, before stepping on.
         With streams the frame's arrays carry a leading ``[N]`` axis, one
-        frame of every stream, and ``last_disp`` is ``[N, 1, H, W, 1]``.
+        frame of every stream, and ``last_disp`` is ``[N, 1, H, W, 1]``
+        (over a mesh, the rank's streams). With a width-sharded mesh the
+        frame is the rank's piece of every array, as ``shard_batch(frame,
+        width_sharded(mesh))`` cuts it, and so is ``last_disp``.
         Raises if the conv precision in force is no longer the engine's: a
         graph captured under one mode would replay that mode."""
         self.engine.check_precision()
-        ns = self.num_streams
+        ns = self._rows
         if ns and any(len(frame[k]) != ns for k in _FRAME_KEYS if k in frame):
             raise ValueError(f"a frame of a {ns}-stream session carries a leading [{ns}] axis")
         bufs = self._load_frame(frame)
@@ -677,7 +896,11 @@ class FusedOnlineSession:
         if not ns:
             (branch,) = branches
             st = self._streams[0]
-            self.last_disp = self._dispatch(branch, lambda: self._device_step(st, branch, bufs))
+            step = self._sharded_step if self._sharded else self._device_step
+            self.last_disp = self._dispatch(branch, lambda: step(st, branch, bufs))
+        elif self.stream_impl == "vmap":
+            (branch,) = set(branches)  # the host counts dilation and sampling alike for all
+            self.last_disp = self._dispatch(branch, lambda: self._vmap_step(branch, bufs))
         elif self.stream_impl == "unroll" and len(set(branches)) == 1:
             def run_all():  # the N streams' steps in one graph
                 for st, branch in zip(self._streams, branches):
@@ -762,8 +985,13 @@ class FusedOnlineSession:
         ``step`` calls (the frames' graphs are replayed in order);
         ``last_disp`` holds the ``[K]`` stacked disparities. ``unroll`` is
         accepted for the JAX signature's sake and has no effect: there is
-        no scan to unroll."""
+        no scan to unroll. A mesh session refuses it, as the JAX one does."""
         del unroll
+        if self.mesh is not None:
+            raise ValueError(
+                "step_chunk is a single-chip dispatch optimization; "
+                "mesh sessions amortize dispatch differently"
+            )
         k = len(frames["left"])
         stacked = None
         for i in range(k):
@@ -780,7 +1008,8 @@ class FusedOnlineSession:
         (the one sync): ``scores``, ``fetch_counter``, ``reset_count``,
         ``steps`` and, with metrics, ``epe``, ``bad3``, ``d1``, ``loss``
         per frame. With streams every array has a leading ``[N]`` axis and
-        ``steps`` is the count common to the streams."""
+        ``steps`` is the count common to the streams; with streams over a
+        mesh, every rank gathers all N."""
         nsteps = int(self.step_count.max().item())
         host = {
             "scores": self.scores.cpu().numpy(),
@@ -791,19 +1020,41 @@ class FusedOnlineSession:
             m = self.metrics[..., : min(nsteps, self.max_steps), :].cpu().numpy()
             for j, k in enumerate(("epe", "bad3", "d1", "loss")):
                 host[k] = m[..., j]
+        if self._streams_over_mesh:
+            pieces = [None] * self._group.size()
+            dist.all_gather_object(pieces, host, group=self._group)
+            host = {k: np.concatenate([p[k] for p in pieces]) for k in host}
         host["steps"] = nsteps
         return host
+
+    @property
+    def _streams_over_mesh(self) -> bool:
+        return bool(self.num_streams) and self.mesh is not None
+
+    def _gather_rows(self, flat: torch.Tensor) -> torch.Tensor:
+        """The ``[N, P]`` rows of every rank, from this rank's ``[n, P]``
+        (pieces padded to one size for the all-gather, then cut)."""
+        size = self._group.size()
+        piece = local_slice(self.num_streams, size, 0)
+        rows = piece.stop - piece.start
+        padded = flat.new_zeros((rows, flat.shape[1]))
+        padded[: flat.shape[0]].copy_(flat)
+        out = [torch.empty_like(padded) for _ in range(size)]
+        dist.all_gather(out, padded, group=self._group)
+        cuts = [local_slice(self.num_streams, size, r) for r in range(size)]
+        return torch.cat([o[: c.stop - c.start] for o, c in zip(out, cuts)])
 
     def current_params(self) -> Dict[str, torch.Tensor]:
         """The adapted weights as a ``state_dict``: the module's own live
         tensors (views of the arena when it is on). With streams, views of
         the ``[N, P]`` arena, each with a leading ``[N]`` axis. Clone what
-        must outlive the next step."""
+        must outlive the next step. With streams over a mesh every rank
+        gathers the N streams' weights (copies, not views)."""
         if self.num_streams:
             at = {name: (shape, off, size) for name, shape, off, size in self.spec.entries}
-            flat = self.arena.flat
+            flat = self._gather_rows(self.arena.flat) if self._streams_over_mesh else self.arena.flat
             return {
-                name: flat[:, at[name][1] : at[name][1] + at[name][2]].view(self.num_streams, *at[name][0])
+                name: flat[:, at[name][1] : at[name][1] + at[name][2]].view(len(flat), *at[name][0])
                 for name in self._names
             }
         return self.engine.model.state_dict()

@@ -9,6 +9,13 @@ kernel), and the three factories ``get_supervised_loss``,
 JAX; only the image warp, the resize and the Sobel filters run in NCHW.
 All are elementwise or small-window functions with no kernel of their
 own, apart from the image warp inside the reprojection loss.
+
+Under a width-sharded layout (:mod:`..parallel.spatial`) the
+reprojection and proxy losses read global widths, and ``mean_SSIM``,
+``mean_SSIM_l1`` and ``mean_l1`` return the rank's term: its sums over
+the global count (the SSIM windows taking a column of halo from each
+neighbour; ``mean_l1``'s count of valid pixels summed over the ranks).
+The ranks' terms add up to the loss.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from real_time_self_adaptive_deep_stereo_torch.ops.resize import resize_bilinear
+from real_time_self_adaptive_deep_stereo_torch.ops import shard_context
 from real_time_self_adaptive_deep_stereo_torch.ops.warp_kernels import warp_image_by_mode
 
 __all__ = [
@@ -70,14 +78,33 @@ def _ssim_terms(mu_x, mu_y, sigma_x, sigma_y, sigma_xy):
     return torch.clamp((1.0 - n / d) / 2.0, 0.0, 1.0)
 
 
-def _ssim_mean_flat(xf: torch.Tensor, yf: torch.Tensor, c: int) -> torch.Tensor:
-    """Mean of the clipped (1-SSIM)/2 map, in the flat layout."""
+def _ssim_map_flat(xf: torch.Tensor, yf: torch.Tensor, c: int) -> torch.Tensor:
+    """The clipped (1-SSIM)/2 map over 3x3 VALID windows, in the flat layout."""
     mu_x = _pool3_flat(xf, c)
     mu_y = _pool3_flat(yf, c)
     sigma_x = _pool3_flat(xf * xf, c) - mu_x**2
     sigma_y = _pool3_flat(yf * yf, c) - mu_y**2
     sigma_xy = _pool3_flat(xf * yf, c) - mu_x * mu_y
-    return torch.mean(_ssim_terms(mu_x, mu_y, sigma_x, sigma_y, sigma_xy))
+    return _ssim_terms(mu_x, mu_y, sigma_x, sigma_y, sigma_xy)
+
+
+def _ssim_mean_flat(xf: torch.Tensor, yf: torch.Tensor, c: int) -> torch.Tensor:
+    """Mean of the clipped (1-SSIM)/2 map, in the flat layout."""
+    return torch.mean(_ssim_map_flat(xf, yf, c))
+
+
+def _ssim_term_sharded(layout, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The rank's term of the SSIM map's mean (NHWC pieces): its windows
+    centred on the rank's columns, each piece with a column of halo on
+    either side, summed over those centred inside ``[1, W-1)`` (the
+    VALID map's) and divided by the map's global count."""
+    b, h, _, c = x.shape
+    w = layout.global_width(x.shape[2])
+    lo, hi = layout.range(w)
+    xe, ye = (layout.halo(t, 2, 1, 1, "ssim") for t in (x, y))
+    ss = _ssim_map_flat(_flat(xe), _flat(ye), c)  # centres lo .. hi-1
+    a, e = max(lo, 1) - lo, min(hi, w - 1) - lo
+    return ss[..., a * c : e * c].sum() / (b * (h - 2) * (w - 2) * c)
 
 
 def mean_l1(x, y, mask=None):
@@ -85,7 +112,11 @@ def mean_l1(x, y, mask=None):
         x, y = _flat(x), _flat(y)
         mask = None if mask is None else _flat(mask)
     mask = _ones_mask(x, mask)
-    return torch.sum(mask * torch.abs(x - y)) / torch.sum(mask)
+    count = torch.sum(mask)
+    layout = shard_context.active()
+    if layout is not None:
+        count = layout.all_sum(count)  # the rank's term: its sum over the frame's count
+    return torch.sum(mask * torch.abs(x - y)) / count
 
 
 def mean_l2(x, y, mask=None):
@@ -149,10 +180,18 @@ def ssim_l1(x, y, alpha=SSIM_ALPHA):
 
 
 def mean_SSIM(x, y):
+    layout = shard_context.active()
+    if layout is not None:
+        return _ssim_term_sharded(layout, x, y)
     return _ssim_mean_flat(_flat(x), _flat(y), x.shape[-1])
 
 
 def mean_SSIM_L1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    layout = shard_context.active()
+    if layout is not None:
+        b, h, _, c = x.shape
+        l1_sum = torch.abs(x - y).sum() / (b * h * layout.global_width(x.shape[2]) * c)
+        return SSIM_ALPHA * _ssim_term_sharded(layout, x, y) + (1 - SSIM_ALPHA) * l1_sum
     xf, yf = _flat(x), _flat(y)
     ss = _ssim_mean_flat(xf, yf, x.shape[-1])
     return SSIM_ALPHA * ss + (1 - SSIM_ALPHA) * torch.mean(torch.abs(xf - yf))
@@ -234,7 +273,7 @@ def _resolve(name: str) -> Callable:
 
 def _resize_to_nhwc(cur: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """NHWC ``cur`` resized to the spatial shape of NHWC ``like``."""
-    return resize_bilinear(_nchw(cur), like.shape[1], like.shape[2]).permute(0, 2, 3, 1)
+    return resize_bilinear(_nchw(cur), like.shape[1], shard_context.width(like, 2)).permute(0, 2, 3, 1)
 
 
 def _target_loss(base, weights, multiScale, reduced, label_key, invalid):
@@ -252,7 +291,7 @@ def _target_loss(base, weights, multiScale, reduced, label_key, invalid):
         acc = []
         for i in range(n):
             cur = disparities[-(i + 1)]
-            scale = left.shape[2] / cur.shape[2]
+            scale = shard_context.width(left, 2) / shard_context.width(cur, 2)
             resized = _resize_to_nhwc(cur, targets) * scale
             acc.append(weights[i] * base(resized, labels, valid))
         return torch.stack(acc).sum() if reduced else acc
@@ -325,8 +364,10 @@ def get_reprojection_loss(
         acc = []
         for i in range(n):
             cur = disparities[-(i + 1)]
-            scale = left.shape[2] / cur.shape[2]
-            resized = resize_bilinear(_nchw(cur), left.shape[1], left.shape[2]) * scale
+            # global widths: under width sharding the pieces' ratio is not the frame's
+            w = shard_context.width(left, 2)
+            scale = w / shard_context.width(cur, 2)
+            resized = resize_bilinear(_nchw(cur), left.shape[1], w) * scale
             reproj = warp_image_by_mode(right, resized, warp_mode, warp_max_disp)
             acc.append(weights[i] * base(reproj.permute(0, 2, 3, 1), left))
         return torch.stack(acc).sum() if reduced else acc

@@ -35,6 +35,7 @@ from real_time_self_adaptive_deep_stereo_torch.ops import (
     pad_image,
     padded_shape,
     resize_bilinear,
+    shard_context,
     warp_features_by_mode,
 )
 from real_time_self_adaptive_deep_stereo_torch.utils.device import resolve_device
@@ -102,6 +103,7 @@ class MADNet(nn.Module):
     and :func:`..utils.checkpoint.params_from_jax`)."""
 
     name = "MADNet"
+    width_sharding = True  # every op of the forward runs on a rank's columns (parallel/spatial.py)
 
     def __init__(
         self,
@@ -179,7 +181,8 @@ class MADNet(nn.Module):
         return {
             "lfeats": [f[:b] for f in feats],
             "rfeats": [f[b:] for f in feats],
-            "orig_hw": (left.shape[1], left.shape[2]),
+            # global under width sharding: the resizes and the crop take it
+            "orig_hw": (left.shape[1], shard_context.width(left, 2)),
         }
 
     def estimate_from_features(self, feats: Dict) -> Dict:

@@ -27,6 +27,11 @@ input the extra pixel goes to the bottom and right. PyTorch's
 ``padding=1`` would put it on both sides and shift every pyramid level
 by one pixel, so the pad is applied explicitly before a ``padding=0``
 convolution.
+
+Under a width-sharded layout (:mod:`..parallel.spatial`) a SAME
+convolution runs on the rank's columns: the pad along W becomes the
+columns of the neighbours that the rank's outputs read (zeros beyond the
+frame), fetched from them, and the convolution is VALID along W.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from real_time_self_adaptive_deep_stereo_torch.ops import shard_context
 
 __all__ = [
     "leaky_relu", "init_conv", "conv2d", "dilated_conv2d", "conv2d_transpose", "same_pad",
@@ -121,12 +128,32 @@ def _same_1d(size: int, k: int, stride: int, rate: int) -> Tuple[int, int]:
 
 
 def same_pad(x: torch.Tensor, k: Tuple[int, int], stride: int = 1, rate: int = 1):
-    """Zero-pad NCHW ``x`` as TF SAME padding does for a ``k`` kernel."""
+    """Zero-pad NCHW ``x`` as TF SAME padding does for a ``k`` kernel.
+    Under a width-sharded layout the W pad is the neighbours' halo
+    (:func:`_same_halo`)."""
     top, bottom = _same_1d(x.shape[2], k[0], stride, rate)
-    left, right = _same_1d(x.shape[3], k[1], stride, rate)
+    layout = shard_context.active()
+    if layout is not None:
+        x = _same_halo(layout, x, k[1], stride, rate)
+        left = right = 0
+    else:
+        left, right = _same_1d(x.shape[3], k[1], stride, rate)
     if top or bottom or left or right:
         x = F.pad(x, (left, right, top, bottom))
     return x
+
+
+def _same_halo(layout, x: torch.Tensor, k: int, stride: int, rate: int) -> torch.Tensor:
+    """The rank's columns of NCHW ``x`` with the halo a SAME convolution
+    of its output columns reads: output column j reads the input columns
+    ``j*stride - left .. j*stride - left + k_eff - 1`` of the global
+    width, ``left`` the SAME split's; a VALID convolution of the result
+    gives the rank's output columns."""
+    w = layout.global_width(x.shape[3])
+    left, _ = _same_1d(w, k, stride, rate)
+    k_eff = (k - 1) * rate + 1
+    spans = [(lo * stride - left, (hi - 1) * stride - left + k_eff) for lo, hi in layout.ranges(-(-w // stride))]
+    return layout.fetch(x, 3, layout.ranges(w), spans, f"conv k{k_eff} s{stride}")
 
 
 def _bias_act(y, bias, dt, activation):
@@ -142,6 +169,8 @@ def _bias_act(y, bias, dt, activation):
 def _conv(x, weight, bias, stride, rate, activation, padding, groups=1):
     if padding not in ("SAME", "VALID"):
         raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    if padding == "VALID" and shard_context.active() is not None:
+        raise NotImplementedError("a VALID convolution under width sharding: ROADMAP.md, queue 1")
     dt = _bf16_epilogue(x)
     if dt is not None:
         x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
@@ -198,6 +227,10 @@ def conv2d_transpose(
     narrower than the stride, zero extension) is one pad of the full
     output, and the bias comes after it, as in TF. The precision modes
     apply as in :func:`conv2d`."""
+    if shard_context.active() is not None:
+        raise NotImplementedError(
+            "a transposed convolution under width sharding (DispNet): ROADMAP.md, queue 1"
+        )
     dt = _bf16_epilogue(x)
     if dt is not None:
         x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)

@@ -27,7 +27,14 @@ backward computes in bf16 instead (``ROADMAP.md``, section 3).
   ``corr_fwd_wide_bf16`` and ``corr_bwd_wide_bf16``.
 * :func:`correlation` picks one by :func:`resolve_corr_mode`: ``auto`` is
   ``cuda`` for CUDA tensors at stride 1, at every radius, and ``torch``
-  otherwise.
+  otherwise. Under a width-sharded layout (:mod:`..parallel.spatial`) it
+  runs on the rank's columns: the right features with a halo of the
+  radius from the neighbours (zeros beyond the frame, as the kernel's own
+  zeros), the left ones padded, and the result cropped.
+
+The kernel Functions carry ``vmap`` rules for ``torch.func``: the
+streams of a vmapped step fold into the batch axis, and each kernel
+launches once for all of them.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+from real_time_self_adaptive_deep_stereo_torch.ops import shard_context
 
 __all__ = [
     "correlation",
@@ -172,11 +180,21 @@ def _corr_bwd_launch(
 
 
 class _CorrelationCUDA(torch.autograd.Function):
+    """The forward kernel, with a ``vmap`` rule for ``torch.func``: the
+    streams are folded into the batch axis and the kernel runs once. Its
+    backward goes through :class:`_CorrelationBwdCUDA`, which has a rule
+    of its own, since under ``vmap(grad(...))`` it receives batched
+    tensors."""
+
     @staticmethod
-    def forward(ctx, x, y, max_disp, wide):
+    def forward(x, y, max_disp, wide):
+        return _corr_fwd_launch(x, y, max_disp, wide)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, y, max_disp, wide = inputs
         ctx.save_for_backward(x, y)
         ctx.max_disp, ctx.wide = max_disp, wide
-        return _corr_fwd_launch(x, y, max_disp, wide)
 
     @staticmethod
     def backward(ctx, grad):
@@ -185,8 +203,38 @@ class _CorrelationCUDA(torch.autograd.Function):
         # expanded view; the kernel takes contiguous NCHW. A downstream
         # promotion may hand back a wider gradient than bf16 inputs: it is
         # cast to their dtype, as _corr_pallas_bwd does.
-        dx, dy = _corr_bwd_launch(x, y, grad.to(x.dtype).contiguous(), ctx.max_disp, ctx.wide)
+        dx, dy = _CorrelationBwdCUDA.apply(x, y, grad.to(x.dtype).contiguous(), ctx.max_disp, ctx.wide)
         return dx, dy, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, y, max_disp, wide):
+        n = info.batch_size
+        xs, ys = cuda_lib.fold_streams(n, (x, y), in_dims[:2])
+        return cuda_lib.unfold_streams(n, _CorrelationCUDA.apply(xs, ys, max_disp, wide)), 0
+
+
+class _CorrelationBwdCUDA(torch.autograd.Function):
+    """The backward kernel as a Function of its own, for its ``vmap``
+    rule; it is not differentiable again."""
+
+    @staticmethod
+    def forward(x, y, g, max_disp, wide):
+        return _corr_bwd_launch(x, y, g, max_disp, wide)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the correlation backward kernel has no backward of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, x, y, g, max_disp, wide):
+        n = info.batch_size
+        xs, ys, gs = cuda_lib.fold_streams(n, (x, y, g), in_dims[:3])
+        dx, dy = _CorrelationBwdCUDA.apply(xs, ys, gs, max_disp, wide)
+        return (cuda_lib.unfold_streams(n, dx), cuda_lib.unfold_streams(n, dy)), (0, 0)
 
 
 def correlation_cuda(
@@ -235,6 +283,12 @@ def correlation(
     mode: Literal["auto", "torch", "cuda"] = "auto",
 ) -> torch.Tensor:
     """Correlation cost volume between left ``x`` and right ``y`` (NCHW)."""
+    layout = shard_context.active()
+    if layout is not None:
+        ye = layout.halo(y, 3, max_disp, max_disp, "correlation")
+        with shard_context.sharded(None):
+            out = correlation(F.pad(x, (max_disp, max_disp)), ye, max_disp, stride, mode)
+        return out[..., max_disp : max_disp + x.shape[3]]
     if mode == "auto":
         mode = resolve_corr_mode(x.device.type, stride, max_disp)
     if mode == "cuda":

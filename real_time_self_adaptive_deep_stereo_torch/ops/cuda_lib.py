@@ -33,7 +33,7 @@ import torch
 
 __all__ = [
     "LAUNCHES", "build_all", "check", "check_float32", "check_same_float", "library",
-    "reset_launches", "stream_ptr", "ptxas_usage",
+    "reset_launches", "stream_ptr", "ptxas_usage", "fold_streams", "unfold_streams",
 ]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -180,3 +180,23 @@ def check_same_float(what: str, *tensors: torch.Tensor) -> torch.dtype:
             f"got {[t.dtype for t in tensors]}"
         )
     return dtypes.pop()
+
+
+def fold_streams(n: int, tensors, in_dims):
+    """The inputs of a kernel Function's ``vmap`` rule (``torch.func``)
+    with the stream axis merged into the batch axis: each tensor's axis
+    ``in_dims[i]`` moved to the front and folded into the next, ``[N, B,
+    ...]`` into ``[N*B, ...]``, contiguous; a tensor without a stream axis
+    (``None``) is broadcast to every stream first. The kernel then runs
+    once over the N streams."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+        out.append(t.reshape(n * t.shape[1], *t.shape[2:]).contiguous())
+    return out
+
+
+def unfold_streams(n: int, t):
+    """A folded output ``[N*B, ...]`` split back into ``[N, B, ...]``
+    (``None`` passes)."""
+    return None if t is None else t.view(n, t.shape[0] // n, *t.shape[1:])

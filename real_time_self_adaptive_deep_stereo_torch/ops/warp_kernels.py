@@ -32,6 +32,13 @@ bulkhead the feature warp's offset needs none.
 
 :func:`warp_image_by_mode` and :func:`warp_features_by_mode` dispatch on
 the warp modes of :func:`.warp.resolve_warp_mode` for the model and loss.
+Under a width-sharded layout (:mod:`..parallel.spatial`) they run at the
+full width on every rank, the source fetched whole and the offset at the
+rank's columns, and return the rank's columns.
+
+The kernel Functions carry ``vmap`` rules for ``torch.func``: the
+streams of a vmapped step fold into the batch axis, and each kernel, its
+backward's too, launches once for all of them.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+from real_time_self_adaptive_deep_stereo_torch.ops import shard_context
 from real_time_self_adaptive_deep_stereo_torch.ops.warp import (
     TILE,
     resolve_warp_mode,
@@ -174,40 +182,76 @@ def _launch_bwd(
     return dsrc, doff
 
 
-class _WarpImageCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, img, disp, max_disp):
-        ctx.save_for_backward(img, disp)
-        ctx.max_disp = float(max_disp)
-        return _launch("warp", "warp_image_fwd", img, disp, ctx.max_disp)
+class _WarpBwd(torch.autograd.Function):
+    """A warp's backward kernel ``fn_name`` of library ``lib_name`` as a
+    Function of its own, for its ``vmap`` rule (the forward Functions'
+    backward receives batched tensors under ``vmap(grad(...))``); it is not
+    differentiable again."""
 
     @staticmethod
-    def backward(ctx, grad):
-        img, disp = ctx.saved_tensors
+    def forward(lib_name, fn_name, src, off, grad, need_src, need_off, bounds):
+        return _launch_bwd(lib_name, fn_name, src, off, grad, need_src, need_off, *bounds)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("a warp's backward kernel has no backward of its own")
+
+    @staticmethod
+    def vmap(info, in_dims, lib_name, fn_name, src, off, grad, need_src, need_off, bounds):
+        n = info.batch_size
+        folded = cuda_lib.fold_streams(n, (src, off, grad), in_dims[2:5])
+        dsrc, doff = _WarpBwd.apply(lib_name, fn_name, *folded, need_src, need_off, bounds)
+        out = (cuda_lib.unfold_streams(n, dsrc), cuda_lib.unfold_streams(n, doff))
+        return out, tuple(None if t is None else 0 for t in out)
+
+
+class _WarpFn(torch.autograd.Function):
+    """Base of the four warp Functions: ``forward(src, off, *bounds)``
+    launches ``FWD`` of ``LIB``, the backward launches ``BWD`` through
+    :class:`_WarpBwd` for the gradients autograd asks for, and the ``vmap``
+    rule folds the streams into the batch axis, so that each kernel runs
+    once over them."""
+
+    LIB = FWD = BWD = ""
+
+    @classmethod
+    def forward(cls, src, off, *bounds):
+        return _launch(cls.LIB, cls.FWD, src, off, *(float(b) for b in bounds))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        src, off, *bounds = inputs
+        ctx.save_for_backward(src, off)
+        ctx.bounds = tuple(float(b) for b in bounds)
+
+    @classmethod
+    def backward(cls, ctx, grad):
+        src, off = ctx.saved_tensors
         # the gradient may arrive in another layout or as an expanded
         # view; the kernel takes contiguous NCHW
-        dimg, ddisp = _launch_bwd(
-            "warp", "warp_image_bwd", img, disp, grad.contiguous(),
-            ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.max_disp,
+        dsrc, doff = _WarpBwd.apply(
+            cls.LIB, cls.BWD, src, off, grad.contiguous(),
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.bounds,
         )
-        return dimg, ddisp, None
+        return (dsrc, doff) + (None,) * len(ctx.bounds)
+
+    @classmethod
+    def vmap(cls, info, in_dims, src, off, *bounds):
+        n = info.batch_size
+        folded = cuda_lib.fold_streams(n, (src, off), in_dims[:2])
+        return cuda_lib.unfold_streams(n, cls.apply(*folded, *bounds)), 0
 
 
-class _WarpFeaturesCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, feats, dx, max_neg, max_pos):
-        ctx.save_for_backward(feats, dx)
-        ctx.bounds = (float(max_neg), float(max_pos))
-        return _launch("warp", "warp_features_fwd", feats, dx, *ctx.bounds)
+class _WarpImageCUDA(_WarpFn):
+    LIB, FWD, BWD = "warp", "warp_image_fwd", "warp_image_bwd"
 
-    @staticmethod
-    def backward(ctx, grad):
-        feats, dx = ctx.saved_tensors
-        dfeats, ddx = _launch_bwd(
-            "warp", "warp_features_bwd", feats, dx, grad.contiguous(),
-            ctx.needs_input_grad[0], ctx.needs_input_grad[1], *ctx.bounds,
-        )
-        return dfeats, ddx, None, None
+
+class _WarpFeaturesCUDA(_WarpFn):
+    LIB, FWD, BWD = "warp", "warp_features_fwd", "warp_features_bwd"
 
 
 def warp_image_cuda(img: torch.Tensor, disp: torch.Tensor, max_disp: int = 192) -> torch.Tensor:
@@ -273,38 +317,12 @@ def warp_features_bwd_cuda(
     )
 
 
-class _WarpImageTile(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, img, disp, max_disp):
-        ctx.save_for_backward(img, disp)
-        ctx.max_disp = float(max_disp)
-        return _launch("warp_tile", "warp_tile_image_fwd", img, disp, ctx.max_disp)
-
-    @staticmethod
-    def backward(ctx, grad):
-        img, disp = ctx.saved_tensors
-        dimg, ddisp = _launch_bwd(
-            "warp_tile", "warp_tile_image_bwd", img, disp, grad.contiguous(),
-            ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.max_disp,
-        )
-        return dimg, ddisp, None
+class _WarpImageTile(_WarpFn):
+    LIB, FWD, BWD = "warp_tile", "warp_tile_image_fwd", "warp_tile_image_bwd"
 
 
-class _WarpFeaturesTile(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, feats, dx, max_neg, max_pos):
-        ctx.save_for_backward(feats, dx)
-        ctx.bounds = (float(max_neg), float(max_pos))
-        return _launch("warp_tile", "warp_tile_features_fwd", feats, dx, *ctx.bounds)
-
-    @staticmethod
-    def backward(ctx, grad):
-        feats, dx = ctx.saved_tensors
-        dfeats, ddx = _launch_bwd(
-            "warp_tile", "warp_tile_features_bwd", feats, dx, grad.contiguous(),
-            ctx.needs_input_grad[0], ctx.needs_input_grad[1], *ctx.bounds,
-        )
-        return dfeats, ddx, None, None
+class _WarpFeaturesTile(_WarpFn):
+    LIB, FWD, BWD = "warp_tile", "warp_tile_features_fwd", "warp_tile_features_bwd"
 
 
 def _check_bounds(what: str, *bounds: float) -> None:
@@ -395,6 +413,11 @@ def warp_image_by_mode(
 ) -> torch.Tensor:
     """The image warp of ``mode`` (``ops/warp.py::resolve_warp_mode``), in
     fp32 (a bf16 disparity, DispNet's under ``bf16_act``, is widened)."""
+    layout = shard_context.active()
+    if layout is not None:
+        return layout.full_width(
+            lambda s, o: warp_image_by_mode(s, o, mode, max_disp), img, disp, "warp_image"
+        )
     img, disp = _widen(img, disp)
     mode = resolve_warp_mode(mode, img.device)
     if mode == "cuda":
@@ -413,6 +436,11 @@ def warp_features_by_mode(
 ) -> torch.Tensor:
     """The feature warp of ``mode``, in fp32 (bf16 features and offsets,
     MADNet's under ``bf16_act``, are widened); the caller casts back."""
+    layout = shard_context.active()
+    if layout is not None:
+        return layout.full_width(
+            lambda s, o: warp_features_by_mode(s, o, mode, max_neg, max_pos), feats, dx, "warp_features"
+        )
     feats, dx = _widen(feats, dx)
     mode = resolve_warp_mode(mode, feats.device)
     if mode == "cuda":

@@ -1,6 +1,6 @@
-"""Data-parallel supervised training step.
+"""Data-parallel supervised training step and width-sharded adaptation step.
 
-Port of ``make_dp_train_step`` in
+Port of ``make_dp_train_step`` and ``make_spatial_adapt_step`` in
 ``real_time_self_adaptive_deep_stereo_tpu/parallel/train.py``. There the
 weights are replicated, the batch is sharded over the ``data`` mesh axis,
 and GSPMD inserts the gradient all-reduce, because the loss is one global
@@ -22,22 +22,31 @@ gradient in one flat vector, as a sum. Every rank then takes the same
 TF-form Adam step (``utils/optim.py``) on the same numbers, so the weights
 stay equal bit for bit.
 
-``make_spatial_adapt_step`` (width sharding with halo exchange) is not
-ported: ``ROADMAP.md``, queue 1, ``parallel/``.
+``make_spatial_adapt_step`` shards one frame along its width
+(:mod:`.spatial`): every rank runs MADNet on its columns, fetching the
+halos its convolutions read, and takes the loss as its own term, its sums
+over the global counts. The terms add up to the loss and their gradients
+to its gradient, so one all-reduce of the loss and the flat gradient
+gives every rank the whole frame's, and the same momentum step. (Each
+rank backpropagates its own term only: an all-reduced loss, backpropagated
+on every rank, would count the gradient once a rank.)
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from real_time_self_adaptive_deep_stereo_torch.losses import get_supervised_loss
+from real_time_self_adaptive_deep_stereo_torch.losses import get_reprojection_loss, get_supervised_loss
 from real_time_self_adaptive_deep_stereo_torch.losses.factory import supervised_invalid
+from real_time_self_adaptive_deep_stereo_torch.parallel import spatial
+from real_time_self_adaptive_deep_stereo_torch.utils import optim
 
-__all__ = ["GLOBAL_FORM", "broadcast_weights", "make_dp_train_step"]
+__all__ = ["GLOBAL_FORM", "broadcast_weights", "make_dp_train_step", "make_spatial_adapt_step"]
 
 # supervised loss: (the loss as a sum over a rank's pixels, what the global
 # loss divides the ranks' summed sums by: the valid pixels, all pixels, or
@@ -129,3 +138,54 @@ def make_dp_train_step(
         return flat[0].clone(), _unflat(flat[1:], grads)  # the loss outlives the bucket
 
     return make_train_step(model, loss_fn, lr, reduce=reduce)
+
+
+def make_spatial_adapt_step(
+    model: torch.nn.Module,
+    mesh: DeviceMesh,
+    lr: float = 1e-4,
+    axis: str = "data",
+    momentum: float = 0.9,
+) -> Callable:
+    """``step(frame) -> loss``: one FULL adaptation step of MADNet with the
+    ``mean_SSIM_l1`` reprojection loss and momentum, the frame sharded
+    along its width over the ranks of ``mesh``'s axis ``axis``. ``frame``
+    is this rank's piece (NHWC ``left``, ``right`` and, unused, ``target``;
+    numpy or tensors), as ``shard_batch(frame, width_sharded(mesh))`` cuts
+    it; the returned loss is the whole frame's, and every rank takes the
+    momentum step of one process on the whole frame. The weights are
+    broadcast from rank 0 first. ``step.acc`` is the momentum state,
+    ``step.grads`` the last step's gradient, ``step.layout`` the last
+    frame's :class:`.spatial.Layout` (its ``audit`` counts the fetches)."""
+    spatial.check_model(model)
+    group = mesh.get_group(axis)
+    broadcast_weights(model, group)
+    loss_fn = get_reprojection_loss("mean_SSIM_l1", reduced=True)
+    params = [p for _, p in model.named_parameters()]
+    device = params[0].device
+    layouts: Dict[int, spatial.Layout] = {}
+
+    def step(frame) -> torch.Tensor:
+        frame = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+                 .to(device, torch.float32) for k, v in frame.items()}
+        w = frame["left"].shape[2]
+        if w not in layouts:
+            layouts[w] = spatial.Layout.for_pieces(group, w)
+        layout = step.layout = layouts[w]
+        with spatial.sharded(layout):
+            inside = {k: layout.enter(v) for k, v in frame.items()}
+            out = model(inside["left"], inside["right"])
+            term = loss_fn(out["disparities"], inside)
+        grads = torch.autograd.grad(term, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        flat = torch.cat([term.detach().reshape(1), _flat(grads)])
+        dist.all_reduce(flat, group=group)
+        grads = _unflat(flat[1:], grads)
+        optim.momentum_update(params, step.acc, grads, lr, momentum)
+        step.grads = grads
+        return flat[0].clone()
+
+    step.acc = optim.momentum_init(params)
+    step.grads = None
+    step.layout = None
+    return step

@@ -547,9 +547,14 @@ def test_fused_probability_session_reads_its_blocks_and_counts_them(su):
 
 def test_fused_session_refuses_what_it_cannot_run(su):
     eng = su.engine()
-    for kw in (dict(mesh=object()), dict(stream_impl="vmap")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, `parallel/`"):
-            TorchFused(eng, **kw)
+    # width sharding (a mesh without streams) runs MADNet, with either
+    # loss; DispNet's transposed convs are queued in ROADMAP.md
+    one_rank = SimpleNamespace(get_group=lambda axis: SimpleNamespace(size=lambda: 1, rank=lambda: 0))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
+        TorchFused(TorchEngine(torch_net("Dispnet", device="cpu"), device="cpu"), mode="NONE", mesh=one_rank)
+    assert TorchFused(su.engine(adaptation="proxy"), mesh=one_rank)._sharded
+    # without streams stream_impl is kept and unused, as in the JAX session
+    assert TorchFused(eng, mode="NONE", stream_impl="vmap").stream_impl == "vmap"
     with pytest.raises(ValueError, match="unknown mode"):
         TorchFused(eng, mode="SOME")
     with pytest.raises(ValueError, match="blocks"):

@@ -16,6 +16,8 @@ On the CPU every step runs eagerly; ``chip_smoke.py`` phase 12 holds the
 graphs of both stream modes on the card to the same sessions.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -240,9 +242,16 @@ def test_streams_refuse_what_they_cannot_run(su):
         TorchFused(eng, num_streams=2, arena=False)
     with pytest.raises(ValueError, match="unknown stream_impl"):
         TorchFused(eng, num_streams=2, stream_impl="scan")
-    for kw in (dict(mesh=object()), dict(stream_impl="vmap")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, `parallel/`"):
-            TorchFused(eng, num_streams=2, **kw)
+    for impl in ("map", "unroll"):  # a mesh shards the stream axis under vmap only
+        with pytest.raises(ValueError, match="use 'vmap' for stream-parallel"):
+            TorchFused(eng, num_streams=2, stream_impl=impl, mesh=object())
+    with pytest.raises(ValueError, match="MAD under vmap requires num_blocks=1"):
+        TorchFused(eng, mode="MAD", num_blocks=2, num_streams=2, stream_impl="vmap")
+    one_rank = SimpleNamespace(get_group=lambda axis: SimpleNamespace(size=lambda: 1, rank=lambda: 0))
+    meshed = TorchFused(eng, mode="NONE", num_streams=2, mesh=one_rank, max_steps=2)
+    assert meshed.stream_impl == "vmap"  # "auto" under a mesh
+    with pytest.raises(ValueError, match="single-chip dispatch optimization"):
+        meshed.step_chunk({k: v[None] for k, v in _stack([_frames(77, 1)] * 2)[0].items()})
     sess = TorchFused(eng, mode="NONE", num_streams=2, max_steps=2)
     with pytest.raises(ValueError, match=r"leading \[2\] axis"):
         sess.step(_frames(77, 1)[0])  # one stream's frame
