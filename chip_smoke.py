@@ -57,7 +57,12 @@ Phases, each of which raises on failure (nothing is caught):
    kernel Functions under ``torch.func.vmap`` over 2 and 4 streams at
    [N, 1, ...] of MADNet's shapes (phase 13), forward and backward (the
    warps' both gradients): one launch a vmapped call, against the plain
-   version stream by stream, timed beside it on the folded batch.
+   version stream by stream, timed beside it on the folded batch. And the
+   wide pair at the shapes of a rank of phase 13's width-sharded DispNet,
+   [1,128,80,w_r+80] from the layout's cut (``w_r`` the rank's columns at
+   1/4: [1,128,80,240] and [1,128,80,224] on two ranks), ``x`` zero on the
+   pad columns, held and timed as at DispNet's call, the backward
+   bit-identical in two runs.
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -104,7 +109,10 @@ Phases, each of which raises on failure (nothing is caught):
    ``params_from_jax``: the host NONE session, MAD as ``cli/adapt.py``
    runs it (momentum, lr 1e-4, ``block_config/dispnet_full_6.json``,
    SEQUENTIAL, no bulkhead: DispNet has none), FULL, the fused MAD session
-   (``warp_mode='mxu'``) against the host session, and fused NONE serving.
+   (``warp_mode='mxu'``) against the host session, the fused FULL session
+   (``mxu``, 8 frames) against the host FULL session on the same frames
+   and weights (loss and EPE at phase 6's trajectory bounds, the adapted
+   weights within 1e-2 of the largest move), and fused NONE serving.
    Launch counts are asserted frame by frame: one ``corr_fwd_wide`` a
    frame, one ``corr_bwd_wide`` for FULL and for MAD blocks 3 and 4 (conv2
    and conv1, before the correlation) and none for the other blocks, and
@@ -255,8 +263,16 @@ Phases, each of which raises on failure (nothing is caught):
    within 1e-3 of the largest; each rank's launches and its halo audit
    (every conv fetched its halo, all-gathers by the warps alone). (c)
    Four vmap streams over the two ranks against (a)'s single sessions,
-   both ranks' gathered results equal. Prints ms a step and a frame a
-   rank beside one process.
+   both ranks' gathered results equal. Then (b) for DispNet-Corr1D, phase
+   7's weights: the step over 3 frames as MADNet's (one ``corr_fwd_wide``
+   and one ``corr_bwd_wide`` a step a rank), the width-sharded fused MAD
+   session over one SEQUENTIAL round of its six blocks, FULL over 3 frames
+   and MAD on proxy labels over 4, each against the single-device fused
+   session (every frame's sampled block equal, loss and EPE at
+   ``tests/test_parallel.py``'s bounds, the weights at the JAX package's
+   tolerance), each frame's launches, the halo audits (the transposed
+   convolutions' one column a side, the correlation's 40). Prints ms a step
+   and a frame a rank beside one process.
 
 Prints the card line, the ms/frame of the host and the fused sessions by
 mode and precision, a JSON line of the sixteen kernels, and as the last line
@@ -658,6 +674,7 @@ def check_kernels(ops):
         ))
 
     check_wide_kernels(ops, rows)
+    check_rank_wide_kernels(ops, rows)
     check_bf16_kernels(ops, rows)
 
     img = seeded((1, 3, H, W), 30)
@@ -771,7 +788,12 @@ def check_kernels(ops):
             r["bound_ms"], r["bound_by"] = r.pop("bound")
             log(f"kernel {name} {r}")
     for name, all_rs in rows.items():  # summed over the main-path shapes
-        rs = [r for r in all_rs if "batch" not in r and "vmap" not in r]
+        rs = [r for r in all_rs if not {"batch", "vmap", "ranks"} & set(r)]
+        ranked = [r for r in all_rs if "ranks" in r]
+        if ranked:
+            log(f"kernel {name} on a rank of {ranked[0]['ranks']}: {sum(r['ms'] for r in ranked):.5f} ms over "
+                f"{len(ranked)} shape(s), bound {sum(r['bound_ms'] for r in ranked):.5f}, "
+                f"plain {sum(r['plain_ms'] for r in ranked):.5f}")
         for b, batch in by_batch(all_rs).items():
             log(f"kernel {name} at batch {b}: {sum(r['ms'] for r in batch):.5f} ms over "
                 f"{len(batch)} shape(s), bound {sum(r['bound_ms'] for r in batch):.5f}, "
@@ -796,6 +818,36 @@ def check_kernels(ops):
     return rows
 
 
+def dn_rank_corr_shapes(world: int = None):
+    """The shapes of DispNet's correlation on the ranks of a 320x1216 frame
+    width-sharded over ``world`` ranks (phase 13), from the layout's own
+    cut: a rank's columns at 1/4 of the padded width, ``x`` zero-padded and
+    ``y`` widened by the radius's halo on either side
+    (``ops/correlation.py``)."""
+    from real_time_self_adaptive_deep_stereo_torch.parallel.spatial import COARSE, Layout
+
+    quarter = -(-W // COARSE) * COARSE // 4
+    pieces = Layout.cut(W, world or SP_WORLD)[quarter]
+    return sorted({(1, 128, H // 4, hi - lo + 2 * DN_RADIUS) for lo, hi in pieces})
+
+
+def check_rank_wide_kernels(ops, rows):
+    """``corr_fwd_wide`` and ``corr_bwd_wide`` at a width-sharded rank's
+    shapes (phase 13's DispNet), as :func:`check_wide_kernels` holds them,
+    the rows tagged ``ranks``: ``x`` zero in the pad columns, and the
+    output's gradient zero where the call's crop drops the output. The
+    bound is the rank's function's: ``x`` and the output at the rank's own
+    columns, ``y`` with its halo; the call computes and crops 2 * radius
+    output columns more."""
+    for i, shape in enumerate(dn_rank_corr_shapes()):
+        x, y = seeded(shape, 140 + i), seeded(shape, 150 + i)
+        g = seeded((shape[0], 2 * DN_RADIUS + 1, *shape[2:]), 160 + i)
+        for t in (x, g):
+            t[..., :DN_RADIUS] = 0.0
+            t[..., -DN_RADIUS:] = 0.0
+        wide_pair(ops, x, y, g, rows, live=shape[3] - 2 * DN_RADIUS, ranks=SP_WORLD)
+
+
 def check_wide_kernels(ops, rows):
     """``corr_fwd_wide`` and ``corr_bwd_wide`` at DispNet-Corr1D's call
     (timed, into ``rows``) and at the shapes that only check them: forward
@@ -805,43 +857,54 @@ def check_wide_kernels(ops, rows):
     for i, shape in enumerate([DN_CORR_SHAPE, *WIDE_CHECK_SHAPES]):
         x, y = seeded(shape, 110 + i), seeded(shape, 120 + i)
         g = seeded((shape[0], k, *shape[2:]), 130 + i)
-        got, want = ops.correlation_cuda(x, y, DN_RADIUS), ops.correlation_torch(x, y, DN_RADIUS)
-        grads = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
-        again = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
-        want_grads = ops.correlation_torch_bwd(x, y, g, DN_RADIUS)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, **CORR_TOL)
-        errs = [assert_grad_close(a, b, f"corr_bwd_wide {shape} {nm}")
-                for a, b, nm in zip(grads, want_grads, ("dx", "dy"))]
-        assert_same_bits(grads, again, f"corr_bwd_wide {shape}")
-        fwd = dict(shape=list(shape), radius=DN_RADIUS, err=float((got - want).abs().max()), tol=CORR_TOL)
-        bwd = dict(shape=list(shape), radius=DN_RADIUS, err=max(errs), tol=f"{BWD_RTOL} of the largest entry")
-        if i:
-            log(f"kernel corr_fwd_wide check {fwd}")
-            log(f"kernel corr_bwd_wide check {bwd}")
-            continue
-        n = shape[2] * shape[3]
-        c = shape[1]
-        rows["corr_fwd_wide"].append(dict(
-            fwd,
-            ms=time_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
-            cold_ms=cold_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
-            call_ms=call_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
-            plain_ms=time_ms(lambda: ops.correlation_torch(x, y, DN_RADIUS), inner=2),
-            library_ms=None,
-            bound=bound(4.0 * n * (2 * c + k), 2.0 * n * c * k),
-        ))
-        rows["corr_bwd_wide"].append(dict(
-            bwd,
-            ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
-            cold_ms=cold_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
-            call_ms=call_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
-            plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, DN_RADIUS), inner=2),
-            library_ms=None,
-            # reads x, y, g once, writes dx, dy; a multiply-add per
-            # (element, shift) for each of the two gradients
-            bound=bound(4.0 * n * (4 * c + k), 4.0 * n * c * k),
-        ))
+        wide_pair(ops, x, y, g, rows if i == 0 else None)
+
+
+def wide_pair(ops, x, y, g, rows, live=None, **tags):
+    """The wide pair on ``x``, ``y`` and the output gradient ``g`` against
+    the plain versions; with ``rows``, each kernel timed into them (with
+    ``tags``), else its check printed. The bound counts ``live`` columns
+    (all by default) of ``x``, the output and their gradients."""
+    k = 2 * DN_RADIUS + 1
+    shape = tuple(x.shape)
+    got, want = ops.correlation_cuda(x, y, DN_RADIUS), ops.correlation_torch(x, y, DN_RADIUS)
+    grads = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
+    again = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
+    want_grads = ops.correlation_torch_bwd(x, y, g, DN_RADIUS)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **CORR_TOL)
+    errs = [assert_grad_close(a, b, f"corr_bwd_wide {shape} {nm}")
+            for a, b, nm in zip(grads, want_grads, ("dx", "dy"))]
+    assert_same_bits(grads, again, f"corr_bwd_wide {shape}")
+    fwd = dict(shape=list(shape), radius=DN_RADIUS, err=float((got - want).abs().max()), tol=CORR_TOL, **tags)
+    bwd = dict(shape=list(shape), radius=DN_RADIUS, err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
+               **tags)
+    if rows is None:
+        log(f"kernel corr_fwd_wide check {fwd}")
+        log(f"kernel corr_bwd_wide check {bwd}")
+        return
+    n, n_y = shape[2] * (live or shape[3]), shape[2] * shape[3]  # x and the output; y
+    c = shape[1]
+    rows["corr_fwd_wide"].append(dict(
+        fwd,
+        ms=time_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+        cold_ms=cold_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+        call_ms=call_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+        plain_ms=time_ms(lambda: ops.correlation_torch(x, y, DN_RADIUS), inner=2),
+        library_ms=None,
+        bound=bound(4.0 * (n * (c + k) + n_y * c), 2.0 * n * c * k),
+    ))
+    rows["corr_bwd_wide"].append(dict(
+        bwd,
+        ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
+        cold_ms=cold_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
+        call_ms=call_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
+        plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, DN_RADIUS), inner=2),
+        library_ms=None,
+        # reads x, y, g once, writes dx, dy; a multiply-add per
+        # (element, shift) for each of the two gradients
+        bound=bound(4.0 * (n * (2 * c + k) + n_y * 2 * c), 4.0 * n * c * k),
+    ))
 
 
 def bf16_tol(got, want, abs_terms, n_terms):
@@ -1590,13 +1653,13 @@ def fused_mad_in(session, frames, per_frame, checked, what, after_step=None):
     return stats, launches, ms
 
 
-def fused_full_in(state, frames, per_frame, what):
+def fused_full_in(state, frames, per_frame, what, model_name="MADNet"):
     """A fused FULL session over ``frames``: two frames (eager step and
     capture, then a replay) each adding exactly ``per_frame`` launches, the
-    rest timed. Returns (finalize(), launches, ms/frame)."""
+    rest timed. Returns (finalize(), launches, ms/frame, the session)."""
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
 
-    session = make_session(state, "FULL", warp="mxu", fused=True, ssim_th=1e9)
+    session = make_session(state, "FULL", warp="mxu", fused=True, model_name=model_name, ssim_th=1e9)
     cuda_lib.reset_launches()
     for i, f in enumerate(frames[:2]):
         step_counted(session, f, per_frame, f"{what} frame {i}")
@@ -1612,7 +1675,7 @@ def fused_full_in(state, frames, per_frame, what):
     stats = session.finalize()
     if stats["steps"] != len(frames) or not np.isfinite(stats["loss"]).all():
         raise AssertionError(f"{what}: {stats['steps']} steps, loss {stats['loss']}")
-    return stats, launches, ms
+    return stats, launches, ms, session
 
 
 def fused_serve_in(state, frames, per_frame, what, model_name="MADNet"):
@@ -1807,7 +1870,7 @@ def run_fused(state, profile_dir):
 
     # --- FULL
     full_kw = dict(ssim_th=1e9)
-    fused, launches["FUSED_FULL"], frame_ms["FUSED_FULL"] = fused_full_in(
+    fused, launches["FUSED_FULL"], frame_ms["FUSED_FULL"], _ = fused_full_in(
         state, frames[:N_FRAMES_FULL + 3], TILE_FULL, "fused FULL")
     host = make_session(state, "FULL", warp="mxu", **full_kw)
     frame_ms["HOST_FULL_MXU"] = timed_host(host, frames[:N_FRAMES_FULL + 3], warm=1)
@@ -2008,6 +2071,26 @@ def run_dispnet(profile_dir):
         profile_frames(session, frames[:len(blocks)], Path(profile_dir), "dispnet_fused_mad")
     del session, host
 
+    # the fused FULL session, tiled warps in the loss, against the host
+    # FULL session on the same frames and weights
+    full_frames = frames[:N_FRAMES_FULL + 3]
+    fused, launches["DISPNET_FUSED_FULL"], frame_ms["DISPNET_FUSED_FULL"], session = fused_full_in(
+        state, full_frames, dn_launches("FULL", tiled=True), "DispNet fused FULL", model_name="Dispnet")
+    host = make_session(state, "FULL", warp="mxu", model_name="Dispnet", ssim_th=1e9)
+    frame_ms["DISPNET_HOST_FULL_MXU"] = timed_host(host, full_frames, warm=1)
+    assert_trajectory(fused, host_stats(host), "DispNet fused FULL against the host session")
+    host_flat = torch.cat([dict(host.engine.model.named_parameters())[name].detach().flatten()
+                           for name, *_ in session.arena.entries])
+    moved = float((session.arena.flat - session.arena.flat0).abs().max())
+    err = float((session.arena.flat - host_flat).abs().max())
+    log(f"DispNet fused FULL against the host session: weights moved by up to {moved:.3g}, differ by {err:.3g}; "
+        f"{frame_ms['DISPNET_FUSED_FULL']:.3f} ms/frame fused, {frame_ms['DISPNET_HOST_FULL_MXU']:.3f} host")
+    if not (moved > 0 and err <= 1e-2 * moved):
+        raise AssertionError("DispNet fused FULL: adapted weights differ from the host session's")
+    if profile_dir:
+        profile_frames(session, full_frames[:3], Path(profile_dir), "dispnet_fused_full")
+    del session, host
+
     # fused NONE serving: no loss, so the correlation alone
     launches["DISPNET_FUSED_NONE"], frame_ms["DISPNET_FUSED_NONE_SERVE"], disps, _ = fused_serve_in(
         state, frames[:N_FRAMES_NONE + 3], {"corr_fwd_wide": 1}, "DispNet fused NONE serving", model_name="Dispnet")
@@ -2202,7 +2285,7 @@ def run_precision(state, profile_dir):
             if mode != "bf16_act":
                 continue
 
-            _, launches[f"{tag}_FUSED_FULL"], frame_ms[f"{tag}_FUSED_FULL"] = fused_full_in(
+            _, launches[f"{tag}_FUSED_FULL"], frame_ms[f"{tag}_FUSED_FULL"], _ = fused_full_in(
                 state, frames[:N_FRAMES_FULL + 3], in_precision(TILE_FULL, mode), "bf16_act fused FULL")
             if profile_dir:
                 session = make_session(state, "FULL", warp="mxu", fused=True, ssim_th=1e9)
@@ -3600,6 +3683,14 @@ SP_WEIGHT_TOL = dict(rtol=1e-3, atol=1e-6)
 SP_MESH_LOSS = dict(rtol=5e-4, atol=1e-6)
 SP_MESH_EPE = dict(rtol=5e-4, atol=1e-5)
 SP_DISP_RTOL = 1e-3  # of the largest disparity, the pieces against one process's
+# DispNet-Corr1D width-sharded (phase 13 (b)): the step's frames, one
+# SEQUENTIAL round of its six blocks for MAD, FULL's frames, and the proxy
+# session's (through block 3, the first whose gradient crosses the
+# correlation)
+SP_DN_STEPS = 3
+SP_DN_FRAMES = 6
+SP_DN_FULL = 3
+SP_DN_PROXY = 4
 # a FULL step of every rank with the default (cuda) warps
 FULL_CUDA = {"corr_fwd": 5, "corr_bwd": 5, "warp_image_fwd": 1, "warp_image_bwd": 1,
              "warp_features_fwd": 4, "warp_features_bwd": 4}
@@ -4046,11 +4137,103 @@ def spatial_rank(rank: int, workdir: Path, device) -> dict:
     out["streams_flat"] = session._gather_rows(session.arena.flat).cpu().numpy()
     out["streams_rows"] = np.int64(session.arena.flat.shape[0])
     out["trail_blocks"], out["trail_scores"] = (np.stack([t[j] for t in trail]) for j in (0, 1))
+    del session
+    log(f"rank {rank}: MADNet's parts done, {memory_line()}")
+    out.update(spatial_dispnet_rank(workdir, device, mesh))
+    log(f"rank {rank}: DispNet's parts done, {memory_line()}")
     return out
 
 
-def check_audit(records, what):
-    """tests/test_torch_spatial.py's halo audit on one rank's fetches."""
+def memory_line() -> str:
+    """The card's memory as this process sees it, once its cache is
+    emptied: allocated and reserved here, and in use by every process."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
+            f"reserved, {(total - free) / 2**30:.2f} in use on the card")
+
+
+def audit_json(layout) -> str:
+    return json.dumps([[*k, v] for k, v in sorted(layout.audit.items())])
+
+
+def spatial_dispnet_rank(workdir: Path, device, mesh) -> dict:
+    """DispNet-Corr1D on one rank of phase 13 (b), from the weights and
+    frames in ``dn_state.npz`` and ``dn_frames.npz``:
+    ``make_spatial_adapt_step`` over SP_DN_STEPS frames, then the
+    width-sharded fused sessions, MAD over one SEQUENTIAL round of the six
+    blocks (each frame's sampled block), FULL over SP_DN_FULL frames and
+    MAD on the proxy labels over SP_DN_PROXY; each frame's launches, the
+    fetches of the step and of each session's last frame."""
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.parallel import make_spatial_adapt_step, shard_batch, width_sharded
+
+    out = {}
+    with np.load(workdir / "dn_state.npz") as w:
+        state = {k: torch.from_numpy(w[k]) for k in w.files}
+    with np.load(workdir / "dn_frames.npz") as f:
+        frames = [{k: torch.from_numpy(f[f"{i}_{k}"]).to(device) for k in ("left", "right", "target", "proxy")}
+                  for i in range(SP_DN_FRAMES)]
+    pieces = [shard_batch({k: v for k, v in f.items() if k != "proxy"}, width_sharded(mesh)) for f in frames]
+
+    model = get_stereo_net("Dispnet", device=device)
+    model.load_state_dict(state)
+    step = make_spatial_adapt_step(model, mesh, lr=LR)
+    cuda_lib.reset_launches()
+    for j in range(SP_DN_STEPS):
+        out[f"dn_w{j}"] = flat_params(model).cpu().numpy()
+        out[f"dn_loss{j}"] = np.float32(float(step(pieces[j])))
+        out[f"dn_g{j}"] = torch.cat([g.reshape(-1) for g in step.grads]).cpu().numpy()
+    out["dn_step_launches"] = json.dumps(dict(cuda_lib.LAUNCHES))
+    out["dn_step_audit"] = audit_json(step.layout)
+    out["dn_step_ms"] = np.float64(events_ms(lambda i: step(pieces[i]), 2)[0])
+    del model, step
+
+    for tag, mode, adaptation, n in (("dn_mesh", "MAD", "reprojection", SP_DN_FRAMES),
+                                     ("dn_full", "FULL", "reprojection", SP_DN_FULL),
+                                     ("dn_proxy", "MAD", "proxy", SP_DN_PROXY)):
+        session = make_session(state, mode, fused=True, mesh=mesh, model_name="Dispnet", adaptation=adaptation,
+                               **(MAD_KW if mode == "MAD" else dict(ssim_th=1e9)))
+        cuda_lib.reset_launches()
+        per_frame, frame_ms, blocks = [], [], []
+        for i in range(n):
+            if i == n - 1:
+                session._layout.audit.clear()
+            before = dict(cuda_lib.LAUNCHES)
+            t0 = time.perf_counter()
+            session.step(pieces[i] if adaptation == "reprojection" else shard_batch(frames[i], width_sharded(mesh)))
+            out[f"{tag}_disp{i}"] = session.last_disp.cpu().numpy()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            per_frame.append({k: v - before[k] for k, v in cuda_lib.LAUNCHES.items() if v - before[k]})
+            blocks.append(int(session.cur_blocks.reshape(-1)[0]) if mode == "MAD" else -1)
+        out[f"{tag}_launches"] = json.dumps(per_frame)
+        out[f"{tag}_audit"] = audit_json(session._layout)
+        out[f"{tag}_blocks"] = np.asarray(blocks)
+        out[f"{tag}_ms"] = np.float64(statistics.median(frame_ms[1:]))
+        for k, v in session.finalize().items():
+            out[f"{tag}_{k}"] = np.asarray(v)
+        out[f"{tag}_flat"] = session.arena.flat.cpu().numpy()
+        del session
+    return out
+
+
+def deconv_halo(k: int, stride: int):
+    """(left, right): the input columns beyond a rank's own that its output
+    columns of a TF SAME transposed convolution read, by enumerating the
+    taps (full output column i*stride + t, tap t < k, is output column
+    i*stride + t - (k-1)//2), as tests/test_torch_spatial_dispnet.py does."""
+    lo, hi = 10, 13
+    reads = [i for o in range(lo * stride, hi * stride) for i in range(lo - k, hi + k)
+             if 0 <= o + (k - 1) // 2 - i * stride < k]
+    return lo - min(reads), max(reads) + 1 - hi
+
+
+def check_audit(records, what, radius=RADIUS, convs=49, deconvs=0):
+    """tests/test_torch_spatial.py's halo audit on one rank's fetches (and
+    tests/test_torch_spatial_dispnet.py's, for DispNet: ``radius`` 40, 22
+    SAME and 10 transposed convolutions a forward)."""
     from real_time_self_adaptive_deep_stereo_torch.ops.conv import _same_1d
 
     tags = {}
@@ -4061,8 +4244,11 @@ def check_audit(records, what):
             k_eff, stride = (int(t[1:]) for t in tag.split()[1:])
             pad_left, _ = _same_1d(w, k_eff, stride, 1)
             ok = (left, right) == (pad_left, k_eff - stride - pad_left)
+        elif kind == "deconv":
+            k_eff, stride = (int(t[1:]) for t in tag.split()[1:])
+            ok = (left, right) == deconv_halo(k_eff, stride)
         elif kind == "correlation":
-            ok = (left, right) == (RADIUS, RADIUS)
+            ok = (left, right) == (radius, radius)
         elif kind == "ssim":
             ok = (left, right) == (1, 1)
         elif kind == "resize":
@@ -4071,7 +4257,8 @@ def check_audit(records, what):
             ok = kind in ("warp_features", "warp_image", "enter", "leave")
         if not ok or (whole and kind not in ("warp_features", "warp_image")):
             raise AssertionError(f"{what}: {tag} at width {w} fetched {left} left, {right} right (whole {whole})")
-    if tags.get("conv", 0) % 49 or not tags.get("conv"):
+    forwards = tags.get("conv", 0) // convs
+    if tags.get("conv", 0) % convs or not forwards or tags.get("deconv", 0) != forwards * deconvs:
         raise AssertionError(f"{what}: fetches by caller {tags}")
     log(f"{what}: fetches by caller {tags}; every conv its halo, all-gathers by the warps alone")
 
@@ -4101,21 +4288,22 @@ def run_spatial(state, launches, ms, refs, per):
     from real_time_self_adaptive_deep_stereo_torch.losses import get_reprojection_loss
     from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
     from real_time_self_adaptive_deep_stereo_torch.utils import optim
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import params_from_jax
 
-    frames = smooth_frames(SP_FRAMES, 900)
-    rng = np.random.default_rng(910)
-    for f in frames:  # proxy labels: the disparity with noise, 0 (invalid) more often on the left
-        t = f["target"]
-        drop = rng.random(t.shape) < np.linspace(0.6, 0.1, t.shape[2])[None, None, :, None]
-        f["proxy"] = np.where(drop | (t == 0), 0.0, t + rng.normal(0.0, 0.5, t.shape)).astype(np.float32)
+    frames = with_proxies(smooth_frames(SP_FRAMES, 900), 910)
+    dn_frames = with_proxies(smooth_frames(SP_DN_FRAMES, 950), 960)
+    dn_state = params_from_jax(seeded_dispnet_params(1))  # phase 7's weights
     # (a)'s graph pools and cached blocks back to the card: the ranks share it
     memory_base()
+    log(f"phase 13 (b): before the ranks, {memory_line()}")
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
         np.savez(work / "state.npz", **{k: v.cpu().numpy() for k, v in state.items()})
         np.savez(work / "frames.npz", **{f"{i}_{k}": v for i, f in enumerate(frames) for k, v in f.items()})
         np.savez(work / "streams.npz", **{f"{i}_{k}": v for i, f in enumerate(stacked(per, SP_STREAMS))
                                           for k, v in f.items()})
+        np.savez(work / "dn_state.npz", **{k: v.cpu().numpy() for k, v in dn_state.items()})
+        np.savez(work / "dn_frames.npz", **{f"{i}_{k}": v for i, f in enumerate(dn_frames) for k, v in f.items()})
         (work / "config.json").write_text(json.dumps({"mode": "spatial", "backend": "gloo", "device": "cuda:0"}))
         procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r), "--dp-dir",
                                    str(work)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -4131,7 +4319,7 @@ def run_spatial(state, launches, ms, refs, per):
                     p.kill()
                     p.wait()
         for r, (p, text) in enumerate(zip(procs, outs)):
-            for line in text.strip().splitlines()[-12:]:
+            for line in text.strip().splitlines()[-(12 if p.returncode == 0 else 60):]:
                 log(f"  rank {r}: {line}")
             if p.returncode != 0:
                 raise AssertionError(f"spatial: rank {r} exited with {p.returncode}")
@@ -4272,6 +4460,132 @@ def run_spatial(state, launches, ms, refs, per):
     launches["SPATIAL_STREAMS"] = json.loads(str(r0["streams_launches"]))
     log(f"SPATIAL_STREAMS: rank 0's graphs {json.loads(str(r0['streams_graphs']))}; launches "
         f"{ {k: v for k, v in launches['SPATIAL_STREAMS'].items() if v} }")
+    check_spatial_dispnet(ranks, launches, ms, dn_state, dn_frames)
+
+
+def with_proxies(frames, seed):
+    """The frames with proxy labels: each disparity with noise, 0 (invalid)
+    where it has none and at random elsewhere, more often on the left (the
+    ranks hold different counts of valid pixels)."""
+    rng = np.random.default_rng(seed)
+    for f in frames:
+        t = f["target"]
+        drop = rng.random(t.shape) < np.linspace(0.6, 0.1, t.shape[2])[None, None, :, None]
+        f["proxy"] = np.where(drop | (t == 0), 0.0, t + rng.normal(0.0, 0.5, t.shape)).astype(np.float32)
+    return frames
+
+
+def check_spatial_dispnet(ranks, launches, ms, state, frames):
+    """Phase 13 (b) for DispNet-Corr1D (:func:`spatial_dispnet_rank`): the
+    ranks bit for bit; each step against one process on the whole frame
+    from the rank's weights before it, as MADNet's; each session against
+    the single-device fused session over the same frames (loss and EPE at
+    SP_MESH_LOSS and SP_MESH_EPE, every frame's sampled block, the weights
+    at SP_WEIGHT_TOL, MAD's disparity pieces within SP_DISP_RTOL); each
+    frame's launches; the halo audits."""
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_reprojection_loss
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.utils import optim
+
+    r0, r1 = ranks
+    # the same on both ranks but for each rank's own pieces and fetches
+    for key in sorted(k for k in r0 if k.startswith("dn_") and not re.search(r"_ms$|_audit$|_disp\d+$", k)):
+        if not np.array_equal(r0[key], r1[key]):
+            raise AssertionError(f"SPATIAL_DN: the ranks differ in {key}")
+    model = get_stereo_net("Dispnet")
+    model.load_state_dict(state)
+    params = list(model.parameters())
+    loss_fn = get_reprojection_loss("mean_SSIM_l1", reduced=True)
+    dev = [{k: torch.from_numpy(v).cuda() for k, v in f.items()} for f in frames]
+
+    def loss_and_grad(f):
+        loss = loss_fn(model(f["left"], f["right"])["disparities"], f)
+        grads = torch.autograd.grad(loss, params)
+        return float(loss), torch.cat([g.reshape(-1) for g in grads])
+
+    for j in range(SP_DN_STEPS):
+        load_flat(model, r0[f"dn_w{j}"])
+        loss, g = loss_and_grad(dev[j])
+        g = g.cpu().numpy()
+        rel = abs(float(r0[f"dn_loss{j}"]) - loss) / abs(loss)
+        g_err = float(np.abs(r0[f"dn_g{j}"] - g).max()) / float(np.abs(g).max())
+        log(f"SPATIAL_DN_STEP step {j}: loss {float(r0[f'dn_loss{j}'])!r} against one process's {loss!r} "
+            f"({rel:.3g}); gradient within {g_err:.3g} of its largest entry")
+        if not (rel <= SP_LOSS_RTOL and g_err <= STEP_RTOL):
+            raise AssertionError(f"SPATIAL_DN_STEP step {j}: loss {rel:.3g}, gradient {g_err:.3g}")
+        if j == 0:  # the first update, from the same weights and a zero momentum
+            first = float(np.abs(r0["dn_w1"] - (r0["dn_w0"] - LR * g)).max())
+            if not np.allclose(r0["dn_w1"], r0["dn_w0"] - LR * g, **SP_WEIGHT_TOL):
+                raise AssertionError(f"SPATIAL_DN_STEP: the first update differs by {first:.3g}")
+    log(f"SPATIAL_DN_STEP: the ranks bit for bit; the first update within {first:.3g} of one process's")
+    load_flat(model, r0["dn_w0"])
+    acc = optim.momentum_init(params)
+
+    def one_step(f):
+        loss = loss_fn(model(f["left"], f["right"])["disparities"], f)
+        optim.momentum_update(params, acc, torch.autograd.grad(loss, params), LR)
+
+    one_ms = events_ms(lambda i: one_step(dev[i]), 2)[0]
+    step_want = {k: SP_DN_STEPS for k in ("corr_fwd_wide", "corr_bwd_wide", "warp_image_fwd", "warp_image_bwd")}
+    for r, rk in enumerate(ranks):
+        got = {k: v for k, v in json.loads(str(rk["dn_step_launches"])).items() if v}
+        if got != step_want:
+            raise AssertionError(f"SPATIAL_DN_STEP rank {r}: launches {got}, want {step_want}")
+        check_audit(json.loads(str(rk["dn_step_audit"])), f"SPATIAL_DN_STEP rank {r}", DN_RADIUS, 22, 10)
+    launches["SPATIAL_DN_STEP"] = json.loads(str(r0["dn_step_launches"]))
+    ms["SPATIAL_DN_STEP_RANK"], ms["SPATIAL_DN_STEP_ONE_PROCESS"] = float(r0["dn_step_ms"]), one_ms
+    log(f"SPATIAL_DN_STEP: {float(r0['dn_step_ms']):.3f} ms a step on rank 0 ({float(r1['dn_step_ms']):.3f} on "
+        f"rank 1), one process on the whole frame {one_ms:.3f} ms")
+    del model
+
+    for tag, mode, adaptation, n in (("dn_mesh", "MAD", "reprojection", SP_DN_FRAMES),
+                                     ("dn_full", "FULL", "reprojection", SP_DN_FULL),
+                                     ("dn_proxy", "MAD", "proxy", SP_DN_PROXY)):
+        what = f"SPATIAL_{tag.upper()}"
+        single = make_session(state, mode, fused=True, model_name="Dispnet", adaptation=adaptation,
+                              **(MAD_KW if mode == "MAD" else dict(ssim_th=1e9)))
+        disps, blocks = [], []
+        for f in frames[:n]:
+            single.step({k: v for k, v in f.items() if adaptation == "proxy" or k != "proxy"})
+            disps.append(single.last_disp.cpu().numpy())
+            blocks.append(int(single.cur_blocks.reshape(-1)[0]) if mode == "MAD" else -1)
+        want = single.finalize()
+        np.testing.assert_allclose(r0[f"{tag}_loss"], want["loss"], **SP_MESH_LOSS)
+        np.testing.assert_allclose(r0[f"{tag}_epe"], want["epe"], **SP_MESH_EPE)
+        np.testing.assert_array_equal(r0[f"{tag}_fetch_counter"], want["fetch_counter"])
+        if r0[f"{tag}_blocks"].tolist() != blocks:
+            raise AssertionError(f"{what}: sampled blocks {r0[f'{tag}_blocks'].tolist()} against {blocks}")
+        flat, ref = r0[f"{tag}_flat"], single.arena.flat.cpu().numpy()
+        moved = float(np.abs(ref - single.arena.flat0.cpu().numpy()).max())
+        np.testing.assert_allclose(flat, ref, **SP_WEIGHT_TOL)
+        worst = 0.0
+        for i, d in enumerate(disps):
+            whole = np.concatenate([r0[f"{tag}_disp{i}"], r1[f"{tag}_disp{i}"]], axis=2)
+            worst = max(worst, float(np.abs(whole - d).max()) / float(np.abs(d).max()))
+        log(f"{what}: loss {r0[f'{tag}_loss'].tolist()} against {want['loss'].tolist()}; epe "
+            f"{r0[f'{tag}_epe'].tolist()} against {want['epe'].tolist()}; blocks {blocks}; weights within "
+            f"{float(np.abs(flat - ref).max()):.3g} of {moved:.3g} moved; disparity pieces within {worst:.3g} "
+            f"of the largest; {float(r0[f'{tag}_ms']):.3f} ms a frame on rank 0 (wall, eager)")
+        if not (moved > 0 and worst <= SP_DISP_RTOL):
+            raise AssertionError(f"{what}: weights moved {moved:.3g}, disparity pieces differ by {worst:.3g}")
+        for r, rk in enumerate(ranks):
+            per_frame = json.loads(str(rk[f"{tag}_launches"]))
+            for i, got in enumerate(per_frame):
+                k = blocks[i]
+                if adaptation == "proxy":  # the proxy loss warps nothing
+                    want_l = {"corr_fwd_wide": 1, **({"corr_bwd_wide": 1} if k in DN_CORR_BLOCKS else {})}
+                else:
+                    want_l = dn_launches(mode, k)
+                if got != want_l:
+                    raise AssertionError(f"{what} rank {r} frame {i}: launches {got}, want {want_l}")
+            check_audit(json.loads(str(rk[f"{tag}_audit"])), f"{what} rank {r} (its last frame)", DN_RADIUS, 22, 10)
+        launches[what] = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+        for got in json.loads(str(r0[f"{tag}_launches"])):
+            for k, v in got.items():
+                launches[what][k] = launches[what].get(k, 0) + v
+        ms[f"{what}_RANK_FRAME"] = float(r0[f"{tag}_ms"])
+        del single
 
 
 def run_phase13(state, profile_dir):
@@ -4463,6 +4777,7 @@ def main() -> int:
         rows = {name: [] for name in REPLACES}
         for n in VMAP_COUNTS:
             check_vmap_kernels(rows, n)
+        check_rank_wide_kernels(ops, rows)
         for name, rs in rows.items():
             for r in rs:
                 r["bound_ms"], r["bound_by"] = r.pop("bound")
@@ -4501,10 +4816,10 @@ def main() -> int:
 
     kernels = []
     for name, all_rs in rows.items():
-        # batch 1 and no vmap: the sums keep their meaning
-        rs = [r for r in all_rs if "batch" not in r and "vmap" not in r]
+        # batch 1, no vmap, the whole frame: the sums keep their meaning
+        rs = [r for r in all_rs if not {"batch", "vmap", "ranks"} & set(r)]
         lib_ms = [r["library_ms"] for r in rs]
-        shape_keys = ("shape", "radius", "ms", "cold_ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms",
+        shape_keys = ("ranks", "shape", "radius", "ms", "cold_ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms",
                       "library_ms", "variants", "wide_ms")
         kernels.append({
             "name": name,
@@ -4542,6 +4857,11 @@ def main() -> int:
                 "library_ms": None if any(r["library_ms"] is None for r in vr)
                 else sum(r["library_ms"] for r in vr),
             } for n in VMAP_COUNTS for vr in [[r for r in all_rs if r.get("vmap") == n]] if vr},
+            # on a rank of a width-sharded frame (phase 13's DispNet): the same sums
+            **{f"ranks{SP_WORLD}": {
+                **{k: sum(r[k] for r in rr) for k in ("ms", "plain_ms", "bound_ms")},
+                "library_ms": None,
+            } for rr in [[r for r in all_rs if "ranks" in r]] if rr},
             "shapes": [{k: r[k] for k in ("batch", *shape_keys) if k in r} for r in all_rs],
         })
     idle = [k["name"] for k in kernels if not any(k["launches_by_path"].values())]

@@ -104,10 +104,15 @@ class ArenaSpec:
 
     def views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``{name: tensor}`` views of one arena vector (a row), shaped as
-        the parameters: what ``torch.func.functional_call`` takes, and the
-        gradient of a function of the row comes back in the arena's
-        layout."""
+        the parameters: what ``torch.func.functional_call`` takes."""
         return {name: flat[off : off + size].view(shape) for name, shape, off, size in self.entries}
+
+    def ravel(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One arena vector of ``{name: tensor}`` shaped as the parameters
+        (the inverse of :meth:`views`): a gradient taken with respect to the
+        views comes back in the arena's layout by one concatenation, where
+        the gradient of each slice of the row would be a zero-filled row."""
+        return torch.cat([tensors[name].reshape(-1) for name, _, _, _ in self.entries])
 
     def block_ids(self) -> np.ndarray:
         """int32 vector over the arena: the owning block of every element,

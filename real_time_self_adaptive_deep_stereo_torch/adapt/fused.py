@@ -73,7 +73,8 @@ graph, into one ``[N, ...]`` buffer, which is ``last_disp``.
 With ``stream_impl="vmap"`` the N streams run batched, as the JAX
 session's ``jax.vmap`` runs them: one function of a stream's arena row,
 sampled block and frame (``torch.func.functional_call`` on views of the
-row, ``grad_and_value`` with respect to the row) is vmapped over the
+row, ``grad_and_value`` with respect to the views, raveled into the
+row's layout) is vmapped over the
 stream axis. Convolutions with per-stream weights become grouped ones,
 and each kernel Function folds the streams into its batch axis, so a
 frame-batch launches each kernel once. MAD then runs the shared-forward
@@ -97,6 +98,7 @@ r)`` under ``vmap``, with no collective a frame.
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -130,6 +132,23 @@ class _Stream:
         self.host_blocks: Tuple[int, ...] = ()
         for k, v in tensors.items():
             setattr(self, k, v)
+
+
+_SIDE_STREAMS: Dict[Tuple[int, str], "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream on which every session of this thread on ``device``
+    runs its graphs' first eager step and their captures. cuBLAS keeps a
+    workspace (32 MiB on an H100) for each pair of handle and stream that
+    it meets, for the life of the process: a stream of its own for each
+    session would leave two of them behind a session (this thread's
+    handle and the autograd thread's), each pinning the memory segment it
+    lies in."""
+    key = (threading.get_ident(), str(device))
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[key]
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -322,7 +341,7 @@ class FusedOnlineSession:
         self.graph_launches: Dict[Tuple, Dict[str, int]] = {}
         self._disp_out: Optional[torch.Tensor] = None  # [N, ...]: the streams' disparities
         if on_cuda:
-            self._side_stream = torch.cuda.Stream(self.device)
+            self._side_stream = _side_stream(self.device)
             self._pool = torch.cuda.graph_pool_handle() if self.use_graphs else None
         self._frame_bufs: Dict[str, torch.Tensor] = {}
         self._stage: List[Dict[str, torch.Tensor]] = [{}, {}]
@@ -693,8 +712,9 @@ class FusedOnlineSession:
         the session computes them), vmapped over the stream axis with
         ``torch.func``: the module runs on views of the stream's arena row
         (``functional_call``), the gradient is taken with respect to the
-        whole row (``grad_and_value``), and every kernel Function folds the
-        streams into its batch axis and launches once. ``k`` is the
+        views (``grad_and_value``) and raveled into the row's layout
+        (:meth:`..arena.ArenaSpec.ravel`), and every kernel Function folds
+        the streams into its batch axis and launches once. ``k`` is the
         stream's sampled block (shared-forward MAD); ``flat`` is not
         updated here."""
         fn = self._vmapped.get(kind)
@@ -702,15 +722,15 @@ class FusedOnlineSession:
             return fn
         eng, model, n, spec = self.engine, self.engine.model, self.n_actions, self.spec
 
-        def forward(flat, frame):
-            return torch.func.functional_call(model, spec.views(flat), (frame["left"], frame["right"]))
+        def forward(params, frame):
+            return torch.func.functional_call(model, params, (frame["left"], frame["right"]))
 
         def tail(loss, disp, frame):
             row = (self._metrics_row(disp, frame, loss),) if self.compute_metrics else ()
             return (loss, disp if self.disp_dtype is None else disp.to(self.disp_dtype)) + row
 
         def none(flat, k, frame):
-            out = forward(flat, frame)
+            out = forward(spec.views(flat), frame)
             if self.mode == "NONE" and not self.compute_metrics:
                 loss = torch.zeros((), dtype=torch.float32, device=flat.device)
             else:
@@ -718,28 +738,28 @@ class FusedOnlineSession:
             return tail(loss, out["full_res_disp"], frame)
 
         def full(flat, k, frame):
-            def loss_fn(f):
-                out = forward(f, frame)
+            def loss_fn(p):
+                out = forward(p, frame)
                 return eng._full_loss_fn(out["disparities"], frame), out["full_res_disp"]
 
-            g, (loss, disp) = torch.func.grad_and_value(loss_fn, has_aux=True)(flat)
-            return (g,) + tail(loss, disp, frame)
+            g, (loss, disp) = torch.func.grad_and_value(loss_fn, has_aux=True)(spec.views(flat))
+            return (spec.ravel(g),) + tail(loss, disp, frame)
 
         def shared(flat, k, frame):
             # one forward, the block losses stacked and selected by the
             # stream's block, one backward through everything
             inputs, prep = eng.block_loss_inputs(frame)
 
-            def loss_fn(f):
-                out = forward(f, frame)
+            def loss_fn(p):
+                out = forward(p, frame)
                 stacked = torch.stack([prep(out["disparities"][i]) for i in range(n)], 0)
                 sel = stacked.index_select(0, k.view(1).long())[0]
                 return eng._block_base_loss([sel], inputs), out
 
-            g, (_, out) = torch.func.grad_and_value(loss_fn, has_aux=True)(flat)
+            g, (_, out) = torch.func.grad_and_value(loss_fn, has_aux=True)(spec.views(flat))
             with torch.no_grad():
                 loss = eng._full_loss_fn(out["disparities"], frame)
-            return (g,) + tail(loss, out["full_res_disp"], frame)
+            return (spec.ravel(g),) + tail(loss, out["full_res_disp"], frame)
 
         fn = torch.func.vmap({"none": none, "full": full, "shared": shared}[kind])
         self._vmapped[kind] = fn

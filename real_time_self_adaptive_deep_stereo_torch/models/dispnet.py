@@ -28,7 +28,9 @@ Parameter groups keep the JAX keys (``conv1`` .. ``conv6_1``,
 with ``weight`` and ``bias``; convolution weights are OIHW, transposed
 ones ``[in, out, kh, kw]``. Inside it works in NCHW; at the boundary it
 takes NHWC frames and returns NHWC ([B,H,W,1]) disparities, as the JAX
-model does.
+model does. Under a width-sharded layout (:mod:`..parallel.spatial`)
+every op runs on the rank's columns and every width the forward reads is
+the global one.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from real_time_self_adaptive_deep_stereo_torch.ops import (
     pad_image,
     padded_shape,
     resize_bilinear,
+    shard_context,
 )
 from real_time_self_adaptive_deep_stereo_torch.utils.device import resolve_device
 
@@ -117,6 +120,7 @@ class DispNet(nn.Module):
     :func:`..utils.checkpoint.params_from_jax`)."""
 
     name = "Dispnet"
+    width_sharding = True  # every op of the forward runs on a rank's columns (parallel/spatial.py)
 
     def __init__(
         self,
@@ -165,8 +169,9 @@ class DispNet(nn.Module):
     # --------------------------------------------------------------- forward
     def _make_disp(self, op: torch.Tensor, hp: int, wp: int, h: int, w: int) -> torch.Tensor:
         """relu(pred * width ratio) resized to the padded input, cropped
-        back. The JAX model reads the width at NHWC ``shape[2]``."""
-        scale = wp / op.shape[3]
+        back. The JAX model reads the width at NHWC ``shape[2]``; under
+        width sharding it is the global width."""
+        scale = wp / shard_context.width(op, 3)
         d = resize_bilinear(torch.relu(op * scale), hp, wp)
         return crop_or_pad(d, h, w)
 
@@ -182,7 +187,8 @@ class DispNet(nn.Module):
         """Stage 1: the features that feed the correlation, of NHWC
         ``left``/``right``; the siamese conv1/conv2 run as ONE B=2B stack
         (identical per sample)."""
-        b, h, w = left.shape[0], left.shape[1], left.shape[2]
+        # global under width sharding: the resizes and the crop take it
+        b, h, w = left.shape[0], left.shape[1], shard_context.width(left, 2)
         li = pad_image(_nchw(left.float() / 255.0 - 100.0 / 255.0), 64)
         ri = pad_image(_nchw(right.float() / 255.0 - 100.0 / 255.0), 64)
         feats: Dict = {"orig_hw": (h, w)}

@@ -31,7 +31,9 @@ convolution.
 Under a width-sharded layout (:mod:`..parallel.spatial`) a SAME
 convolution runs on the rank's columns: the pad along W becomes the
 columns of the neighbours that the rank's outputs read (zeros beyond the
-frame), fetched from them, and the convolution is VALID along W.
+frame), fetched from them, and the convolution is VALID along W. A
+transposed convolution fetches the input columns that reach the rank's
+output columns and crops its full output to them.
 """
 
 from __future__ import annotations
@@ -148,12 +150,39 @@ def _same_halo(layout, x: torch.Tensor, k: int, stride: int, rate: int) -> torch
     of its output columns reads: output column j reads the input columns
     ``j*stride - left .. j*stride - left + k_eff - 1`` of the global
     width, ``left`` the SAME split's; a VALID convolution of the result
-    gives the rank's output columns."""
-    w = layout.global_width(x.shape[3])
+    gives the rank's output columns. A convolution takes the padded
+    frame's pyramid, never the frame."""
+    w = layout.global_width(x.shape[3], pyramid=True)
     left, _ = _same_1d(w, k, stride, rate)
     k_eff = (k - 1) * rate + 1
     spans = [(lo * stride - left, (hi - 1) * stride - left + k_eff) for lo, hi in layout.ranges(-(-w // stride))]
     return layout.fetch(x, 3, layout.ranges(w), spans, f"conv k{k_eff} s{stride}")
+
+
+def _transpose_halo(layout, x: torch.Tensor, k: int, stride: int):
+    """The input columns that reach the rank's output columns of a TF SAME
+    transposed convolution of NCHW ``x`` (the rank's columns of global
+    width w; the output's width ``w * stride`` is a level of the layout),
+    and the pad, negative a crop, of the full output of those columns to
+    the rank's output columns. Full output column ``p = i*stride + t``
+    (input i, tap t < k) is output column ``p - (k-1)//2``, so output o
+    reads the inputs ``ceil((o + (k-1)//2 - k + 1) / stride) ..
+    floor((o + (k-1)//2) / stride)``; zeros beyond the frame."""
+    w = layout.global_width(x.shape[3], pyramid=True)
+    before = (k - 1) // 2
+    outs = layout.ranges(w * stride)
+    spans = [(-((k - 1 - before - lo) // stride), (hi - 1 + before) // stride + 1) for lo, hi in outs]
+    xe = layout.fetch(x, 3, layout.ranges(w), spans, f"deconv k{k} s{stride}")
+    (lo, hi), (slo, shi) = outs[layout.rank], spans[layout.rank]
+    return xe, _transpose_crop(lo, hi, slo, k, stride, (shi - slo - 1) * stride + k)
+
+
+def _transpose_crop(lo: int, hi: int, first: int, k: int, stride: int, full: int) -> Tuple[int, int]:
+    """The pad (negative: the crop) that takes the ``full`` columns of a
+    transposed convolution's output, of inputs from column ``first`` on,
+    to the TF SAME output columns ``[lo, hi)``."""
+    start = lo + (k - 1) // 2 - first * stride
+    return -start, hi - lo + start - full
 
 
 def _bias_act(y, bias, dt, activation):
@@ -226,19 +255,18 @@ def conv2d_transpose(
     ``conv_transpose2d``'s ``padding=1``. The crop (or, for a kernel
     narrower than the stride, zero extension) is one pad of the full
     output, and the bias comes after it, as in TF. The precision modes
-    apply as in :func:`conv2d`."""
-    if shard_context.active() is not None:
-        raise NotImplementedError(
-            "a transposed convolution under width sharding (DispNet): ROADMAP.md, queue 1"
-        )
+    apply as in :func:`conv2d`. Under a width-sharded layout it returns
+    the rank's output columns (:func:`_transpose_halo`)."""
     dt = _bf16_epilogue(x)
     if dt is not None:
         x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+    layout = shard_context.active()
+    if layout is not None:
+        x, (left, right) = _transpose_halo(layout, x, weight.shape[3], stride)
     y = F.conv_transpose2d(x, weight, None, stride=stride)
-    pads = []
-    for n, k, full in ((x.shape[3], weight.shape[3], y.shape[3]), (x.shape[2], weight.shape[2], y.shape[2])):
-        before = (k - 1) // 2
-        pads += [-before, n * stride + before - full]
+    if layout is None:
+        left, right = _transpose_crop(0, x.shape[3] * stride, 0, weight.shape[3], stride, y.shape[3])
+    pads = [left, right, *_transpose_crop(0, x.shape[2] * stride, 0, weight.shape[2], stride, y.shape[2])]
     if any(pads):
         y = F.pad(y, pads)
     if dt is not None:

@@ -109,8 +109,9 @@ def resize_to(img: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def crop_or_pad(img: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     """Centred crop and/or zero pad of NCHW ``img`` to (target_h, target_w)
     (``tf.image.resize_image_with_crop_or_pad``). Under a width-sharded
-    layout the crop of the width falls to the edge ranks, each keeping its
-    columns inside the target."""
+    layout ``img`` is of the padded frame's pyramid (the models' crop back
+    to the frame), and the crop of the width falls to the edge ranks, each
+    keeping its columns inside the target."""
     x = img
     h, w = x.shape[2], x.shape[3]
     if h > target_h:
@@ -118,7 +119,7 @@ def crop_or_pad(img: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor
         x = x[:, :, off : off + target_h]
     layout = shard_context.active()
     if layout is not None:
-        gw = layout.global_width(w)
+        gw = layout.global_width(w, pyramid=True)
         if gw < target_w:
             raise NotImplementedError("a zero pad of the width under width sharding")
         off = (gw - target_w) // 2

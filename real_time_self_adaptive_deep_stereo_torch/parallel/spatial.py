@@ -12,13 +12,16 @@ convolution's SAME zero pad). Its backward sends each fetched column's
 gradient back to its owner, which adds it.
 
 **The layout.** Every width-sharded tensor of the step is cut on the grid
-of the coarsest level: MADNet's pyramid halves the (padded) width six
-times, so the width is ``64 * n`` and a rank holds columns
+of the coarsest level: the pyramids of both models, MADNet and
+DispNet-Corr1D, halve the width six times from the frame REFLECT-padded
+to a multiple of 64, so the padded width is ``64 * n`` and a rank holds columns
 ``[a, b)`` of the ``n`` coarse ones (``local_slice``'s cut), that is
 ``[a * 2**(6-l), b * 2**(6-l))`` at level l. A stride-2 SAME convolution
 then maps a rank's piece onto its piece of the next level (TF SAME pads
-``(0, 1)`` at an even width: a right halo of one column), a resize by
-two onto its piece of the other level, and every global width follows
+``(0, 1)`` at an even width: a right halo of one column), a transposed
+convolution of stride 2 onto its piece of the finer level (DispNet's 4x4
+ones read one column on each side), a resize by two onto its piece of
+the other level, and every global width follows
 from the local one, with no collective. The frame's own width ``W0`` (the
 padded width less the centred REFLECT pad) is cut likewise, each rank
 holding its padded piece less the pad; the pad itself falls to the edge
@@ -32,7 +35,8 @@ and :meth:`Layout.leave` moves a result back, with the same primitive.
 port's width-reading ops consult :func:`active` and :func:`width` (both
 of :mod:`..ops.shard_context`, which the ops own) and, where it is set,
 run on the rank's piece: ``ops.conv`` (the halo from k, stride, rate and
-the SAME split), ``ops.correlation`` (a halo of the radius on the right
+the SAME split; for a transposed convolution the input columns that
+reach the rank's outputs), ``ops.correlation`` (a halo of the radius on the right
 features, the result cropped), the warps of ``ops.warp_kernels`` (the
 source fetched whole, as GSPMD all-gathers it, the offset placed at the
 rank's columns of the full width, the result sliced), ``ops.resize``
@@ -61,17 +65,18 @@ from real_time_self_adaptive_deep_stereo_torch.parallel.sharding import local_sl
 
 __all__ = ["COARSE", "Layout", "active", "sharded", "width", "check_model"]
 
-COARSE = 64  # MADNet's coarsest level is 1/64 of the padded width
+COARSE = 64  # the coarsest level of MADNet and of DispNet is 1/64 of the padded width
 Span = Tuple[int, int]
 
 
 def check_model(model) -> None:
     """Raise unless ``model`` runs width-sharded: every op of its forward
-    has a sharded form (``width_sharding``, which MADNet sets)."""
+    has a sharded form (``width_sharding``, which MADNet and DispNet set)."""
     if not getattr(model, "width_sharding", False):
         raise NotImplementedError(
-            f"{getattr(model, 'name', type(model).__name__)} has no width-sharded form "
-            "(transposed convs, the radius-40 correlation): queued in ROADMAP.md, queue 1"
+            f"{getattr(model, 'name', type(model).__name__)} has no width-sharded form: "
+            "a model says that every op of its forward runs on a rank's columns with "
+            "width_sharding = True"
         )
 
 
@@ -104,35 +109,54 @@ class Layout:
         self.backend = dist.get_backend(group)
         self.width = int(width)
         self.padded = -(-self.width // COARSE) * COARSE
-        n = self.padded // COARSE
-        if n < self.world:
-            raise ValueError(
-                f"a width of {self.width} has {n} columns at 1/{COARSE}: too few for {self.world} ranks"
-            )
-        cuts = [local_slice(n, self.world, s) for s in range(self.world)]
         self.offset = (self.padded - self.width) // 2  # the reflect pad before column 0
-        self._ranges: Dict[int, List[Span]] = {}
-        f = COARSE
-        while f >= 1:
-            self._ranges[n * f] = [(c.start * f, c.stop * f) for c in cuts]
-            f //= 2
-        if self.width != self.padded:
-            clip = lambda v: min(max(v - self.offset, 0), self.width)  # noqa: E731
-            self._ranges[self.width] = [(clip(lo), clip(hi)) for lo, hi in self._ranges[self.padded]]
-            first, last = self._ranges[self.width][0], self._ranges[self.width][-1]
-            pad_right = self.padded - self.width - self.offset
-            if first[1] - first[0] <= self.offset or last[1] - last[0] <= pad_right:
-                raise NotImplementedError(
-                    f"an edge rank's piece of width {self.width} is narrower than the reflect pad"
-                )
+        self._ranges = self.cut(self.width, self.world)
         self.even = [
             (c.start, c.stop) for c in (local_slice(self.width, self.world, s) for s in range(self.world))
         ]
-        self._global: Dict[int, Optional[int]] = {}
+        # A rank whose piece of the frame is as wide as its piece of the
+        # padded frame (a middle rank; the first where the pad before the
+        # frame is 0) reads that width as the frame's, which the models,
+        # the losses and the engine read; the ops that hold the padded
+        # frame say so (``global_width(local, pyramid=True)``). No other
+        # two widths share a piece width: a piece of the frame is its
+        # padded piece less at most 32 columns, and wider than half of it.
+        shared: Dict[int, set] = {}
         for w, rs in self._ranges.items():
-            local = rs[self.rank][1] - rs[self.rank][0]
-            self._global[local] = w if local not in self._global else None  # None: ambiguous
+            shared.setdefault(rs[self.rank][1] - rs[self.rank][0], set()).add(w)
+        self._global: Dict[int, Optional[int]] = {}
+        for local, ws in shared.items():
+            one = next(iter(ws)) if len(ws) == 1 else self.width if ws == {self.width, self.padded} else None
+            self._global[local] = one  # None: ambiguous
+        lo, hi = self.range(self.padded)
+        self._padded_local = hi - lo
         self.audit: Counter = Counter()
+
+    @staticmethod
+    def cut(width: int, world: int) -> Dict[int, List[Span]]:
+        """Every rank's ``(lo, hi)`` at the global width of each level and
+        at the frame's own width, for a frame ``width`` wide over ``world``
+        ranks: the ranges of the layout (no process group needed)."""
+        padded = -(-width // COARSE) * COARSE
+        n = padded // COARSE
+        if n < world:
+            raise ValueError(f"a width of {width} has {n} columns at 1/{COARSE}: too few for {world} ranks")
+        cuts = [local_slice(n, world, s) for s in range(world)]
+        if cuts[-1].start == cuts[-1].stop:  # the chunks of ceil(n / world) run out first
+            raise ValueError(f"a width of {width} leaves the last of {world} ranks no column at 1/{COARSE}")
+        ranges: Dict[int, List[Span]] = {}
+        f = COARSE
+        while f >= 1:
+            ranges[n * f] = [(c.start * f, c.stop * f) for c in cuts]
+            f //= 2
+        if width != padded:
+            offset = (padded - width) // 2
+            clip = lambda v: min(max(v - offset, 0), width)  # noqa: E731
+            ranges[width] = [(clip(lo), clip(hi)) for lo, hi in ranges[padded]]
+            first, last = ranges[width][0], ranges[width][-1]
+            if first[1] - first[0] <= offset or last[1] - last[0] <= padded - width - offset:
+                raise NotImplementedError(f"an edge rank's piece of width {width} is narrower than the reflect pad")
+        return ranges
 
     @classmethod
     def for_pieces(cls, group, local_width: int) -> "Layout":
@@ -156,7 +180,12 @@ class Layout:
     def range(self, w: int) -> Span:
         return self.ranges(w)[self.rank]
 
-    def global_width(self, local: int) -> int:
+    def global_width(self, local: int, pyramid: bool = False) -> int:
+        """The global width of a rank's local one; with ``pyramid``, of a
+        tensor of the padded frame's pyramid, never of the frame (the
+        rank's padded piece then reads as the padded width)."""
+        if pyramid and local == self._padded_local:
+            return self.padded
         w = self._global.get(local)
         if w is None:
             raise ValueError(

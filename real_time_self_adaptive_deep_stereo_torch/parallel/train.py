@@ -23,9 +23,9 @@ TF-form Adam step (``utils/optim.py``) on the same numbers, so the weights
 stay equal bit for bit.
 
 ``make_spatial_adapt_step`` shards one frame along its width
-(:mod:`.spatial`): every rank runs MADNet on its columns, fetching the
-halos its convolutions read, and takes the loss as its own term, its sums
-over the global counts. The terms add up to the loss and their gradients
+(:mod:`.spatial`): every rank runs the model (MADNet or DispNet) on its
+columns, fetching the halos its convolutions read, and takes the loss as
+its own term, its sums over the global counts. The terms add up to the loss and their gradients
 to its gradient, so one all-reduce of the loss and the flat gradient
 gives every rank the whole frame's, and the same momentum step. (Each
 rank backpropagates its own term only: an all-reduced loss, backpropagated
@@ -147,7 +147,8 @@ def make_spatial_adapt_step(
     axis: str = "data",
     momentum: float = 0.9,
 ) -> Callable:
-    """``step(frame) -> loss``: one FULL adaptation step of MADNet with the
+    """``step(frame) -> loss``: one FULL adaptation step of ``model``, any
+    model with ``width_sharding`` (MADNet, DispNet), with the
     ``mean_SSIM_l1`` reprojection loss and momentum, the frame sharded
     along its width over the ranks of ``mesh``'s axis ``axis``. ``frame``
     is this rank's piece (NHWC ``left``, ``right`` and, unused, ``target``;

@@ -545,13 +545,25 @@ def test_fused_probability_session_reads_its_blocks_and_counts_them(su):
     np.testing.assert_allclose(runs[0][1], runs[1][1], rtol=1e-5)
 
 
+class NoShardingStub(torch.nn.Module):
+    """A model that does not say it runs on a rank's columns (no
+    ``width_sharding``), as a model with an op of no sharded form would."""
+
+    name = "Stub"
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(1))
+
+
 def test_fused_session_refuses_what_it_cannot_run(su):
     eng = su.engine()
-    # width sharding (a mesh without streams) runs MADNet, with either
-    # loss; DispNet's transposed convs are queued in ROADMAP.md
+    # width sharding (a mesh without streams) runs a model with
+    # width_sharding (MADNet, DispNet), with either loss, and refuses one
+    # without it
     one_rank = SimpleNamespace(get_group=lambda axis: SimpleNamespace(size=lambda: 1, rank=lambda: 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        TorchFused(TorchEngine(torch_net("Dispnet", device="cpu"), device="cpu"), mode="NONE", mesh=one_rank)
+    with pytest.raises(NotImplementedError, match="Stub has no width-sharded form"):
+        TorchFused(TorchEngine(NoShardingStub(), device="cpu"), mode="NONE", mesh=one_rank)
     assert TorchFused(su.engine(adaptation="proxy"), mesh=one_rank)._sharded
     # without streams stream_impl is kept and unused, as in the JAX session
     assert TorchFused(eng, mode="NONE", stream_impl="vmap").stream_impl == "vmap"
@@ -574,3 +586,27 @@ def test_fused_session_refuses_what_it_cannot_run(su):
     # the ring's last row takes the frames beyond max_steps
     stats = _run(sess, _frames(43, 3))
     assert stats["steps"] == 3 and stats["loss"].shape == (2,)
+
+
+def test_sessions_of_a_thread_share_one_side_stream(monkeypatch):
+    """Every session of a thread on a device captures on one side stream
+    (cuBLAS keeps a workspace for each stream it meets, for the life of the
+    process); another thread or device gets a stream of its own. The
+    stream is a stand-in: this checks the choice, not CUDA."""
+    import threading
+
+    from real_time_self_adaptive_deep_stereo_torch.adapt import fused as tfused
+
+    made = []
+    monkeypatch.setattr(tfused, "_SIDE_STREAMS", {})
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: made.append(device) or object())
+    cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    first = tfused._side_stream(cuda0)
+    assert tfused._side_stream(cuda0) is first
+    assert tfused._side_stream(cuda1) is not first
+    other = []
+    t = threading.Thread(target=lambda: other.append(tfused._side_stream(cuda0)))
+    t.start()
+    t.join()
+    assert other[0] is not first and tfused._side_stream(cuda0) is first
+    assert made == [cuda0, cuda1, cuda0]

@@ -68,16 +68,16 @@ MOVED = 1e-3  # weights compared where |g| exceeds this share of the largest
 ZERO_SHARE = (0.05, 0.1, 0.5, 0.7)  # of each sample's target: the halves' counts differ
 
 
-def run_ranks(mode, workdir):
+def run_ranks(mode, workdir, join_s=JOIN_S):
     """The ranks of ``mode``, each ``python -m tests.torch_parallel_ranks``;
-    killed after JOIN_S seconds. Returns each rank's standard output."""
+    killed after ``join_s`` seconds. Returns each rank's standard output."""
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
     procs = [
         subprocess.Popen([sys.executable, "-m", "tests.torch_parallel_ranks", mode, str(r), str(WORLD), str(workdir)],
                          cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(WORLD)
     ]
-    deadline = time.monotonic() + JOIN_S
+    deadline = time.monotonic() + join_s
     outs = []
     try:
         for p in procs:

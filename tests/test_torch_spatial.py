@@ -55,6 +55,7 @@ from real_time_self_adaptive_deep_stereo_tpu.parallel import make_spatial_adapt_
 from real_time_self_adaptive_deep_stereo_tpu.parallel import shard_batch as j_shard_batch
 from real_time_self_adaptive_deep_stereo_tpu.parallel import width_sharded as j_width_sharded
 from real_time_self_adaptive_deep_stereo_tpu.utils import optim as j_optim
+from tests.test_torch_fused import NoShardingStub
 from tests.test_torch_parallel import WORLD, run_ranks
 from tests.test_torch_streams import H, W, _frames, _stack
 from tests.torch_parallel_ranks import BLOCK_CONFIG, N_STREAMS, _mad_engine
@@ -138,11 +139,8 @@ def test_spatial_adapt_step_matches_the_jax_step_on_one_device(spatial):
 
 
 def test_spatial_step_refuses_what_it_cannot_run():
-    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
-
-    dispnet = get_stereo_net("Dispnet", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_spatial_adapt_step(dispnet, mesh=None)
+    with pytest.raises(NotImplementedError, match="Stub has no width-sharded form"):
+        make_spatial_adapt_step(NoShardingStub(), mesh=None)
 
 
 def _jax_mesh_session(spatial, adaptation="reprojection", **kw):

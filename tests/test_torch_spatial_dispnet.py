@@ -1,0 +1,442 @@
+"""DispNet-Corr1D under width sharding (``parallel/spatial.py``), on the
+CPU: two ranks of a ``gloo`` group, each a process of its own
+(``tests/torch_parallel_ranks.py``, mode ``dispnet``, which imports the
+port only), against the JAX package on one device and against the port
+in one process; and DispNet's batched streams and fused FULL session in
+one process. DispNet at its published widths, with the JAX weights of
+``tests/test_torch_dispnet.py`` (predictions tamed so that every block
+gets a gradient), on smooth frames made with numpy from seeds.
+
+The sharded frames are 64x150: no multiple of 64, padded to 192, whose
+three columns at 1/64 the ranks cut 2:1, so each holds 32 and 16 columns
+at 1/4, where the correlation's halo of 40 reaches past the neighbour's
+whole piece. The frames arrive in the even cut (75 columns a rank) and
+are moved into the layout.
+
+* ``conv2d_transpose`` alone on the ranks' columns, forward and the
+  gradients of its input, weight and bias, against the op on the whole
+  width, at DispNet's 4x4 stride 2 and at other kernels and strides
+  (kernels narrower than the stride too): the output and the input's
+  gradient within 1e-6 of the largest entry (the pieces run the same
+  products), the weight's and bias's, summed over the ranks, within 1e-5.
+* A width of 191 (pad 0 before the frame, 1 after): rank 0's pieces of
+  the frame and of the padded frame are equally wide; that width reads as
+  the frame's but where an op holds the padded frame's pyramid (the
+  convolutions, the crop back to the frame); the lookups and the forward
+  against one process.
+* ``make_spatial_adapt_step`` against the JAX package's step on one
+  device, and the width-sharded fused MAD session over
+  ``dispnet_full_6.json`` (SEQUENTIAL, 3 frames) against the JAX mesh
+  session on one device, at ``tests/test_torch_spatial.py``'s bounds; MAD,
+  FULL and MAD on proxy labels against the port's session in one process
+  (the ranks bit for bit).
+* The halo audit: every SAME convolution fetched its SAME halo, every
+  transposed convolution the input columns that reach its outputs (found
+  here by enumerating the taps), the correlation 40 columns a side, the
+  SSIM one, the resizes at most one on the right; only the warps gathered
+  the whole width.
+* Two streams over the two ranks (``stream_impl="vmap"``) against one
+  process's vmap session, and that session against two single sessions.
+* The fused FULL session against the JAX fused FULL session, 3 frames at
+  64x128, the counterpart of ``chip_smoke.py`` phase 7's card check.
+* What that lookup rests on, from the layout's cut alone; and the one
+  refusal left to a width-sharded DispNet session, CUDA graphs under NCCL.
+"""
+
+import json
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from real_time_self_adaptive_deep_stereo_torch.adapt import FusedOnlineSession as TorchFused
+from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net as torch_net
+from real_time_self_adaptive_deep_stereo_torch.ops import conv2d_transpose
+from real_time_self_adaptive_deep_stereo_torch.ops.conv import _same_1d
+from real_time_self_adaptive_deep_stereo_torch.parallel.spatial import Layout
+from real_time_self_adaptive_deep_stereo_torch.utils import checkpoint as tck
+from real_time_self_adaptive_deep_stereo_tpu.adapt import AdaptationEngine as JaxEngine
+from real_time_self_adaptive_deep_stereo_tpu.adapt import blocks as jblocks
+from real_time_self_adaptive_deep_stereo_tpu.adapt.fused import FusedOnlineSession as JaxFused
+from real_time_self_adaptive_deep_stereo_tpu.models import get_stereo_net as j_net
+from real_time_self_adaptive_deep_stereo_tpu.parallel import make_mesh as j_make_mesh
+from real_time_self_adaptive_deep_stereo_tpu.parallel import make_spatial_adapt_step as j_make_spatial_adapt_step
+from real_time_self_adaptive_deep_stereo_tpu.parallel import shard_batch as j_shard_batch
+from real_time_self_adaptive_deep_stereo_tpu.parallel import width_sharded as j_width_sharded
+from real_time_self_adaptive_deep_stereo_tpu.utils import optim as j_optim
+from tests.test_torch_dispnet import _jax_params
+from tests.test_torch_parallel import WORLD, run_ranks
+from tests.test_torch_spatial import (
+    DISP_RTOL,
+    MESH_EPE,
+    MESH_LOSS,
+    RERUN,
+    SAME_OPS_RTOL,
+    STEP_LOSS_RTOL,
+    WARPS,
+    WEIGHT_TOL,
+    _copy,
+    _geometry,
+    _proxies,
+)
+from tests.torch_parallel_ranks import DECONV_CASES, DN_BLOCK_CONFIG, DN_STREAMS, _dn_engine
+
+H, W = 64, 150
+WIDE = 191  # 64 * 3 - 1: rank 0's piece of the frame is its piece of the padded frame
+SMALL_W = 128
+LR = 1e-4
+KW = dict(max_steps=8, seed=0, ssim_th=1e9)
+STREAM_RTOL = 2e-5  # tests/test_adapt.py::test_multistream_session_matches_single
+DECONV_RTOL = 1e-6  # of the largest entry: the same products on each piece
+DECONV_SUM_RTOL = 1e-5  # of the largest entry: a weight's gradient summed over the ranks
+MOVE_RTOL = 1e-2  # of the largest move: chip_smoke.py phase 7's fused-against-host bound
+JOIN_S = 300
+# DispNet's forward: 11 SAME convolutions before the decoder, two in each of
+# the five up blocks, and the prediction; two transposed ones a block
+SAME_CONVS, DECONVS = 22, 10
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _frames(seed, n, w=W):
+    """Smooth stereo pairs, right = left shifted by 4 + i px, that
+    disparity as ground truth with the first columns invalid."""
+    r = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:H, 0 : w + 16].astype(np.float32)
+    out = []
+    for i in range(n):
+        d = 4 + i
+        base = np.zeros((H, w + 16, 3), np.float32)
+        for c in range(3):
+            for _ in range(4):
+                fx, fy = r.uniform(0.02, 0.2, 2)
+                px, py = r.uniform(0, 2 * np.pi, 2)
+                base[..., c] += r.uniform(10, 40) * np.sin(2 * np.pi * fx * xs + px) * np.cos(
+                    2 * np.pi * fy * ys + py)
+        base = np.clip(base + 128, 0, 255).astype(np.float32)
+        target = np.full((1, H, w, 1), float(d), np.float32)
+        target[:, :, :d] = 0.0
+        out.append({"left": base[None, :, :w].copy(), "right": base[None, :, d : w + d].copy(), "target": target})
+    return out
+
+
+def _save(path, frames):
+    np.savez(path, **{f"frame{i}/{k}": v for i, f in enumerate(frames) for k, v in f.items()})
+
+
+def _deconv_inputs(seed=7):
+    """For each ``DECONV_CASES`` entry: the input (NCHW, 3 channels, 5
+    rows), weight ``[3, 2, k, k]``, bias and output gradient."""
+    r = np.random.default_rng(seed)
+    out = {}
+    for i, (k, stride, w) in enumerate(DECONV_CASES):
+        out[f"{i}/x"] = r.standard_normal((1, 3, 5, w)).astype(np.float32)
+        out[f"{i}/w"] = r.standard_normal((3, 2, k, k)).astype(np.float32)
+        out[f"{i}/b"] = r.standard_normal(2).astype(np.float32)
+        out[f"{i}/g"] = r.standard_normal((1, 2, 5 * stride, w * stride)).astype(np.float32)
+    return out
+
+
+@pytest.fixture(scope="module")
+def dn(tmp_path_factory):
+    """The ranks' results, with the weights and frames they ran on."""
+    work = tmp_path_factory.mktemp("spatial_dispnet")
+    params = _jax_params(True, 1)
+    state = tck.params_from_jax(params)
+    np.savez(work / "weights.npz", **{k: v.numpy() for k, v in state.items()})
+    frames = _frames(60, 3)
+    proxies = _proxies(frames)
+    _save(work / "frames.npz", [{**f, "proxy": p} for f, p in zip(frames, proxies)])
+    streams = [{k: np.stack([a[k], b[k]]) for k in a} for a, b in zip(_frames(61, 2, SMALL_W), _frames(62, 2, SMALL_W))]
+    _save(work / "streams.npz", streams)
+    deconv = _deconv_inputs()
+    np.savez(work / "deconv.npz", **deconv)
+    wide = _frames(63, 1, WIDE)[0]
+    np.savez(work / "wide.npz", **wide)
+    run_ranks("dispnet", work, join_s=JOIN_S)
+    ranks = []
+    for r in range(WORLD):
+        with np.load(work / f"rank{r}.npz") as f:
+            got = {k: f[k] for k in f.files}
+        got["audit"] = json.loads((work / f"rank{r}.json").read_text())
+        ranks.append(got)
+    return {"ranks": ranks, "params": params, "state": state, "frames": frames, "proxies": proxies,
+            "streams": streams, "deconv": deconv, "wide": wide}
+
+
+def _whole(ranks, key):
+    """The ranks' pieces of the even cut of the width, joined."""
+    return np.concatenate([r[key] for r in ranks], axis=2)
+
+
+@pytest.mark.parametrize("case", range(len(DECONV_CASES)),
+                         ids=[f"k{k}-s{s}-w{w}" for k, s, w in DECONV_CASES])
+def test_transposed_conv_on_a_ranks_columns_matches_the_whole_width(dn, case):
+    d = {k: torch.from_numpy(dn["deconv"][f"{case}/{k}"]) for k in ("x", "w", "b", "g")}
+    x, weight, bias = (d[k].clone().requires_grad_(True) for k in ("x", "w", "b"))
+    y = conv2d_transpose(x, weight, bias, DECONV_CASES[case][1])
+    (y * d["g"]).sum().backward()
+    r0, r1 = dn["ranks"]
+    pre = f"deconv{case}"
+    for name, want in (("y", y.detach()), ("dx", x.grad)):
+        got = np.concatenate([r0[f"{pre}/{name}"], r1[f"{pre}/{name}"]], axis=3)
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=DECONV_RTOL * scale, err_msg=name)
+    for name, want in (("dw", weight.grad), ("db", bias.grad)):
+        got = r0[f"{pre}/{name}"] + r1[f"{pre}/{name}"]
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=DECONV_SUM_RTOL * scale, err_msg=name)
+
+
+def test_ranks_agree_on_a_width_one_of_them_cannot_tell(dn):
+    """At 191 columns rank 0 holds [0, 128) of the frame and of the
+    padded frame: it reads that width as the frame's, and as the padded
+    width where the op holds the pyramid; rank 1's pieces differ. With no
+    collective, the forward matches one process."""
+    r0, r1 = dn["ranks"]
+    assert bool(r0["wide/cannot_tell"]) and not bool(r1["wide/cannot_tell"])
+    for r in (r0, r1):
+        assert r["wide/lookups"].tolist() == [WIDE, 192, 96]
+    assert (int(r0["wide/padded_piece"]), int(r1["wide/padded_piece"])) == (WIDE, 192)
+    net = torch_net("Dispnet", device="cpu")
+    net.load_state_dict(dn["state"])
+    with torch.no_grad():
+        want = net(*(torch.from_numpy(dn["wide"][k]) for k in ("left", "right")))["full_res_disp"].numpy()
+    got = _whole(dn["ranks"], "wide/disp")
+    assert got.shape == want.shape == (1, H, WIDE, 1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=DISP_RTOL * float(np.abs(want).max()))
+
+
+def test_dispnet_spatial_step_matches_the_jax_step_on_one_device(dn):
+    r0, r1 = dn["ranks"]
+    mesh = j_make_mesh(1)
+    params = dn["params"]
+    p1, _, loss1 = j_make_spatial_adapt_step(j_net("Dispnet", corr_mode="jnp"), mesh, lr=LR)(
+        _copy(params), j_optim.momentum_init(params), j_shard_batch(dn["frames"][0], j_width_sharded(mesh)))
+    assert float(r0["step/loss"]) == float(r1["step/loss"])
+    np.testing.assert_allclose(float(r0["step/loss"]), float(loss1), rtol=STEP_LOSS_RTOL)
+    want = tck.params_from_jax(jax.tree_util.tree_map(np.asarray, p1))
+    for name, w in want.items():
+        np.testing.assert_allclose(r0[f"step/w/{name}"], w.numpy(), **WEIGHT_TOL, err_msg=name)
+    for name in ("conv1.weight", "up3.deconv.weight", "prediction.weight"):
+        assert not np.array_equal(r0[f"step/w/{name}"], dn["state"][name].numpy())  # it stepped
+    for key in r0:
+        if key.startswith("step/w/"):
+            np.testing.assert_array_equal(r0[key], r1[key], err_msg=f"the ranks differ in {key}")
+
+
+def _one_process(dn, tag):
+    """The port's session in one process on the whole frames: statistics,
+    arena and disparities."""
+    mode, adaptation, n = {"mesh": ("MAD", "reprojection", 3), "full": ("FULL", "reprojection", 2),
+                           "proxy": ("MAD", "proxy", 3)}[tag]
+    sess = TorchFused(_dn_engine(dn["state"], adaptation), mode=mode, sample_mode="SEQUENTIAL", **KW)
+    disps = []
+    for f, p in list(zip(dn["frames"], dn["proxies"]))[:n]:
+        sess.step({**f, "proxy": p} if adaptation == "proxy" else f)
+        disps.append(sess.last_disp.numpy().copy())
+    return sess, sess.finalize(), disps
+
+
+def _assert_same_as_one_process(dn, tag):
+    r0, r1 = dn["ranks"]
+    for key in ("loss", "epe", "fetch_counter", "flat", "scores", "d1"):
+        np.testing.assert_array_equal(r0[f"{tag}/{key}"], r1[f"{tag}/{key}"], err_msg=f"the ranks differ in {key}")
+    one, ref, disps = _one_process(dn, tag)
+    assert int(r0[f"{tag}/steps"]) == len(disps)
+    for k in ("loss", "epe"):
+        np.testing.assert_allclose(r0[f"{tag}/{k}"], ref[k], rtol=SAME_OPS_RTOL, err_msg=k)
+    np.testing.assert_array_equal(r0[f"{tag}/fetch_counter"], ref["fetch_counter"])
+    np.testing.assert_allclose(r0[f"{tag}/d1"], ref["d1"], atol=101.0 / (H * W))
+    torch.testing.assert_close(torch.from_numpy(r0[f"{tag}/flat"]), one.arena.flat, **RERUN)
+    assert not torch.equal(one.arena.flat, one.arena.flat0)  # it adapted
+    for i, d in enumerate(disps):
+        # each rank's piece of the even cut of the width, as shard_batch cuts it
+        assert r0[f"{tag}/disp{i}"].shape == r1[f"{tag}/disp{i}"].shape == (1, H, W // 2, 1)
+        np.testing.assert_allclose(_whole(dn["ranks"], f"{tag}/disp{i}"), d, rtol=0,
+                                   atol=DISP_RTOL * float(np.abs(d).max()))
+    return one
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_only_the_frame_and_the_padded_frame_can_share_a_piece_width(world):
+    """What the lookup rests on (``Layout.cut``, every width 64..1000 that
+    the ranks can cut): on each rank only its pieces of the frame and of
+    the padded frame can be equally wide, and on the last rank they never
+    are."""
+    for width in range(64 * world - 63, 1001):
+        try:
+            ranges = Layout.cut(width, world)
+        except (ValueError, NotImplementedError):  # too narrow for the ranks, or for the reflect pad
+            continue
+        padded = -(-width // 64) * 64
+        for r in range(world):
+            by_piece = {}
+            for w, rs in ranges.items():
+                by_piece.setdefault(rs[r][1] - rs[r][0], set()).add(w)
+            shared = [ws for ws in by_piece.values() if len(ws) > 1]
+            assert all(ws == {width, padded} for ws in shared), (width, r, shared)
+            assert not shared or r < world - 1, (width, r)
+
+
+def test_cuda_graphs_of_a_width_sharded_session_under_nccl_stay_queued(dn, monkeypatch):
+    """DispNet passes the model check; what a width-sharded session still
+    refuses is CUDA graphs under NCCL (an engine said to be on a card; the
+    refusal comes before any CUDA call)."""
+    engine = _dn_engine(dn["state"])
+    engine.device = torch.device("cuda")
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda group: "nccl")
+    one_rank = SimpleNamespace(get_group=lambda axis: SimpleNamespace(size=lambda: 1, rank=lambda: 0))
+    with pytest.raises(NotImplementedError, match="under NCCL are not ported: ROADMAP.md"):
+        TorchFused(engine, mode="FULL", mesh=one_rank, use_graphs=True)
+
+
+def test_dispnet_mesh_mad_session_matches_jax_on_one_device_and_one_process(dn):
+    r0 = dn["ranks"][0]
+    net = j_net("Dispnet", corr_mode="jnp")
+    blocks = jblocks.make_blocks(jblocks.load_block_config(DN_BLOCK_CONFIG), net.layer_to_path)
+    mesh = j_make_mesh(1)
+    sess = JaxFused(JaxEngine(net, blocks, lr=LR), _copy(dn["params"]), mode="MAD", sample_mode="SEQUENTIAL",
+                    mesh=mesh, **KW)
+    for f in dn["frames"]:
+        sess.step(j_shard_batch(f, j_width_sharded(mesh)))
+    want = sess.finalize()
+    want_params = tck.params_from_jax(jax.tree_util.tree_map(np.asarray, sess.current_params()))
+    np.testing.assert_allclose(r0["mesh/loss"], want["loss"], **MESH_LOSS)
+    np.testing.assert_allclose(r0["mesh/epe"], want["epe"], **MESH_EPE)
+    np.testing.assert_array_equal(r0["mesh/fetch_counter"], np.asarray(want["fetch_counter"]))
+    assert r0["mesh/fetch_counter"].tolist() == [1, 1, 1, 0, 0, 0]
+
+    one = _assert_same_as_one_process(dn, "mesh")
+    for name, shape, off, size in one.spec.entries:
+        if name.startswith(("up5.", "up4.", "up3.")):  # the blocks the three frames trained
+            np.testing.assert_allclose(r0["mesh/flat"][off : off + size].reshape(shape),
+                                       want_params[name].numpy(), **WEIGHT_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("tag", ["full", "proxy"])
+def test_dispnet_mesh_full_and_proxy_sessions_match_one_process(dn, tag):
+    _assert_same_as_one_process(dn, tag)
+    assert int(dn["ranks"][0][f"{tag}/reset_count"]) == 0
+
+
+def _deconv_halo(k, stride):
+    """(left, right): the input columns beyond a rank's own that its
+    outputs of a TF SAME transposed convolution read, by enumerating the
+    taps: full output column i*stride + t (tap t < k) is output column
+    i*stride + t - (k-1)//2. The rank holds inputs [lo, hi) and outputs
+    [lo*stride, hi*stride)."""
+    lo, hi = 10, 13
+    reads = [i for o in range(lo * stride, hi * stride) for i in range(lo - k, hi + k)
+             if 0 <= o + (k - 1) // 2 - i * stride < k]
+    return lo - min(reads), max(reads) + 1 - hi
+
+
+@pytest.mark.parametrize("which", ["step", "mesh_frame", "full_frame"])
+def test_dispnet_fetches_no_more_than_its_halos(dn, which):
+    """Every fetch by its caller (forward; the backward sends the same
+    columns back)."""
+    for rank in dn["ranks"]:
+        tags = {}
+        for tag, w, left, right, whole, n in rank["audit"][which]:
+            kind = tag.split()[0]
+            tags[kind] = tags.get(kind, 0) + n
+            if kind == "conv":
+                k_eff, stride = _geometry(tag)
+                pad_left, _ = _same_1d(w, k_eff, stride, 1)
+                assert (left, right) == (pad_left, k_eff - stride - pad_left), (tag, w, left, right)
+            elif kind == "deconv":
+                k_eff, stride = _geometry(tag)
+                assert (left, right) == _deconv_halo(k_eff, stride) == (1, 1), (tag, w, left, right)
+            elif tag == "correlation":
+                assert (left, right) == (40, 40), (tag, w, left, right)
+            elif tag == "ssim":
+                assert (left, right) == (1, 1) and w == W
+            elif tag == "resize":
+                assert left == 0 and 0 <= right <= 1, (tag, w, left, right)
+            elif tag in WARPS:
+                assert whole, (tag, w)
+            else:
+                assert tag in ("enter", "leave"), tag
+            assert not whole or tag in WARPS, f"{tag} at width {w} gathered the whole width"
+        assert tags["conv"] >= SAME_CONVS and tags["conv"] % SAME_CONVS == 0, tags
+        assert tags["deconv"] == tags["conv"] // SAME_CONVS * DECONVS, tags
+        assert tags["correlation"] == tags["conv"] // SAME_CONVS and tags["warp_image"] >= 1, tags
+
+
+@pytest.fixture(scope="module")
+def vmap_streams(dn):
+    """One process's vmap session of the two streams (seeds 0 and 1)."""
+    sess = TorchFused(_dn_engine(dn["state"]), mode="MAD", sample_mode="PROBABILITY", max_steps=8,
+                      seed=list(range(DN_STREAMS)), ssim_th=1e9, num_streams=DN_STREAMS, stream_impl="vmap")
+    for f in dn["streams"]:
+        sess.step(f)
+    return sess, sess.finalize()
+
+
+def test_dispnet_streams_over_the_mesh_match_one_process(dn, vmap_streams):
+    r0, r1 = dn["ranks"]
+    sess, want = vmap_streams
+    for key in ("loss", "epe", "fetch_counter", "scores", "flat"):
+        np.testing.assert_array_equal(r0[f"streams/{key}"], r1[f"streams/{key}"], err_msg=key)
+    assert r0["streams/loss"].shape == (DN_STREAMS, 2)
+    assert r0["streams/rows"].shape[0] == DN_STREAMS // WORLD
+    for k in ("loss", "epe"):
+        np.testing.assert_allclose(r0[f"streams/{k}"], want[k], rtol=STREAM_RTOL, err_msg=k)
+    np.testing.assert_array_equal(r0["streams/fetch_counter"], want["fetch_counter"])
+    torch.testing.assert_close(torch.from_numpy(r0["streams/flat"]), sess.arena.flat, **RERUN)
+
+
+def test_dispnet_vmap_streams_match_single_sessions(dn, vmap_streams):
+    sess, got = vmap_streams
+    assert sess.shared_forward  # forced by vmap
+    for s in range(DN_STREAMS):
+        single = TorchFused(_dn_engine(dn["state"]), mode="MAD", sample_mode="PROBABILITY", max_steps=8, seed=s,
+                            ssim_th=1e9, shared_forward=True)
+        for f in dn["streams"]:
+            single.step({k: v[s] for k, v in f.items()})
+        want = single.finalize()
+        for k in ("loss", "epe"):
+            np.testing.assert_allclose(got[k][s], want[k], rtol=STREAM_RTOL, err_msg=f"{k} {s}")
+        np.testing.assert_array_equal(got["fetch_counter"][s], want["fetch_counter"])
+        torch.testing.assert_close(sess.arena.flat[s], single.arena.flat, **RERUN)
+    assert not torch.equal(sess.arena.flat[0], sess.arena.flat[1])
+
+
+def test_dispnet_fused_full_matches_jax_fused_full(dn):
+    """3 frames at 64x128: the loss at the mesh bound, every weight at the
+    step's bound, and the session's moves against the JAX session's within
+    MOVE_RTOL of the largest (phase 7's bound on the card): the moves are
+    below WEIGHT_TOL of most weights."""
+    frames = _frames(64, 3, SMALL_W)
+    net = j_net("Dispnet", corr_mode="jnp")
+    blocks = jblocks.make_blocks(jblocks.load_block_config(DN_BLOCK_CONFIG), net.layer_to_path)
+    jsess = JaxFused(JaxEngine(net, blocks, lr=LR), _copy(dn["params"]), mode="FULL", **KW)
+    for f in frames:
+        jsess.step({k: jnp.asarray(v) for k, v in f.items()})
+    want = jsess.finalize()
+    want_params = tck.params_from_jax(jax.tree_util.tree_map(np.asarray, jsess.current_params()))
+    sess = TorchFused(_dn_engine(dn["state"]), mode="FULL", **KW)
+    for f in frames:
+        sess.step(f)
+    got = sess.finalize()
+    assert got["steps"] == 3 and got["fetch_counter"].tolist() == np.asarray(want["fetch_counter"]).tolist()
+    np.testing.assert_allclose(got["loss"], want["loss"], **MESH_LOSS)
+    assert not torch.equal(sess.arena.flat, sess.arena.flat0)  # it adapted
+    moved = err = 0.0
+    for name, p in sess.current_params().items():
+        np.testing.assert_allclose(p.detach().numpy(), want_params[name].numpy(), **WEIGHT_TOL, err_msg=name)
+        w0 = dn["state"][name]
+        want_move = want_params[name] - w0
+        moved = max(moved, float(want_move.abs().max()))
+        err = max(err, float((p.detach() - w0 - want_move).abs().max()))
+    assert moved > 0 and err <= MOVE_RTOL * moved, (err, moved)

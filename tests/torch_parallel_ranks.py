@@ -29,6 +29,20 @@ joins the group through the file ``WORKDIR/pg`` and writes its results to
   seeds 0..N-1) sharded over the ranks on the stream axis of
   ``WORKDIR/streams.npz``: the gathered statistics and weights, and this
   rank's own rows.
+* ``dispnet``: DispNet-Corr1D under width sharding, from the weights in
+  ``WORKDIR/weights.npz`` on this rank's piece of the frames in
+  ``WORKDIR/frames.npz`` (as in ``spatial``): ``conv2d_transpose`` alone
+  on this rank's columns of the inputs in ``WORKDIR/deconv.npz`` for each
+  ``DECONV_CASES`` entry (its output, and the gradients of the product
+  with ``g`` with respect to its input, weight and bias); the lookups and
+  the forward at the width of ``WORKDIR/wide.npz``, where rank 0's pieces
+  of the frame and of the padded frame are equally wide; one ``make_spatial_adapt_step`` step on frame 0;
+  the width-sharded fused MAD session over ``dispnet_full_6.json``,
+  SEQUENTIAL, frames 0-2, and FULL over frames 0-1, with the reprojection
+  loss; MAD over frames 0-2 with the proxy labels; a vmap session of
+  ``DN_STREAMS`` streams (PROBABILITY) over the ranks on the frames of
+  ``WORKDIR/streams.npz``. The fetch audits of the step and of the MAD
+  session's last frame go to ``WORKDIR/rank<RANK>.json``.
 """
 
 import json
@@ -200,14 +214,128 @@ def run_spatial(rank, workdir, out):
     (workdir / f"rank{rank}.json").write_text(json.dumps(audits))
 
 
+DN_BLOCK_CONFIG = "block_config/dispnet_full_6.json"
+DN_STREAMS = 2
+# (k, stride, the input's global width) of the transposed convolutions
+# checked alone: DispNet's 4x4 stride 2, other widths, kernels narrower
+# than the stride, and strides 1 and 4
+DECONV_CASES = [(4, 2, 24), (3, 2, 24), (5, 2, 12), (2, 2, 48), (1, 2, 24), (3, 1, 24), (4, 4, 12), (3, 4, 6)]
+
+
+def _dn_engine(weights, adaptation="reprojection"):
+    from real_time_self_adaptive_deep_stereo_torch.adapt import AdaptationEngine, blocks
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+
+    model = get_stereo_net("Dispnet", device="cpu")
+    model.load_state_dict(weights)
+    return AdaptationEngine(model, blocks.make_blocks(blocks.load_block_config(DN_BLOCK_CONFIG), model),
+                            lr=1e-4, adaptation=adaptation, device="cpu")
+
+
+def _deconv_pieces(layout, workdir, out):
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv2d_transpose
+    from real_time_self_adaptive_deep_stereo_torch.parallel.spatial import sharded
+
+    with np.load(workdir / "deconv.npz") as d:
+        for i, (k, stride, w) in enumerate(DECONV_CASES):
+            lo, hi = layout.range(w)
+            olo, ohi = layout.range(w * stride)
+            x = torch.from_numpy(d[f"{i}/x"][..., lo:hi]).requires_grad_(True)
+            weight = torch.from_numpy(d[f"{i}/w"]).requires_grad_(True)
+            bias = torch.from_numpy(d[f"{i}/b"]).requires_grad_(True)
+            with sharded(layout):
+                y = conv2d_transpose(x, weight, bias, stride)
+            (y * torch.from_numpy(d[f"{i}/g"][..., olo:ohi])).sum().backward()
+            out[f"deconv{i}/y"] = y.detach().numpy()
+            for name, t in (("x", x), ("w", weight), ("b", bias)):
+                out[f"deconv{i}/d{name}"] = t.grad.numpy()
+
+
+def run_dispnet(rank, workdir, out):
+    from real_time_self_adaptive_deep_stereo_torch.adapt import FusedOnlineSession
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.parallel import (
+        batch_sharded,
+        make_mesh,
+        make_spatial_adapt_step,
+        shard_batch,
+        width_sharded,
+    )
+    from real_time_self_adaptive_deep_stereo_torch.parallel.spatial import Layout, sharded
+
+    mesh = make_mesh(device_type="cpu")
+    group = mesh.get_group("data")
+    with np.load(workdir / "weights.npz") as w:
+        weights = {k: torch.from_numpy(w[k]) for k in w.files}
+    with np.load(workdir / "frames.npz") as f:
+        frames = [{k: f[f"frame{i}/{k}"] for k in ("left", "right", "target")} for i in range(3)]
+        proxies = [f[f"frame{i}/proxy"] for i in range(3)]
+    pieces = [shard_batch(f, width_sharded(mesh)) for f in frames]
+    audits = {}
+
+    _deconv_pieces(Layout(group, frames[0]["left"].shape[2]), workdir, out)
+
+    with np.load(workdir / "wide.npz") as f:
+        wide = shard_batch({k: torch.from_numpy(f[k]) for k in f.files}, width_sharded(mesh))
+    layout = Layout.for_pieces(group, wide["left"].shape[2])
+    model = get_stereo_net("Dispnet", device="cpu")
+    model.load_state_dict(weights)
+    piece = lambda w: layout.range(w)[1] - layout.range(w)[0]  # noqa: E731
+    out["wide/cannot_tell"] = np.bool_(piece(layout.width) == piece(layout.padded))
+    out["wide/lookups"] = np.array([layout.global_width(piece(layout.width)),
+                                    layout.global_width(piece(layout.padded), pyramid=True),
+                                    layout.global_width(piece(layout.padded // 2), pyramid=True)])
+    out["wide/padded_piece"] = np.int64(layout.global_width(piece(layout.padded)))  # read as the frame's
+    with torch.no_grad(), sharded(layout):
+        inside = {k: layout.enter(v) for k, v in wide.items()}
+        out["wide/disp"] = layout.leave(model(inside["left"], inside["right"])["full_res_disp"]).numpy()
+
+    model = get_stereo_net("Dispnet", device="cpu", seed=100 + rank)
+    if rank == 0:  # the other rank starts elsewhere: the broadcast must bring it over
+        model.load_state_dict(weights)
+    step = make_spatial_adapt_step(model, mesh, lr=1e-4)
+    out["step/loss"] = np.float32(step(pieces[0]))
+    for name, p in model.named_parameters():
+        out[f"step/w/{name}"] = p.detach().numpy()
+    audits["step"] = _audit(step.layout)
+
+    runs = (("mesh", "MAD", "reprojection", 3), ("full", "FULL", "reprojection", 2), ("proxy", "MAD", "proxy", 3))
+    for tag, mode, adaptation, n in runs:
+        sess = FusedOnlineSession(_dn_engine(weights, adaptation), mode=mode, sample_mode="SEQUENTIAL",
+                                  max_steps=8, seed=0, ssim_th=1e9, mesh=mesh)
+        for i in range(n):
+            if i == n - 1:
+                sess._layout.audit.clear()
+            f = frames[i] if adaptation == "reprojection" else {**frames[i], "proxy": proxies[i]}
+            sess.step(shard_batch(f, width_sharded(mesh)))
+            out[f"{tag}/disp{i}"] = sess.last_disp.numpy().copy()
+        audits[f"{tag}_frame"] = _audit(sess._layout)
+        for k, v in sess.finalize().items():
+            out[f"{tag}/{k}"] = np.asarray(v)
+        out[f"{tag}/flat"] = sess.arena.flat.numpy()
+
+    with np.load(workdir / "streams.npz") as f:
+        streams = [{k: f[f"frame{i}/{k}"] for k in ("left", "right", "target")} for i in range(2)]
+    sess = FusedOnlineSession(_dn_engine(weights), mode="MAD", sample_mode="PROBABILITY", max_steps=8,
+                              seed=list(range(DN_STREAMS)), ssim_th=1e9, num_streams=DN_STREAMS, mesh=mesh)
+    assert sess.stream_impl == "vmap"
+    for f in streams:
+        sess.step(shard_batch(f, batch_sharded(mesh)))
+    out["streams/rows"] = sess.arena.flat.numpy().copy()
+    for k, v in sess.finalize().items():
+        out[f"streams/{k}"] = np.asarray(v)
+    out["streams/flat"] = sess._gather_rows(sess.arena.flat).numpy()
+    (workdir / f"rank{rank}.json").write_text(json.dumps(audits))
+
+
 def main():
     mode, rank, world, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{workdir / 'pg'}", rank=rank, world_size=world)
     try:
-        if mode in ("step", "spatial"):
+        if mode in ("step", "spatial", "dispnet"):
             out = {}
-            (run_step if mode == "step" else run_spatial)(rank, workdir, out)
+            {"step": run_step, "spatial": run_spatial, "dispnet": run_dispnet}[mode](rank, workdir, out)
             np.savez(workdir / f"rank{rank}.npz", **out)
         else:
             result = run_cli(workdir)
