@@ -62,7 +62,9 @@ Phases, each of which raises on failure (nothing is caught):
    [1,128,80,w_r+80] from the layout's cut (``w_r`` the rank's columns at
    1/4: [1,128,80,240] and [1,128,80,224] on two ranks), ``x`` zero on the
    pad columns, held and timed as at DispNet's call, the backward
-   bit-identical in two runs.
+   bit-identical in two runs. The correlation's bf16 instances too: under
+   vmap at MADNet's shapes (one launch a vmapped call), and the wide pair
+   at a rank's shapes, each within the bf16 tolerance of phase 8.
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -138,7 +140,11 @@ Phases, each of which raises on failure (nothing is caught):
    EPE 1e-2 a frame: cuDNN's bf16 weight gradients), fused FULL, and
    DispNet-Corr1D's host MAD over ``dispnet_full_6.json`` (blocks 3-4 run
    ``corr_bwd_wide_bf16``) and fused NONE serving, whose disparities must
-   be bf16, as the reference's are. The TF32 flags must be on for cuDNN
+   be bf16, as the reference's are. In every mode MADNet's fused and host
+   FULL (8 frames, ``mxu``), and under ``bf16_act`` DispNet's fused FULL,
+   each with its EPE over the first two frames within 5% of the same
+   session's at ``highest``, fused against host over those two frames, and
+   timed by CUDA events. The TF32 flags must be on for cuDNN
    under ``default`` only, and off again after the phase.
 9. The native loader first (``runtime/``, built by ``g++`` from
    ``stereo_loader.cc``): whether it built, its decode route and its
@@ -272,7 +278,18 @@ Phases, each of which raises on failure (nothing is caught):
    ``tests/test_parallel.py``'s bounds, the weights at the JAX package's
    tolerance), each frame's launches, the halo audits (the transposed
    convolutions' one column a side, the correlation's 40). Prints ms a step
-   and a frame a rank beside one process.
+   and a frame a rank beside one process. (d) The same paths in the
+   precision modes. On (b)'s ranks, under ``bf16_act``: the data-parallel
+   step (B = 2 a rank), each model's width-sharded step and MAD session
+   over 3 frames; under ``default`` each model's step; each against one
+   process in the mode (loss 1e-3 relative, the gradient a bound of its
+   largest entry) and against it at ``highest`` (under ``bf16_act`` at
+   least half of the gradient's entries closer to the mode's), with their
+   launches (the bf16 correlation under ``bf16_act``) and a bf16 halo
+   through gloo's host staging, bit for bit. Then "vmap" and "unroll" at
+   N = 2 under ``bf16_act`` on (a)'s frames, each stream against a single
+   session in the mode and its first round's EPE against (a)'s at
+   ``highest``.
 
 Prints the card line, the ms/frame of the host and the fused sessions by
 mode and precision, a JSON line of the sixteen kernels, and as the last line
@@ -834,7 +851,8 @@ def dn_rank_corr_shapes(world: int = None):
 def check_rank_wide_kernels(ops, rows):
     """``corr_fwd_wide`` and ``corr_bwd_wide`` at a width-sharded rank's
     shapes (phase 13's DispNet), as :func:`check_wide_kernels` holds them,
-    the rows tagged ``ranks``: ``x`` zero in the pad columns, and the
+    and their bf16 instances (the rank under ``bf16_act``), the rows tagged
+    ``ranks``: ``x`` zero in the pad columns, and the
     output's gradient zero where the call's crop drops the output. The
     bound is the rank's function's: ``x`` and the output at the rank's own
     columns, ``y`` with its halo; the call computes and crops 2 * radius
@@ -846,6 +864,47 @@ def check_rank_wide_kernels(ops, rows):
             t[..., :DN_RADIUS] = 0.0
             t[..., -DN_RADIUS:] = 0.0
         wide_pair(ops, x, y, g, rows, live=shape[3] - 2 * DN_RADIUS, ranks=SP_WORLD)
+        wide_bf16_pair(ops, x, y, g, rows, live=shape[3] - 2 * DN_RADIUS, ranks=SP_WORLD)
+
+
+def wide_bf16_pair(ops, xf, yf, gf, rows, live, **tags):
+    """The wide pair's bf16 instances (a ``bf16_act`` rank's features) on
+    ``xf``, ``yf`` and ``gf`` rounded to bf16, as :func:`check_bf16_kernels`
+    holds them, each timed into ``rows`` (with ``tags``) beside the fp32
+    instance; the bound as :func:`wide_pair`'s, at 2 bytes an element and
+    the bf16 tensor cores' rate."""
+    k = 2 * DN_RADIUS + 1
+    shape = tuple(xf.shape)
+    x, y, g = xf.bfloat16(), yf.bfloat16(), gf.bfloat16()
+    got, want = ops.correlation_cuda(x, y, DN_RADIUS), ops.correlation_torch(x, y, DN_RADIUS)
+    grads = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
+    again = ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)
+    want_grads = ops.correlation_torch_bwd(x, y, g, DN_RADIUS)
+    xa, ya, ga = x.float().abs(), y.float().abs(), g.float().abs()
+    abs_fwd, abs_grads = ops.correlation_torch(xa, ya, DN_RADIUS), ops.correlation_torch_bwd(xa, ya, ga, DN_RADIUS)
+    torch.cuda.synchronize()
+    tol = "one bf16 ulp of each entry, plus 2 (n + 2) 2^-24 of its terms' magnitudes (n terms)"
+    err = bf16_err(got, want, abs_fwd, shape[1], f"corr_fwd_wide_bf16 {shape}")
+    errs = [bf16_err(a, b, t, k, f"corr_bwd_wide_bf16 {shape} {nm}")
+            for a, b, t, nm in zip(grads, want_grads, abs_grads, ("dx", "dy"))]
+    assert_same_bits(grads, again, f"corr_bwd_wide_bf16 {shape}")
+    n, n_y, c = shape[2] * live, shape[2] * shape[3], shape[1]  # x and the output; y
+    rows["corr_fwd_wide_bf16"].append(dict(
+        shape=list(shape), radius=DN_RADIUS, err=err, tol=tol, **tags,
+        ms=time_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+        fp32_ms=time_ms(lambda: ops.correlation_cuda(xf, yf, DN_RADIUS)),
+        plain_ms=time_ms(lambda: ops.correlation_torch(x, y, DN_RADIUS), inner=2),
+        library_ms=None,
+        bound=bound(2.0 * (n * (c + k) + n_y * c), 2.0 * n * c * k, BF16_FLOPS),
+    ))
+    rows["corr_bwd_wide_bf16"].append(dict(
+        shape=list(shape), radius=DN_RADIUS, err=max(errs), tol=tol, **tags,
+        ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, DN_RADIUS)),
+        fp32_ms=time_ms(lambda: ops.correlation_bwd_cuda(xf, yf, gf, DN_RADIUS)),
+        plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, DN_RADIUS), inner=2),
+        library_ms=None,
+        bound=bound(2.0 * (n * (2 * c + k) + n_y * 2 * c), 4.0 * n * c * k, BF16_FLOPS),
+    ))
 
 
 def check_wide_kernels(ops, rows):
@@ -2204,13 +2263,60 @@ def check_bf16_act_against_plain(mad_state, dn_state):
                 raise AssertionError(f"{model_name} bf16_act {what}: the kernels do not follow the plain modes")
 
 
+def check_epe_drift(stats, ref, what, first):
+    """A session's EPE per frame in a mode against highest's on the same
+    frames: the first ``first`` frames (MAD's first round, each block
+    trained once from the same weights; FULL's first update and the frame
+    that sees it) within PREC_EPE_RTOL, the rest printed."""
+    rel = np.abs(stats["epe"] - ref["epe"]) / ref["epe"]
+    log(f"{what} EPE per frame {np.round(stats['epe'], 4).tolist()}; highest "
+        f"{np.round(ref['epe'], 4).tolist()}; largest relative difference over the first {first} frames "
+        f"{float(rel[:first].max()):.4g} (bound {PREC_EPE_RTOL}), over all {len(rel)} frames "
+        f"{float(rel.max()):.4g} (not bounded); loss {np.round(stats['loss'], 6).tolist()}")
+    if not float(rel[:first].max()) <= PREC_EPE_RTOL:
+        raise AssertionError(f"{what}: EPE departs from highest's")
+
+
+def full_in_mode(state, frames, per_frame, mode, tag, ref, launches, frame_ms, model_name="MADNet", host=True):
+    """Fused FULL (and, with ``host``, host FULL) in ``mode`` over
+    ``frames``: launches counted, the EPE against highest's ``ref``
+    (:func:`check_epe_drift`, the first two frames), fused against host
+    over the first two frames at phase 8's bounds (FULL steps every weight
+    each frame, and the random-weight trajectory carries the two sessions'
+    roundings on); ms/frame from CUDA events over the steady frames."""
+    stats, launches[f"{tag}_FUSED_FULL"], frame_ms[f"{tag}_FUSED_FULL"], session = fused_full_in(
+        state, frames, per_frame, f"{mode} {model_name} fused FULL", model_name=model_name)
+    check_epe_drift(stats, ref, f"{mode} {model_name} fused FULL", 2)
+    dev, wall = events_ms(lambda i: session.step(frames[2 + i]), len(frames) - 2)
+    frame_ms[f"{tag}_FUSED_FULL_EVENTS"] = dev
+    log(f"{mode} {model_name} fused FULL: {dev:.3f} ms/frame of device time (CUDA events, {wall:.3f} wall) over "
+        f"{len(frames) - 2} replayed frames")
+    if model_name == "Dispnet" and mode == "bf16_act" and session.last_disp.dtype != torch.bfloat16:
+        raise AssertionError(f"DispNet fused FULL under bf16_act: {session.last_disp.dtype}, want bf16")
+    del session
+    if not host:
+        return stats
+    session = make_session(state, "FULL", warp="mxu", model_name=model_name, ssim_th=1e9)
+    _, _, launches[f"{tag}_HOST_FULL"], frame_ms[f"{tag}_HOST_FULL"] = drive(session, frames, lambda i: per_frame)
+    assert_trajectory(stats, host_stats(session), f"{mode} {model_name} fused FULL against the host session",
+                      frames=2, loss_rtol=PREC_TRAJ_LOSS_RTOL, epe_rtol=PREC_TRAJ_EPE_RTOL)
+    rest = np.abs(np.asarray(stats["loss"], np.float64) - session.stats.loss) / np.asarray(session.stats.loss)
+    dev, wall = events_ms(lambda i: session.step(frames[i]), 3)
+    frame_ms[f"{tag}_HOST_FULL_EVENTS"] = dev
+    log(f"{mode} {model_name} host FULL: the fused loss within {float(rest.max()):.3g} of the host's over all "
+        f"{len(frames)} frames (not bounded); {dev:.3f} ms/frame (CUDA events, {wall:.3f} wall, a sync each step)")
+    del session
+    return stats
+
+
 def run_precision(state, profile_dir):
     """Phase 8: the precision modes on the card. MADNet's fused MAD, host
-    MAD and fused NONE serving in every mode against highest on the same
-    frames and weights, fused against host; under bf16_act also fused FULL,
-    DispNet's host MAD (blocks 3-4 run the wide bf16 backward) and fused
-    NONE serving, and one step of each model with the kernels against the
-    plain modes. Returns (launches by path, ms/frame by path)."""
+    MAD, fused and host FULL and fused NONE serving in every mode against
+    highest on the same frames and weights, fused against host; under
+    bf16_act also DispNet's host MAD (blocks 3-4 run the wide bf16
+    backward), fused FULL against highest's and fused NONE serving, and
+    one step of each model with the kernels against the plain modes.
+    Returns (launches by path, ms/frame by path)."""
     from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
     from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision
     from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import params_from_jax
@@ -2239,6 +2345,15 @@ def run_precision(state, profile_dir):
     ref, _, frame_ms["PREC_HIGHEST_FUSED_MAD"], session = fused_mad("highest")
     n_blocks = len(session.engine.blocks)
     del session
+    # FULL's references at highest, MADNet's and DispNet's, on the same frames
+    full_frames = frames[:N_FRAMES_FULL + 3]
+    dn_full = in_precision(dn_launches("FULL", tiled=True), "highest")
+    ref_full, _, frame_ms["PREC_HIGHEST_FUSED_FULL"], session = fused_full_in(
+        state, full_frames, TILE_FULL, "highest fused FULL")
+    del session
+    ref_dn_full, _, frame_ms["PREC_HIGHEST_DISPNET_FUSED_FULL"], session = fused_full_in(
+        dn_state, full_frames, dn_full, "highest DispNet fused FULL", model_name="Dispnet")
+    del session
     for mode in PRECISIONS:
         tag = f"PREC_{mode.upper()}"
         with conv_precision(mode):
@@ -2252,13 +2367,7 @@ def run_precision(state, profile_dir):
                 raise AssertionError(f"{mode}: drift {d} from highest")
 
             stats, launches[f"{tag}_FUSED_MAD"], frame_ms[f"{tag}_FUSED_MAD"], session = fused_mad(mode)
-            rel = np.abs(stats["epe"] - ref["epe"]) / ref["epe"]
-            log(f"{mode} fused MAD EPE per frame {np.round(stats['epe'], 4).tolist()}; highest "
-                f"{np.round(ref['epe'], 4).tolist()}; largest relative difference over the first round "
-                f"{float(rel[:n_blocks].max()):.4g} (bound {PREC_EPE_RTOL}), over all {len(rel)} frames "
-                f"{float(rel.max()):.4g} (not bounded); loss {np.round(stats['loss'], 6).tolist()}")
-            if not float(rel[:n_blocks].max()) <= PREC_EPE_RTOL:
-                raise AssertionError(f"{mode} fused MAD: EPE departs from highest's")
+            check_epe_drift(stats, ref, f"{mode} fused MAD", n_blocks)
             if profile_dir and mode == "bf16_act":
                 profile_frames(session, frames[:5], Path(profile_dir), "fused_mad_bf16_act")
             del session
@@ -2282,11 +2391,12 @@ def run_precision(state, profile_dir):
                 profile_frames(session, [{k: f[k] for k in ("left", "right")} for f in frames[:5]],
                                Path(profile_dir), "fused_none_bf16_act")
             del session
+
+            full_in_mode(state, full_frames, in_precision(TILE_FULL, mode), mode, tag, ref_full, launches, frame_ms)
             if mode != "bf16_act":
                 continue
-
-            _, launches[f"{tag}_FUSED_FULL"], frame_ms[f"{tag}_FUSED_FULL"], _ = fused_full_in(
-                state, frames[:N_FRAMES_FULL + 3], in_precision(TILE_FULL, mode), "bf16_act fused FULL")
+            full_in_mode(dn_state, full_frames, in_precision(dn_full, mode), mode, f"{tag}_DISPNET", ref_dn_full,
+                         launches, frame_ms, model_name="Dispnet", host=False)
             if profile_dir:
                 session = make_session(state, "FULL", warp="mxu", fused=True, ssim_th=1e9)
                 for f in frames[:2]:
@@ -3707,7 +3817,9 @@ def check_vmap_kernels(rows, n: int):
     backward (its rule of its own): each vmapped call one launch, against
     the plain version stream by stream, timed beside the plain version on
     the folded [n, ...] batch, which is what the rule launches. The warp
-    backward asks for both gradients. Rows carry ``vmap``: n."""
+    backward asks for both gradients. The correlation's bf16 instances
+    (the features of a ``bf16_act`` stream) likewise, within
+    :func:`bf16_tol` of the plain version. Rows carry ``vmap``: n."""
     import importlib
 
     import torch.nn.functional as F
@@ -3735,6 +3847,9 @@ def check_vmap_kernels(rows, n: int):
             bound=bound(*bytes_flops),
         ))
 
+    def stacked_corr(fn, *ts):
+        return [torch.stack(t) for t in zip(*[fn(*(a[s] for a in ts), RADIUS) for s in range(n)])]
+
     fold = lambda t: t.flatten(0, 1)  # noqa: E731
     for i, (c, f) in enumerate(CORR_LEVELS):
         shape = (1, c, H // f, W // f)
@@ -3759,6 +3874,30 @@ def check_vmap_kernels(rows, n: int):
         row("corr_bwd", shape, max(errs), bwd,
             time_ms(lambda: corr.correlation_torch_bwd(fold(x), fold(y), fold(g), RADIUS)),
             (4.0 * m * (4 * c + k), 6.0 * m * c * k))
+
+        # the bf16 instances on the same values rounded to bf16
+        xb, yb, gb = x.bfloat16(), y.bfloat16(), g.bfloat16()
+        xa, ya, ga = (t.float().abs() for t in (xb, yb, gb))  # the terms' magnitudes, for the tolerance
+        fwd_b = lambda: vmap(lambda a, b: corr._CorrelationCUDA.apply(a, b, RADIUS, False))(xb, yb)  # noqa: E731
+        bwd_b = lambda: vmap(  # noqa: E731
+            lambda a, b, d: corr._CorrelationBwdCUDA.apply(a, b, d, RADIUS, False))(xb, yb, gb)
+        got = once("corr_fwd_bf16", fwd_b)
+        want = torch.stack([corr.correlation_torch(xb[s], yb[s], RADIUS) for s in range(n)])
+        abs_fwd = torch.stack([corr.correlation_torch(xa[s], ya[s], RADIUS) for s in range(n)])
+        torch.cuda.synchronize()
+        tol = "one bf16 ulp of each entry, plus 2 (n + 2) 2^-24 of its terms' magnitudes (n terms)"
+        row("corr_fwd_bf16", shape, bf16_err(got, want, abs_fwd, c, f"corr_fwd_bf16 under vmap {shape}"), fwd_b,
+            time_ms(lambda: corr.correlation_torch(fold(xb), fold(yb), RADIUS)),
+            (2.0 * m * (2 * c + k), 2.0 * m * c * k, BF16_FLOPS), tol=tol)
+        got = once("corr_bwd_bf16", bwd_b)
+        want = stacked_corr(corr.correlation_torch_bwd, xb, yb, gb)
+        abs_grads = stacked_corr(corr.correlation_torch_bwd, xa, ya, ga)
+        torch.cuda.synchronize()
+        errs = [bf16_err(a, b, t, k, f"corr_bwd_bf16 under vmap {shape} {nm}")
+                for a, b, t, nm in zip(got, want, abs_grads, "xy")]
+        row("corr_bwd_bf16", shape, max(errs), bwd_b,
+            time_ms(lambda: corr.correlation_torch_bwd(fold(xb), fold(yb), fold(gb), RADIUS)),
+            (2.0 * m * (4 * c + k), 6.0 * m * c * k, BF16_FLOPS), tol=tol)
 
     # the image warp at full resolution (the loss's), the feature warp at
     # K1's last four levels; the default and the tiled kernels
@@ -4053,11 +4192,11 @@ def run_vmap_streams(state, launches, ms):
 
 
 def spatial_rank(rank: int, workdir: Path, device) -> dict:
-    """One rank of phase 13 (b) and (c) (``--dp-rank`` with mode
+    """One rank of phase 13 (b), (c) and (d) (``--dp-rank`` with mode
     ``spatial``): ``make_spatial_adapt_step`` over SP_STEPS frames, the
     width-sharded fused MAD session over SP_FRAMES, with the reprojection
     loss and then with the proxy labels, then SP_STREAMS vmap streams
-    sharded over the ranks."""
+    sharded over the ranks; DispNet's parts; the modes' parts."""
     from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
     from real_time_self_adaptive_deep_stereo_torch.parallel import (
@@ -4141,6 +4280,8 @@ def spatial_rank(rank: int, workdir: Path, device) -> dict:
     log(f"rank {rank}: MADNet's parts done, {memory_line()}")
     out.update(spatial_dispnet_rank(workdir, device, mesh))
     log(f"rank {rank}: DispNet's parts done, {memory_line()}")
+    out.update(modes_rank(workdir, device, mesh))
+    log(f"rank {rank}: the modes' parts done, {memory_line()}")
     return out
 
 
@@ -4304,6 +4445,7 @@ def run_spatial(state, launches, ms, refs, per):
                                           for k, v in f.items()})
         np.savez(work / "dn_state.npz", **{k: v.cpu().numpy() for k, v in dn_state.items()})
         np.savez(work / "dn_frames.npz", **{f"{i}_{k}": v for i, f in enumerate(dn_frames) for k, v in f.items()})
+        np.savez(work / "batch.npz", **modes_batch())
         (work / "config.json").write_text(json.dumps({"mode": "spatial", "backend": "gloo", "device": "cuda:0"}))
         procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", str(r), "--dp-dir",
                                    str(work)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -4461,6 +4603,7 @@ def run_spatial(state, launches, ms, refs, per):
     log(f"SPATIAL_STREAMS: rank 0's graphs {json.loads(str(r0['streams_graphs']))}; launches "
         f"{ {k: v for k, v in launches['SPATIAL_STREAMS'].items() if v} }")
     check_spatial_dispnet(ranks, launches, ms, dn_state, dn_frames)
+    return ranks
 
 
 def with_proxies(frames, seed):
@@ -4588,9 +4731,322 @@ def check_spatial_dispnet(ranks, launches, ms, state, frames):
         del single
 
 
+# ----------------------------------------------- phase 13 (d): the modes
+# the paths of phases 12-13 under bf16_act (and the width-sharded step
+# under default): N = 2 streams, "vmap" and "unroll", over a round of the
+# five blocks and a replayed frame; the ranks' data-parallel step, and each
+# model's width-sharded step on one frame and MAD session over three
+MODE_STREAMS = 2
+N_FRAMES_MODE = 6
+SP_MODE_FRAMES = 3
+# the bounds of one bf16 step (tests/test_torch_precision.py): the loss
+# within 1e-3 relative, a gradient within 1e-2 of its largest entry for
+# MADNet and 3e-2 for DispNet, against one process in the same mode
+MODE_LOSS_RTOL = 1e-3
+MODE_GRAD_RTOL = {"MADNet": 1e-2, "Dispnet": 3e-2}
+# but a width-sharded MADNet step: on the card cuDNN picks its bf16 and TF32
+# algorithms by shape, so a rank's half-width convolutions round apart from
+# the whole frame's, and each rank rounds its part of a weight's and a
+# bias's gradient to bf16 before the ranks' sum. Measured on an H100 under
+# bf16_act: 6.5e-3 and 2.2e-2 of the largest entry on two sets of frames
+# (0.15 and 0.25 from the highest twin); the bound about twice the larger
+SP_MODE_GRAD_RTOL = {"MADNet": 5e-2, "Dispnet": 3e-2}
+
+
+def modes_batch():
+    """The data-parallel step's global batch in (d): phase 12's form."""
+    return dp_batches(1, 720)[0]
+
+
+def modes_rank(workdir: Path, device, mesh) -> dict:
+    """One rank's phase 13 (d), in the processes of (b): under bf16_act the
+    data-parallel step (B = 2 a rank), then for MADNet and DispNet
+    ``make_spatial_adapt_step`` on the first of (b)'s frames and the
+    width-sharded fused MAD session over the first SP_MODE_FRAMES; under
+    default the two steps again; each with its launches; then a halo of
+    a bf16 tensor that both ranks make from one seed, staged through host
+    memory by gloo, against that tensor's columns."""
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision, cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.parallel import (
+        batch_sharded,
+        make_dp_train_step,
+        make_spatial_adapt_step,
+        shard_batch,
+        width_sharded,
+    )
+    from real_time_self_adaptive_deep_stereo_torch.parallel.spatial import Layout
+
+    out = {}
+    states, pieces = {}, {}
+    for name, prefix in (("MADNet", ""), ("Dispnet", "dn_")):
+        with np.load(workdir / f"{prefix}state.npz") as w:
+            states[name] = {k: torch.from_numpy(w[k]) for k in w.files}
+        with np.load(workdir / f"{prefix}frames.npz") as f:
+            pieces[name] = [shard_batch({k: torch.from_numpy(f[f"{i}_{k}"]).to(device)
+                                         for k in ("left", "right", "target")}, width_sharded(mesh))
+                            for i in range(SP_MODE_FRAMES)]
+    with np.load(workdir / "batch.npz") as b:
+        batch = shard_batch({k: torch.from_numpy(b[k]).to(device) for k in b.files}, batch_sharded(mesh))
+
+    def counted(key):
+        out[f"{key}_launches"] = json.dumps({k: v for k, v in cuda_lib.LAUNCHES.items() if v})
+        cuda_lib.reset_launches()
+
+    for mode in ("bf16_act", "default"):
+        with conv_precision(mode):
+            assert_tf32(mode)
+            cuda_lib.reset_launches()
+            if mode == "bf16_act":
+                model = get_stereo_net("MADNet", device=device)
+                model.load_state_dict(states["MADNet"])
+                step = make_dp_train_step(model, mesh, lr=LR)
+                out[f"{mode}_dp_loss"] = np.float32(float(step(batch)))
+                out[f"{mode}_dp_g"] = torch.cat([g.reshape(-1) for g in step.grads]).cpu().numpy()
+                out[f"{mode}_dp_w"] = flat_params(model).cpu().numpy()
+                counted(f"{mode}_dp")
+                del model, step
+            for name in ("MADNet", "Dispnet"):
+                key = f"{mode}_{name}"
+                model = get_stereo_net(name, device=device)
+                model.load_state_dict(states[name])
+                step = make_spatial_adapt_step(model, mesh, lr=LR)
+                out[f"{key}_step_loss"] = np.float32(float(step(pieces[name][0])))
+                out[f"{key}_step_g"] = torch.cat([g.reshape(-1) for g in step.grads]).cpu().numpy()
+                counted(f"{key}_step")
+                del model, step
+                if mode != "bf16_act":
+                    continue
+                session = make_session(states[name], "MAD", fused=True, mesh=mesh, model_name=name, **MAD_KW)
+                t0 = time.perf_counter()
+                for i, piece in enumerate(pieces[name]):
+                    session.step(piece)
+                    out[f"{key}_disp{i}"] = session.last_disp.float().cpu().numpy()
+                out[f"{key}_mesh_ms"] = np.float64((time.perf_counter() - t0) * 1e3 / SP_MODE_FRAMES)
+                out[f"{key}_disp_dtype"] = str(session.last_disp.dtype)
+                for k, v in session.finalize().items():
+                    out[f"{key}_mesh_{k}"] = np.asarray(v)
+                out[f"{key}_mesh_flat"] = session.arena.flat.cpu().numpy()
+                counted(f"{key}_mesh")
+                del session
+
+    whole = seeded((1, 8, 4, W // 4), 990).bfloat16()
+    layout = Layout(mesh.get_group("data"), W // 4)
+    lo, hi = layout.range(W // 4)
+    got = layout.halo(whole[..., lo:hi].clone(), 3, 3, 5, "probe")
+    want = torch.nn.functional.pad(whole, (3, 5))[..., lo : hi + 8]
+    out["probe"] = json.dumps({"dtype": str(got.dtype), "equal": bool(torch.equal(got, want)),
+                               "columns": [lo - 3, hi + 5]})
+    return out
+
+
+def run_streams_in_mode(state, launches, ms, per, refs, mode="bf16_act"):
+    """Phase 13 (d): N = MODE_STREAMS streams in ``mode``, "vmap" and
+    "unroll", shared-forward MAD (vmap) and MAD (unroll), SEQUENTIAL,
+    seeds [0] * N, on (a)'s frames: each frame-batch's launches (the bf16
+    correlation under bf16_act); each stream against a single session in
+    the mode over the same frames (the first round's loss and EPE at phase
+    8's fused-against-host bounds, every frame's sampled block, the
+    weights within 1e-2 of their move), and its first round's EPE against
+    (a)'s single session at highest (:func:`check_epe_drift`)."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision, cuda_lib
+
+    n, n_blocks = MODE_STREAMS, 5
+    frames = stacked(per, n)[:N_FRAMES_MODE]
+    with conv_precision(mode):
+        assert_tf32(mode)
+        for impl, shared in (("vmap", True), ("unroll", False)):
+            tag = f"VMAP_{n}_{impl.upper()}_{mode.upper()}"
+            singles, shared_frame = [], None
+            for s in range(n):
+                single = make_session(state, "MAD", warp="mxu", fused=True, shared_forward=shared, **MAD_KW)
+                cuda_lib.reset_launches()
+                for f in per[s][:N_FRAMES_MODE]:
+                    single.step(f)
+                    shared_frame = shared_frame or {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+                singles.append((single.finalize(), single.arena.flat.clone(), single.arena.flat0))
+                del single
+            session = vmap_session(state, "MAD", n, impl, **{**MAD_KW, "seed": [0] * n})
+            cuda_lib.reset_launches()
+            for i, f in enumerate(frames):
+                # vmap: one shared-forward frame's launches, whatever N; unroll: N frames' of the block
+                want = shared_frame if impl == "vmap" else in_precision(
+                    {k: n * v for k, v in mad_tile_launches(i % n_blocks).items()}, mode)
+                step_counted(session, f, want, f"{tag} frame-batch {i}")
+            launched = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+            stats, flats = session.finalize(), session.arena.flat.clone()
+            dev, wall = events_ms(lambda i: session.step(frames[n_blocks + i]), 1, sync_error=True)
+            launches[tag] = {**dict.fromkeys(cuda_lib.LAUNCHES, 0), **launched}
+            ms[f"{tag}_BATCH_DEVICE"], ms[f"{tag}_BATCH_WALL"] = dev, wall
+            for s in range(n):
+                one = {k: stats[k][s] for k in ("loss", "epe")}
+                ref, flat, flat0 = singles[s]
+                assert_trajectory(one, ref, f"{tag} stream {s} against a single session in {mode}",
+                                  frames=n_blocks, loss_rtol=PREC_TRAJ_LOSS_RTOL, epe_rtol=PREC_TRAJ_EPE_RTOL)
+                if not np.array_equal(np.asarray(stats["fetch_counter"][s]), np.asarray(ref["fetch_counter"])):
+                    raise AssertionError(f"{tag} stream {s}: fetch counters {stats['fetch_counter'][s]}")
+                moved = float((flat - flat0).abs().max())
+                err = float((flats[s] - flat).abs().max())
+                log(f"{tag} stream {s}: weights within {err:.3g} of the single session's, {moved:.3g} moved")
+                if not (moved > 0 and err <= 1e-2 * moved):
+                    raise AssertionError(f"{tag} stream {s}: weights differ from the single session's")
+                check_epe_drift({k: stats[k][s][:n_blocks] for k in ("loss", "epe")}, refs[s][0][0],
+                                f"{tag} stream {s} against highest's single session", n_blocks)
+            log(f"{tag}: {dev:.3f} ms of device time a frame-batch, replayed ({wall:.3f} wall); launches "
+                f"{launched} over {N_FRAMES_MODE} frame-batches")
+            del session
+
+
+def run_modes_ranks(state, launches, ms, ranks):
+    """Phase 13 (d): :func:`modes_rank`'s results on (b)'s two ``gloo``
+    ranks, against one process in the same mode and at highest (the
+    twin): the ranks bit for bit; the data-parallel step against one
+    process over the same halves (the loss within MODE_LOSS_RTOL, the
+    gradient within MODE_GRAD_RTOL of its largest entry), each
+    width-sharded step against one process on the whole frame (the same,
+    the gradient within SP_MODE_GRAD_RTOL), under bf16_act PREC_SHARE of
+    the gradient's entries or more closer to the mode's than to
+    highest's (printed under default); each MAD session against the single-device session in the
+    mode (phase 8's fused-against-host bounds over its frames, every
+    frame's block, DispNet's disparities bf16) and its EPE against
+    highest's; each path's launches (the bf16 correlation under
+    bf16_act, the fp32 one under default, whose TF32 flags each rank
+    asserts); the bf16 halo bit for bit."""
+    from real_time_self_adaptive_deep_stereo_torch.cli.train import MAX_DISP, loss_and_grads
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_reprojection_loss, get_supervised_loss
+    from real_time_self_adaptive_deep_stereo_torch.losses.factory import supervised_invalid
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision, cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import params_from_jax
+
+    states = {"MADNet": state, "Dispnet": params_from_jax(seeded_dispnet_params(1))}
+    # (b)'s first frames, without the proxy labels
+    frames = {"MADNet": smooth_frames(SP_FRAMES, 900)[:SP_MODE_FRAMES],
+              "Dispnet": smooth_frames(SP_DN_FRAMES, 950)[:SP_MODE_FRAMES]}
+    batch = modes_batch()
+    r0, r1 = ranks
+    for key in sorted(k for k in r0 if re.match(r"(bf16_act|default)_", k) and not re.search(r"_disp\d+$|_ms$", k)):
+        if not np.array_equal(r0[key], r1[key]):
+            raise AssertionError(f"MODES: the ranks differ in {key}")
+    for r, rk in enumerate(ranks):
+        probe = json.loads(str(rk["probe"]))
+        log(f"MODES rank {r}: a bf16 halo of columns {probe['columns']} through gloo's host staging: {probe}")
+        if probe["dtype"] != "torch.bfloat16" or not probe["equal"]:
+            raise AssertionError(f"MODES rank {r}: the bf16 halo did not arrive as the neighbour's columns")
+
+    def flat_grads(grads):
+        return torch.cat([g.reshape(-1) for g in grads]).cpu().numpy()
+
+    def counts(nonzero):
+        return {**dict.fromkeys(cuda_lib.LAUNCHES, 0), **nonzero}
+
+    def compare(what, loss, g, want, twin, grad_rtol, names, share_min):
+        """(loss, gradient) against one process in the mode, ``want``, and
+        at highest, ``twin``; ``names`` the parameters' (name, size) in the
+        flat gradient's order; at least ``share_min`` of the entries closer
+        to the mode's gradient than to highest's."""
+        scale = float(np.abs(want[1]).max())
+        loss_err = abs(loss - want[0]) / abs(want[0])
+        g_err = float(np.abs(g - want[1]).max()) / scale
+        worst = int(np.argmax(np.abs(g - want[1])))
+        at = np.cumsum([size for _, size in names])
+        where = names[int(np.searchsorted(at, worst, side="right"))][0]
+        twin_loss, twin_g = abs(loss - twin[0]) / abs(twin[0]), float(np.abs(g - twin[1]).max()) / scale
+        differ = want[1] != twin[1]
+        share = float(np.mean((np.abs(g - want[1]) < np.abs(g - twin[1]))[differ])) if differ.any() else 0.0
+        log(f"{what}: loss {loss!r} against one process's {want[0]!r}: {loss_err:.3g} (bound {MODE_LOSS_RTOL}); "
+            f"gradient within {g_err:.3g} of its largest entry (bound {grad_rtol}; the largest difference in "
+            f"{where}); the highest twin: loss {twin_loss:.3g}, gradient {twin_g:.3g}; closer to the mode's gradient "
+            f"than to highest's at {share:.3f} of the entries where the two differ (bound {share_min})")
+        if not (loss_err <= MODE_LOSS_RTOL and g_err <= grad_rtol and share >= share_min):
+            raise AssertionError(f"{what}: loss {loss_err:.3g}, gradient {g_err:.3g}, share {share:.3f}")
+
+    # the data-parallel step: one process over the ranks' halves, each
+    # half's sum over the batch's valid count
+    model = get_stereo_net("MADNet")
+    model.load_state_dict(state)
+    sum_fn = get_supervised_loss("sum_l1", multiScale=True, max_disp=MAX_DISP)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    count = float((~supervised_invalid(dev["target"], MAX_DISP)).sum())
+    one = {}
+    for mode in ("bf16_act", "highest"):
+        with conv_precision(mode):
+            parts = [loss_and_grads(model, lambda d, b: sum_fn(d, b) / count,
+                                    {k: v[r * 2 : r * 2 + 2] for k, v in dev.items()}) for r in range(DP_WORLD)]
+            one[mode] = (float(sum(p[0] for p in parts)), flat_grads([a + b for a, b in zip(parts[0][1], parts[1][1])]))
+    param_sizes = [(n, p.numel()) for n, p in model.named_parameters()]
+    compare("MODES_DP_STEP bf16_act", float(r0["bf16_act_dp_loss"]), r0["bf16_act_dp_g"], one["bf16_act"],
+            one["highest"], MODE_GRAD_RTOL["MADNet"], param_sizes, PREC_SHARE)
+    want = in_precision(TRAIN_LAUNCHES["MADNet"], "bf16_act")
+    for r, rk in enumerate(ranks):
+        if json.loads(str(rk["bf16_act_dp_launches"])) != want:
+            raise AssertionError(f"MODES_DP_STEP rank {r}: launches {rk['bf16_act_dp_launches']}, want {want}")
+    launches["MODES_DP_STEP_BF16_ACT"] = counts(want)
+    del model
+
+    loss_fn = get_reprojection_loss("mean_SSIM_l1", reduced=True)
+    step_launches = {"MADNet": FULL_CUDA, "Dispnet": {k: 1 for k in ("corr_fwd_wide", "corr_bwd_wide",
+                                                                      "warp_image_fwd", "warp_image_bwd")}}
+    for name in ("MADNet", "Dispnet"):
+        model = get_stereo_net(name)
+        model.load_state_dict(states[name])
+        params = list(model.parameters())
+        f0 = {k: torch.from_numpy(v).cuda() for k, v in frames[name][0].items()}
+        one = {}
+        for mode in ("bf16_act", "default", "highest"):
+            with conv_precision(mode):
+                loss = loss_fn(model(f0["left"], f0["right"])["disparities"], f0)
+                one[mode] = (float(loss), flat_grads(torch.autograd.grad(loss, params)))
+        for mode in ("bf16_act", "default"):
+            key = f"{mode}_{name}"
+            tag = f"MODES_SPATIAL_{name.upper()}_STEP_{mode.upper()}"
+            # under default TF32 moves the gradient by little more than the
+            # ranks' own rounding: the share is printed, the TF32 flags asserted
+            compare(tag, float(r0[f"{key}_step_loss"]), r0[f"{key}_step_g"], one[mode], one["highest"],
+                    SP_MODE_GRAD_RTOL[name], [(n, p.numel()) for n, p in model.named_parameters()],
+                    PREC_SHARE if mode == "bf16_act" else 0.0)
+            want = in_precision(step_launches[name], mode)
+            for r, rk in enumerate(ranks):
+                if json.loads(str(rk[f"{key}_step_launches"])) != want:
+                    raise AssertionError(f"{tag} rank {r}: launches {rk[f'{key}_step_launches']}, want {want}")
+            launches[tag] = counts(want)
+        del model
+
+        # the width-sharded MAD session under bf16_act against the single-device one, and highest's
+        key, tag = f"bf16_act_{name}", f"MODES_SPATIAL_{name.upper()}_MESH_BF16_ACT"
+        stats = {k: r0[f"{key}_mesh_{k}"] for k in ("loss", "epe", "fetch_counter", "scores")}
+        singles = {}
+        for mode in ("bf16_act", "highest"):
+            with conv_precision(mode):
+                single = make_session(states[name], "MAD", fused=True, model_name=name, **MAD_KW)
+                disps = []
+                for f in frames[name]:
+                    single.step(f)
+                    disps.append(single.last_disp.float().cpu().numpy())
+                singles[mode] = (single.finalize(), disps, str(single.last_disp.dtype))
+                del single
+        want, disps, dtype = singles["bf16_act"]
+        assert_trajectory(stats, want, f"{tag} against the single-device session in the mode",
+                          loss_rtol=PREC_TRAJ_LOSS_RTOL, epe_rtol=PREC_TRAJ_EPE_RTOL)
+        assert_controller(stats, want, f"{tag} against the single-device session in the mode",
+                          score_atol=PREC_SCORE_ATOL)
+        check_epe_drift(stats, singles["highest"][0], f"{tag} against highest's single-device session",
+                        SP_MODE_FRAMES)
+        worst = max(float(np.abs(np.concatenate([r0[f"{key}_disp{i}"], r1[f"{key}_disp{i}"]], axis=2) - d).max())
+                    / float(np.abs(d).max()) for i, d in enumerate(disps))
+        log(f"{tag}: disparity pieces within {worst:.3g} of the largest of the single session's; dtype "
+            f"{r0[f'{key}_disp_dtype']} (single {dtype}); {float(r0[f'{key}_mesh_ms']):.3f} ms a frame on rank 0 "
+            f"(wall, eager)")
+        if str(r0[f"{key}_disp_dtype"]) != dtype or (name == "Dispnet") != (dtype == "torch.bfloat16"):
+            raise AssertionError(f"{tag}: disparities {r0[f'{key}_disp_dtype']}, the single session's {dtype}")
+        launches[tag] = counts(json.loads(str(r0[f"{key}_mesh_launches"])))
+        ms[f"{tag}_RANK_FRAME"] = float(r0[f"{key}_mesh_ms"])
+
+
 def run_phase13(state, profile_dir):
     """Phase 13: batched streams, the width-sharded step and session, and
-    streams over a mesh. Returns (launches by path, ms by path)."""
+    streams over a mesh; then (d) the paths of phases 12-13 in the
+    precision modes. Returns (launches by path, ms by path)."""
     del profile_dir
     t0 = time.perf_counter()
     launches, ms = {}, {}
@@ -4598,7 +5054,11 @@ def run_phase13(state, profile_dir):
     torch.backends.cudnn.deterministic = True
     try:
         refs, per = run_vmap_streams(state, launches, ms)
-        run_spatial(state, launches, ms, refs, per)
+        ranks = run_spatial(state, launches, ms, refs, per)
+        t1 = time.perf_counter()
+        run_modes_ranks(state, launches, ms, ranks)
+        run_streams_in_mode(state, launches, ms, per, refs)
+        log(f"phase 13 (d), the modes, checked in {time.perf_counter() - t1:.1f} s after the ranks")
     finally:
         torch.backends.cudnn.deterministic = deterministic
     log(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
@@ -4633,32 +5093,30 @@ _GROUPS = (  # first match wins
 
 
 def summarise_trace(trace: Path, tag: str, n_frames: int):
-    """Device time a frame by kind of kernel, and the host's side, from the
-    Chrome trace that torch.profiler wrote."""
-    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    """Device time a frame by kind of kernel (``utils.profiling.summarize_trace``'s
+    op families, grouped), and the host's side, from the Chrome trace that
+    torch.profiler wrote."""
+    from real_time_self_adaptive_deep_stereo_torch.utils.profiling import summarize_trace
+
     groups, ours = {}, {}
-    for e in events:
-        if e.get("cat") in ("gpu_memcpy", "gpu_memset"):
+    for family, n, ms in summarize_trace(str(trace), top=None):
+        if family.startswith(("Memcpy", "Memset")):
             name = "memcpy and memset (the frame's upload from pageable memory)"
-        elif e.get("cat") == "kernel":
-            name = next(g for g, pat in _GROUPS if re.search(pat, e["name"]))
-            if name == _GROUPS[0][0]:  # the port's kernels, by kernel and instance
-                m = re.search(r"(\w+_kernel)(<[^(]*>)?", e["name"])
-                kernel = m.group(0) if m else e["name"]
-                n, dur = ours.get(kernel, (0, 0.0))
-                ours[kernel] = (n + 1, dur + e["dur"])
         else:
-            continue
-        n, dur = groups.get(name, (0, 0.0))
-        groups[name] = (n + 1, dur + e["dur"])
-    total = sum(dur for _, dur in groups.values())
-    log(f"profile {tag}: device time {total / 1e3 / n_frames:.3f} ms/frame in "
+            name = next(g for g, pat in _GROUPS if re.search(pat, family))
+            if name == _GROUPS[0][0]:  # the port's kernels, by kernel and instance
+                ours[family] = (n, ms)
+        count, total_ms = groups.get(name, (0, 0.0))
+        groups[name] = (count + n, total_ms + ms)
+    total = sum(ms for _, ms in groups.values())
+    log(f"profile {tag}: device time {total / n_frames:.3f} ms/frame in "
         f"{sum(n for n, _ in groups.values()) / n_frames:.0f} launches/frame")
-    for name, (n, dur) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
-        log(f"profile {tag}: {dur / 1e3 / n_frames:8.3f} ms/frame {100 * dur / total:5.1f}% "
+    for name, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        log(f"profile {tag}: {ms / n_frames:8.3f} ms/frame {100 * ms / total:5.1f}% "
             f"{n / n_frames:7.1f} launches/frame  {name}")
-    for name, (n, dur) in sorted(ours.items(), key=lambda kv: -kv[1][1]):
-        log(f"profile {tag}:   {dur / 1e3 / n_frames:8.4f} ms/frame {n / n_frames:5.1f} launches/frame  {name}")
+    for name, (n, ms) in sorted(ours.items(), key=lambda kv: -kv[1][1]):
+        log(f"profile {tag}:   {ms / n_frames:8.4f} ms/frame {n / n_frames:5.1f} launches/frame  {name}")
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
     cpu = [e for e in events if e.get("cat") == "cpu_op"]
     span = max(e["ts"] + e["dur"] for e in cpu) - min(e["ts"] for e in cpu)
     by_thread = {}

@@ -183,6 +183,39 @@ def test_leaky_relu_rounds_its_slope_to_bf16_as_jax():
             np.testing.assert_array_equal(got, want)
 
 
+def test_bf16_bias_gradient_sums_in_fp32():
+    """Under bf16_act the bias is added in bf16, and its gradient sums the
+    bf16 output gradient over every pixel. The port sums in fp32 and rounds
+    once; the JAX package (XLA on the CPU) sums in bf16, which loses the
+    small terms of a long sum: on 64x192 terms of +-1/n, 60% positive, it
+    reads 0.1797 where the sum is 0.2025 (11% off), the port 0.2031 (the
+    sum of the bf16 terms, rounded to bf16). This is why DispNet's last bias moves apart from
+    the JAX package's under bf16_act (``tests/test_torch_spatial_dispnet.py``;
+    ``ROADMAP.md`` section 3)."""
+    r = np.random.default_rng(0)
+    n = 64 * 192
+    cot = (np.where(r.random((1, 64, 192, 1)) < 0.6, 1.0, -1.0) / n).astype(np.float32)
+    x = r.standard_normal((1, 64, 192, 32)).astype(np.float32)
+    w = (0.05 * r.standard_normal((3, 3, 32, 1))).astype(np.float32)
+    exact = float(cot.sum(dtype=np.float64))
+
+    def jax_loss(b):
+        y = jconv.conv2d({"w": w, "b": b}, jnp.asarray(x), activation=lambda v: v)
+        return jnp.sum(y.astype(jnp.float32) * cot)
+
+    with _jax_precision("bf16_act"):
+        want = float(jax.grad(jax_loss)(jnp.zeros(1, jnp.float32))[0])
+    with tops.conv_precision("bf16_act"):
+        b = torch.zeros(1, requires_grad=True)
+        y = tops.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(w).permute(3, 2, 0, 1), b, 1,
+                        activation=lambda v: v)
+        assert y.dtype == torch.bfloat16
+        (y.float() * torch.from_numpy(cot).permute(0, 3, 1, 2)).sum().backward()
+    # the sum, in float64, of the output gradient rounded to bf16, rounded to bf16 once
+    assert float(b.grad[0]) == float(_bf16_values(np.float32(_bf16_values(cot).sum(dtype=np.float64))))
+    assert abs(want - exact) > 0.05 * exact  # the JAX package's bf16 sum
+
+
 # ------------------------------------------------------------------ correlation
 CORR_CASES = {2: ((1, 12, 40, 8), 1e-2), 40: ((1, 6, 100, 4), 3e-2)}  # NHWC, gradient tolerance
 

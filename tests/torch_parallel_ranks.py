@@ -1,10 +1,13 @@
 """One rank of a two-process ``gloo`` group on the CPU, for
 ``tests/test_torch_parallel.py``. It imports the port only, never JAX.
 
-    python -m tests.torch_parallel_ranks MODE RANK WORLD WORKDIR
+    python -m tests.torch_parallel_ranks MODE RANK WORLD WORKDIR [PRECISION]
 
 joins the group through the file ``WORKDIR/pg`` and writes its results to
-``WORKDIR/rank<RANK>.*``:
+``WORKDIR/rank<RANK>.*``. ``PRECISION`` is the convolution precision, set
+by each rank before it builds a model, since the mode and the TF32 flags
+belong to the process; given, the ranks run the paths of the precision
+checks alone (below), without it the whole mode at ``highest``.
 
 * ``step``: the sharding helpers on test arrays, then one
   ``make_dp_train_step`` step of MADNet from the weights in
@@ -19,7 +22,7 @@ joins the group through the file ``WORKDIR/pg`` and writes its results to
 * ``spatial``: from the weights in ``WORKDIR/weights.npz`` (rank 0's; the
   other ranks start elsewhere), on this rank's width piece of the frames in
   ``WORKDIR/frames.npz`` (``frame<i>/<key>``): one ``make_spatial_adapt_step``
-  step of MADNet on frame 0 (its loss, its weights, the fetches it made);
+  step of MADNet on frame 0 (its loss, its weights and gradient, the fetches it made);
   then the width-sharded fused MAD session with the bulkhead, SEQUENTIAL,
   over frames 0-2 (its statistics, its arena, the disparity pieces, the
   fetches of its last frame); then ``step_chunk``, which a mesh session
@@ -43,10 +46,22 @@ joins the group through the file ``WORKDIR/pg`` and writes its results to
   ``DN_STREAMS`` streams (PROBABILITY) over the ranks on the frames of
   ``WORKDIR/streams.npz``. The fetch audits of the step and of the MAD
   session's last frame go to ``WORKDIR/rank<RANK>.json``.
+
+With a precision: ``step`` runs the ``mean_l1`` step alone; ``spatial``
+runs the step on frame 0 (its gradient too) and the MAD sessions over
+frames 0-2 with the reprojection loss and with the proxy labels,
+``dispnet`` the FULL session over frames 0-1 (``PRECISION_RUNS``); both
+record every
+exchange of the layout (``exchanges``: each fetch's tag and dtype, and a
+digest of every piece sent and received, in order) and a halo of a bf16
+tensor known to both ranks (``probe/*``), so that the test can hold what
+arrived to what the neighbour sent, bit for bit.
 """
 
+import hashlib
 import json
 import sys
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -83,7 +98,7 @@ def _sharding_report(out):
     return mesh
 
 
-def run_step(rank, workdir, out):
+def run_step(rank, workdir, out, precision=None):
     from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
     from real_time_self_adaptive_deep_stereo_torch.parallel import batch_sharded, make_dp_train_step, shard_batch
     from real_time_self_adaptive_deep_stereo_torch.parallel.train import GLOBAL_FORM
@@ -106,7 +121,7 @@ def run_step(rank, workdir, out):
         out[f"g/{name}"] = g.numpy()
     for name, p in model.named_parameters():
         out[f"w/{name}"] = p.detach().numpy()
-    for loss_name in GLOBAL_FORM:
+    for loss_name in GLOBAL_FORM if precision is None else ():
         if loss_name != "mean_l1":
             _, out[f"{loss_name}/loss"], grads = stepped(loss_name)
             for name, g in grads.items():
@@ -147,7 +162,116 @@ def _audit(layout):
     return [[*key, n] for key, n in sorted(layout.audit.items())]
 
 
-def run_spatial(rank, workdir, out):
+# what a precision run holds to the JAX package, by rank mode: the step on
+# frame 0 or not, and the width-sharded sessions (tag, mode, adaptation, frames)
+PRECISION_RUNS = {
+    "spatial": (True, (("mesh", "MAD", "reprojection", 3), ("proxy", "MAD", "proxy", 3))),
+    "dispnet": (False, (("full", "FULL", "reprojection", 2),)),
+}
+
+
+def _digest(t):
+    return hashlib.sha1(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+@contextmanager
+def _recorded_exchanges(log):
+    """Every fetch of the layout, in order, as ``["fetch", tag, dtype]``,
+    and every exchange as ``["exchange", sent, received]``, each piece
+    ``[peer, dtype, shape, digest]``: the ranks make their exchanges in
+    one order, so the i-th of one rank pairs with the i-th of the other."""
+    from real_time_self_adaptive_deep_stereo_torch.parallel.spatial import Layout
+
+    fetch, exchange = Layout.fetch, Layout._exchange
+
+    def recorded_fetch(self, x, dim, owned, spans, tag):
+        log.append(["fetch", tag, str(x.dtype)])
+        return fetch(self, x, dim, owned, spans, tag)
+
+    def recorded_exchange(self, sends, recvs, like):
+        got = exchange(self, sends, recvs, like)
+        log.append(["exchange"] + [[[s, str(t.dtype), list(t.shape), _digest(t)] for s, t in sorted(pieces.items())]
+                                   for pieces in (sends, got)])
+        return got
+
+    Layout.fetch, Layout._exchange = recorded_fetch, recorded_exchange
+    try:
+        yield log
+    finally:
+        Layout.fetch, Layout._exchange = fetch, exchange
+
+
+def _halo_probe(group, out):
+    """A halo of 3 and 5 columns of a bf16 tensor that both ranks make
+    from one seed, each holding its piece: what arrived, and the whole
+    tensor to hold it to."""
+    from real_time_self_adaptive_deep_stereo_torch.parallel.spatial import Layout
+
+    whole = torch.randn(1, 4, 3, 128, generator=torch.Generator().manual_seed(5)).bfloat16()
+    layout = Layout(group, 128)
+    lo, hi = layout.range(128)
+    out["probe/whole"] = whole.view(torch.int16).numpy()
+    got = layout.halo(whole[..., lo:hi].clone(), 3, 3, 5, "probe")
+    out["probe/dtype"] = np.array(str(got.dtype))
+    out["probe/halo"] = got.view(torch.int16).numpy()
+    out["probe/span"] = np.array([lo - 3, hi + 5])
+
+
+def _session_runs(runs, make_engine, weights, frames, proxies, mesh, out, audits):
+    """The width-sharded fused sessions of ``runs`` (SEQUENTIAL, no
+    reset): statistics, arena and every frame's disparity piece."""
+    from real_time_self_adaptive_deep_stereo_torch.adapt import FusedOnlineSession
+    from real_time_self_adaptive_deep_stereo_torch.parallel import shard_batch, width_sharded
+
+    for tag, mode, adaptation, n in runs:
+        sess = FusedOnlineSession(make_engine(weights, adaptation), mode=mode, sample_mode="SEQUENTIAL",
+                                  max_steps=8, seed=0, ssim_th=1e9, mesh=mesh)
+        for i in range(n):
+            if i == n - 1:
+                sess._layout.audit.clear()
+            f = frames[i] if adaptation == "reprojection" else {**frames[i], "proxy": proxies[i]}
+            sess.step(shard_batch(f, width_sharded(mesh)))
+            out[f"{tag}/disp{i}"] = sess.last_disp.float().numpy().copy()
+            out[f"{tag}/disp_dtype"] = np.array(str(sess.last_disp.dtype))
+        audits[f"{tag}_frame"] = _audit(sess._layout)
+        for k, v in sess.finalize().items():
+            out[f"{tag}/{k}"] = np.asarray(v)
+        out[f"{tag}/flat"] = sess.arena.flat.numpy()
+
+
+def _precision_run(mode, model_name, rank, workdir, out, make_engine):
+    """A precision run of rank mode ``mode``: the step on frame 0 (its
+    loss, weights and gradient) and the sessions of ``PRECISION_RUNS``,
+    every exchange recorded; then the bf16 halo probe."""
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.parallel import make_mesh, make_spatial_adapt_step, shard_batch, width_sharded
+
+    mesh = make_mesh(device_type="cpu")
+    with np.load(workdir / "weights.npz") as w:
+        weights = {k: torch.from_numpy(w[k]) for k in w.files}
+    with np.load(workdir / "frames.npz") as f:
+        frames = [{k: f[f"frame{i}/{k}"] for k in ("left", "right", "target")} for i in range(3)]
+        proxies = [f[f"frame{i}/proxy"] for i in range(3)]
+    audits, log = {}, []
+    with_step, runs = PRECISION_RUNS[mode]
+    with _recorded_exchanges(log):
+        if with_step:
+            model = get_stereo_net(model_name, device="cpu", seed=100 + rank)
+            if rank == 0:
+                model.load_state_dict(weights)
+            step = make_spatial_adapt_step(model, mesh, lr=1e-4)
+            out["step/loss"] = np.float32(step(shard_batch(frames[0], width_sharded(mesh))))
+            for (name, p), g in zip(model.named_parameters(), step.grads):
+                out[f"step/w/{name}"] = p.detach().numpy()
+                out[f"step/g/{name}"] = g.numpy()
+            audits["step"] = _audit(step.layout)
+        _session_runs(runs, make_engine, weights, frames, proxies, mesh, out, audits)
+    audits["exchanges"] = log
+    _halo_probe(mesh.get_group("data"), out)
+    (workdir / f"rank{rank}.json").write_text(json.dumps(audits))
+
+
+def run_spatial(rank, workdir, out, precision=None):
     from real_time_self_adaptive_deep_stereo_torch.adapt import FusedOnlineSession
     from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
     from real_time_self_adaptive_deep_stereo_torch.parallel import (
@@ -158,6 +282,8 @@ def run_spatial(rank, workdir, out):
         width_sharded,
     )
 
+    if precision is not None:
+        return _precision_run("spatial", "MADNet", rank, workdir, out, lambda w, a: _mad_engine(w, True, a))
     mesh = make_mesh(device_type="cpu")
     with np.load(workdir / "weights.npz") as w:
         weights = {k: torch.from_numpy(w[k]) for k in w.files}
@@ -172,8 +298,9 @@ def run_spatial(rank, workdir, out):
         model.load_state_dict(weights)
     step = make_spatial_adapt_step(model, mesh, lr=1e-4)
     out["step/loss"] = np.float32(step(pieces[0]))
-    for name, p in model.named_parameters():
+    for (name, p), g in zip(model.named_parameters(), step.grads):
         out[f"step/w/{name}"] = p.detach().numpy()
+        out[f"step/g/{name}"] = g.numpy()
     audits["step"] = _audit(step.layout)
 
     sess = FusedOnlineSession(_mad_engine(weights, True), mode="MAD", sample_mode="SEQUENTIAL", max_steps=8,
@@ -251,7 +378,7 @@ def _deconv_pieces(layout, workdir, out):
                 out[f"deconv{i}/d{name}"] = t.grad.numpy()
 
 
-def run_dispnet(rank, workdir, out):
+def run_dispnet(rank, workdir, out, precision=None):
     from real_time_self_adaptive_deep_stereo_torch.adapt import FusedOnlineSession
     from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
     from real_time_self_adaptive_deep_stereo_torch.parallel import (
@@ -263,6 +390,8 @@ def run_dispnet(rank, workdir, out):
     )
     from real_time_self_adaptive_deep_stereo_torch.parallel.spatial import Layout, sharded
 
+    if precision is not None:
+        return _precision_run("dispnet", "Dispnet", rank, workdir, out, _dn_engine)
     mesh = make_mesh(device_type="cpu")
     group = mesh.get_group("data")
     with np.load(workdir / "weights.npz") as w:
@@ -329,13 +458,17 @@ def run_dispnet(rank, workdir, out):
 
 
 def main():
+    from real_time_self_adaptive_deep_stereo_torch.ops import set_conv_precision
+
     mode, rank, world, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
+    precision = sys.argv[5] if len(sys.argv) > 5 else None
     torch.set_num_threads(1)
+    set_conv_precision(precision or "highest")  # per process: before any model is built
     dist.init_process_group("gloo", init_method=f"file://{workdir / 'pg'}", rank=rank, world_size=world)
     try:
         if mode in ("step", "spatial", "dispnet"):
             out = {}
-            {"step": run_step, "spatial": run_spatial, "dispnet": run_dispnet}[mode](rank, workdir, out)
+            {"step": run_step, "spatial": run_spatial, "dispnet": run_dispnet}[mode](rank, workdir, out, precision)
             np.savez(workdir / f"rank{rank}.npz", **out)
         else:
             result = run_cli(workdir)
