@@ -2,7 +2,8 @@
 """Build the PyTorch/CUDA port's kernels and drive its main paths on one GPU.
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only | --precision-only
-                           | --cli-only | --train-only | --demo-only | --parallel-only | --spatial-only]
+                           | --cli-only | --train-only | --demo-only | --parallel-only | --spatial-only
+                           | --tools-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -64,7 +65,12 @@ Phases, each of which raises on failure (nothing is caught):
    pad columns, held and timed as at DispNet's call, the backward
    bit-identical in two runs. The correlation's bf16 instances too: under
    vmap at MADNet's shapes (one launch a vmapped call), and the wide pair
-   at a rank's shapes, each within the bf16 tolerance of phase 8.
+   at a rank's shapes, each within the bf16 tolerance of phase 8. Then
+   at the tools' 384x1280 frame (phase 14; rows tagged ``frame``), whose
+   width is a multiple of the tiled warps' 128-column tile, so K6/K7 run
+   unpadded: every batch-1 kernel above at its scale of that frame, the
+   wide pair at [1,128,96,320], and at batch 8 the offline tool's forward
+   kernels (K1 fp32 and bf16, K3, the wide forward fp32 and bf16).
 4. The NONE-mode online session of full-width MADNet at 320x1216, the
    ``cli/adapt.py`` default frame size: seeded weights made with numpy in
    the JAX layout and carried over with ``params_from_jax``, synthetic
@@ -289,7 +295,30 @@ Phases, each of which raises on failure (nothing is caught):
    through gloo's host staging, bit for bit. Then "vmap" and "unroll" at
    N = 2 under ``bf16_act`` on (a)'s frames, each stream against a single
    session in the mode and its first round's EPE against (a)'s at
-   ``highest``.
+   ``highest``. And the drift of the width-sharded MADNet step under
+   ``bf16_act`` taken apart (``drift_parts``): each rank steps again with
+   cuDNN's deterministic algorithms, with and without every weight's and
+   bias's gradient summed in fp32 and never rounded to bf16
+   (``exact_grad_sums``), and one process on the whole frame likewise;
+   (a) the shapes' part, exact against exact, and (b) the rounding's
+   part, the ranks' rounding less one process's; and one process with
+   the algorithms cuDNN times and picks (``cudnn.benchmark``) against its
+   usual ones at the same shapes, each printed.
+14. The repository's tools on the port, through their functions: (a)
+   ``tools/torch_validate_adaptation.py`` at its defaults (pretrain
+   MADNet on scene A, 192x640, 400 steps; adapt on scene B, 60 frames) under
+   ``highest`` and ``bf16_act``: each mode's EPE and D1 over the first and
+   the last fifth printed, MAD and FULL ending below NONE in both; (b)
+   ``tools/torch_probe_latency.py`` at 384x1280, the first run of the main
+   path at that size: the wire, then every serving variant, each
+   disparity handed back the session's own; (c)
+   ``tools/torch_bench_offline.py`` at 384x1280 under ``bf16_act``, MADNet
+   and DispNet-Corr1D at batches 1, 2, 4, 8, each batch's disparities
+   within the mode's tolerance of batch 1's (the median relative
+   difference within 0.05), then a short sweep at ``highest``, where each
+   batch's must lie within 1e-4 of the largest of batch 1's. Each path's
+   launches counted from 0 and held to the kernels it must run (the
+   offline tool's exactly).
 
 Prints the card line, the ms/frame of the host and the fused sessions by
 mode and precision, a JSON line of the sixteen kernels, and as the last line
@@ -300,6 +329,7 @@ with no result, when no CUDA device is available or the port is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -353,6 +383,12 @@ DN_RADIUS = 40
 DN_CORR_SHAPE = (1, 128, H // 4, W // 4)
 WIDE_CHECK_SHAPES = [(1, 128, 5, 19), (1, 128, 12, 150)]
 DN_BLOCK_CONFIG = str(Path(__file__).resolve().parent / "block_config" / "dispnet_full_6.json")
+# phase 14: the frame of the tools (tools/torch_probe_latency.py,
+# tools/torch_bench_offline.py) and of bench.py, whose width is a multiple
+# of the tiled warps' 128-column tile; the offline tool's largest batch
+TOOLS_H, TOOLS_W = 384, 1280
+TOOLS_FRAME = f"{TOOLS_H}x{TOOLS_W}"
+OFFLINE_BATCH = 8
 # phase 9: the CLIs on the real frames of tests/fixtures/realworld (320x1216,
 # the fixture's own size), from MADNet weights trained on scenes 0-1
 ROOT = Path(__file__).resolve().parent
@@ -648,19 +684,37 @@ def assert_same_bits(first, second, what):
 
 def check_kernels(ops):
     """Every kernel at its main-path shapes against its plain version."""
+    rows = {name: [] for name in REPLACES}
+    check_frame_kernels(ops, rows, H, W)
+    check_wide_kernels(ops, rows)
+    check_rank_wide_kernels(ops, rows)
+    check_bf16_kernels(ops, rows)
+    check_tool_kernels(ops, rows)
+    check_batch_kernels(ops, rows)
+    check_batch_kernels(ops, rows, DP_BATCH // DP_WORLD)
+    for n in VMAP_COUNTS:
+        check_vmap_kernels(rows, n)
+    log_kernel_rows(rows)
+    return rows
+
+
+def check_frame_kernels(ops, rows, h, w, **tags):
+    """At batch 1 on an ``h`` x ``w`` frame, against their plain versions
+    and timed into ``rows`` (each row with ``tags``): K1 and its backward
+    at MADNet's five scales, the image warps K2/K4 and K6/K7 on the frame,
+    the feature warps K3/K5 and K6/K7 at K1's last four scales."""
     import torch.nn.functional as F
 
-    rows = {name: [] for name in REPLACES}
     k = 2 * RADIUS + 1
     for i, (c, f) in enumerate(CORR_LEVELS):
-        shape = (1, c, H // f, W // f)
+        shape = (1, c, h // f, w // f)
         n = shape[2] * shape[3]
         x, y = seeded(shape, 10 + i), seeded(shape, 20 + i)
         got, want = ops.correlation_cuda(x, y, RADIUS), ops.correlation_torch(x, y, RADIUS)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **CORR_TOL)
         rows["corr_fwd"].append(dict(
-            shape=list(shape), err=float((got - want).abs().max()), tol=CORR_TOL,
+            shape=list(shape), err=float((got - want).abs().max()), tol=CORR_TOL, **tags,
             ms=time_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
             cold_ms=cold_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
             call_ms=call_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
@@ -680,7 +734,7 @@ def check_kernels(ops):
         errs = [assert_grad_close(a, b, f"corr_bwd {shape} {nm}") for a, b, nm in zip(got, want, ("dx", "dy"))]
         assert_same_bits(got, again, f"corr_bwd {shape}")
         rows["corr_bwd"].append(dict(
-            shape=list(shape), err=max(errs), tol=f"{BWD_RTOL} of the largest entry",
+            shape=list(shape), err=max(errs), tol=f"{BWD_RTOL} of the largest entry", **tags,
             ms=time_ms(lambda: ops.correlation_bwd_cuda(x, y, g, RADIUS)),
             cold_ms=cold_ms(lambda: ops.correlation_bwd_cuda(x, y, g, RADIUS)),
             call_ms=call_ms(lambda: ops.correlation_bwd_cuda(x, y, g, RADIUS)),
@@ -690,32 +744,28 @@ def check_kernels(ops):
             bound=bound(4.0 * n * (4 * c + k), 6.0 * n * c * k),
         ))
 
-    check_wide_kernels(ops, rows)
-    check_rank_wide_kernels(ops, rows)
-    check_bf16_kernels(ops, rows)
-
-    img = seeded((1, 3, H, W), 30)
-    disp = seeded((1, 1, H, W), 31, -20.0, MAX_DISP + 40.0)  # crosses 0 and max_disp
+    img = seeded((1, 3, h, w), 30)
+    disp = seeded((1, 1, h, w), 31, -20.0, MAX_DISP + 40.0)  # crosses 0 and max_disp
     got, want = ops.warp_image_cuda(img, disp, MAX_DISP), ops.warp_image_clamped(img, disp, MAX_DISP)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **WARP_TOL)
     grid = grid_for(disp.clamp(0.0, MAX_DISP), -1.0)
     lib = lambda: F.grid_sample(img, grid, "bilinear", "border", align_corners=True)  # noqa: E731
     rows["warp_image_fwd"].append(dict(
-        shape=list(img.shape), err=float((got - want).abs().max()), tol=WARP_TOL,
+        shape=list(img.shape), err=float((got - want).abs().max()), tol=WARP_TOL, **tags,
         lib_err=float((lib() - want).abs().max()),
         ms=time_ms(lambda: ops.warp_image_cuda(img, disp, MAX_DISP)),
         call_ms=call_ms(lambda: ops.warp_image_cuda(img, disp, MAX_DISP)),
         plain_ms=time_ms(lambda: ops.warp_image_clamped(img, disp, MAX_DISP)),
         library_ms=time_ms(lib),
-        bound=bound(4.0 * H * W * (3 + 1 + 3), 3.0 * 3 * H * W),
+        bound=bound(4.0 * h * w * (3 + 1 + 3), 3.0 * 3 * h * w),
     ))
-    rows["warp_image_bwd"].append(check_warp_bwd(
+    rows["warp_image_bwd"].append(dict(check_warp_bwd(
         "warp_image_bwd", img, disp, 70, grid, "border",
         lambda s, o, g, need=(True, True): ops.warp_image_bwd_cuda(s, o, g, MAX_DISP, *need),
         lambda s, o: ops.warp_image_clamped(s, o, MAX_DISP),
         IMAGE_MODES,
-    ))
+    ), **tags))
 
     # the tiled one-hot image warp: against its plain version (the one-hot
     # product over the padded row) and against warp_image_fwd / warp_image_bwd,
@@ -727,24 +777,24 @@ def check_kernels(ops):
     if not torch.equal(got, ops.warp_image_cuda(img, disp, MAX_DISP)):
         raise AssertionError("warp_tile_image_fwd: differs from warp_image_fwd, a gather of the same taps")
     rows["warp_tile_image_fwd"].append(dict(
-        shape=list(img.shape), err=float((got - want).abs().max()), tol=ONEHOT_TOL,
+        shape=list(img.shape), err=float((got - want).abs().max()), tol=ONEHOT_TOL, **tags,
         lib_err=float((lib() - want).abs().max()),
         ms=time_ms(lambda: ops.warp_image_mxu(img, disp, MAX_DISP)),
         call_ms=call_ms(lambda: ops.warp_image_mxu(img, disp, MAX_DISP)),
         plain_ms=time_ms(lambda: ops.warp_image_onehot(img, disp, MAX_DISP, align=128), inner=2),
         library_ms=time_ms(lib),
-        bound=bound(4.0 * H * W * (3 + 1 + 3), 3.0 * 3 * H * W),
+        bound=bound(4.0 * h * w * (3 + 1 + 3), 3.0 * 3 * h * w),
     ))
-    rows["warp_tile_image_bwd"].append(check_warp_bwd(
+    rows["warp_tile_image_bwd"].append(dict(check_warp_bwd(
         "warp_tile_image_bwd", img, disp, 70, grid, "border",
         lambda s, o, g, need=(True, True): ops.warp_image_mxu_bwd(s, o, g, MAX_DISP, *need),
         lambda s, o: ops.warp_image_onehot(s, o, MAX_DISP, align=128),
         IMAGE_MODES,
         same_as=lambda s, o, g: ops.warp_image_bwd_cuda(s, o, g, MAX_DISP),
-    ))
+    ), **tags))
 
     for i, (c, f) in enumerate(FEAT_LEVELS):
-        shape = (1, c, H // f, W // f)
+        shape = (1, c, h // f, w // f)
         neg = -(-MAX_DISP // f)
         feats = seeded(shape, 40 + i)
         dx = seeded((1, 1, *shape[2:]), 50 + i, -neg - 10.0, MAX_POS + 6.0)  # outside the window
@@ -756,7 +806,7 @@ def check_kernels(ops):
         lib = lambda: F.grid_sample(feats, grid, "bilinear", "zeros", align_corners=True)  # noqa: E731
         n = shape[2] * shape[3]
         rows["warp_features_fwd"].append(dict(
-            shape=list(shape), max_neg=neg, err=float((got - want).abs().max()), tol=WARP_TOL,
+            shape=list(shape), max_neg=neg, err=float((got - want).abs().max()), tol=WARP_TOL, **tags,
             lib_err=float((lib() - want).abs().max()),
             ms=time_ms(lambda: ops.warp_features_cuda(feats, dx, neg, MAX_POS)),
             call_ms=call_ms(lambda: ops.warp_features_cuda(feats, dx, neg, MAX_POS)),
@@ -764,13 +814,13 @@ def check_kernels(ops):
             library_ms=time_ms(lib),
             bound=bound(4.0 * n * (2 * c + 1), 3.0 * c * n),
         ))
-        rows["warp_features_bwd"].append(check_warp_bwd(
+        rows["warp_features_bwd"].append(dict(check_warp_bwd(
             "warp_features_bwd", feats, dx, 80 + i, grid, "zeros",
             lambda s, o, g, need=(True, True), neg=neg: ops.warp_features_bwd_cuda(
                 s, o, g, neg, MAX_POS, *need),
             lambda s, o, neg=neg: ops.warp_features_clamped(s, o, neg, MAX_POS),
             FEATURE_MODES,
-        ))
+        ), **tags))
 
         got = ops.warp_features_mxu(feats, dx, neg, MAX_POS)
         want = ops.warp_features_onehot(feats, dx, neg, MAX_POS, align=128)
@@ -778,7 +828,7 @@ def check_kernels(ops):
         torch.testing.assert_close(got, want, **ONEHOT_TOL)
         torch.testing.assert_close(got, ops.warp_features_cuda(feats, dx, neg, MAX_POS), **WARP_TOL)
         rows["warp_tile_features_fwd"].append(dict(
-            shape=list(shape), max_neg=neg, err=float((got - want).abs().max()), tol=ONEHOT_TOL,
+            shape=list(shape), max_neg=neg, err=float((got - want).abs().max()), tol=ONEHOT_TOL, **tags,
             lib_err=float((lib() - want).abs().max()),
             ms=time_ms(lambda: ops.warp_features_mxu(feats, dx, neg, MAX_POS)),
             call_ms=call_ms(lambda: ops.warp_features_mxu(feats, dx, neg, MAX_POS)),
@@ -786,26 +836,31 @@ def check_kernels(ops):
             library_ms=time_ms(lib),
             bound=bound(4.0 * n * (2 * c + 1), 3.0 * c * n),
         ))
-        rows["warp_tile_features_bwd"].append(check_warp_bwd(
+        rows["warp_tile_features_bwd"].append(dict(check_warp_bwd(
             "warp_tile_features_bwd", feats, dx, 80 + i, grid, "zeros",
             lambda s, o, g, need=(True, True), neg=neg: ops.warp_features_mxu_bwd(
                 s, o, g, neg, MAX_POS, *need),
             lambda s, o, neg=neg: ops.warp_features_onehot(s, o, neg, MAX_POS, align=128),
             FEATURE_MODES,
             same_as=lambda s, o, g, neg=neg: ops.warp_features_bwd_cuda(s, o, g, neg, MAX_POS),
-        ))
+        ), **tags))
 
-    check_batch_kernels(ops, rows)
-    check_batch_kernels(ops, rows, DP_BATCH // DP_WORLD)
-    for n in VMAP_COUNTS:
-        check_vmap_kernels(rows, n)
 
+def log_kernel_rows(rows):
+    """Each row, then each kernel's sums: over the main-path shapes at 320x1216,
+    on a rank, at each batch, under vmap and at the tools' frame."""
     for name, rs in rows.items():
         for r in rs:
-            r["bound_ms"], r["bound_by"] = r.pop("bound")
+            if "bound" in r:
+                r["bound_ms"], r["bound_by"] = r.pop("bound")
             log(f"kernel {name} {r}")
     for name, all_rs in rows.items():  # summed over the main-path shapes
-        rs = [r for r in all_rs if not {"batch", "vmap", "ranks"} & set(r)]
+        rs = main_rows(all_rs)
+        framed = [r for r in all_rs if r.get("frame") == TOOLS_FRAME and "batch" not in r]
+        if framed:
+            log(f"kernel {name} at {TOOLS_FRAME}: {sum(r['ms'] for r in framed):.5f} ms over "
+                f"{len(framed)} shape(s), bound {sum(r['bound_ms'] for r in framed):.5f}, "
+                f"plain {sum(r['plain_ms'] for r in framed):.5f}")
         ranked = [r for r in all_rs if "ranks" in r]
         if ranked:
             log(f"kernel {name} on a rank of {ranked[0]['ranks']}: {sum(r['ms'] for r in ranked):.5f} ms over "
@@ -821,6 +876,8 @@ def check_kernels(ops):
                 log(f"kernel {name} under vmap over {n} streams: {sum(r['ms'] for r in vr):.5f} ms over "
                     f"{len(vr)} shape(s), bound {sum(r['bound_ms'] for r in vr):.5f}, "
                     f"plain {sum(r['plain_ms'] for r in vr):.5f}")
+        if not rs:
+            continue
         ms, lib_ms = sum(r["ms"] for r in rs), [r["library_ms"] for r in rs]
         ratio = "no library call" if None in lib_ms else f"{ms / sum(lib_ms):.3f} of the library's {sum(lib_ms):.5f} ms"
         if rs and "cold_ms" in rs[0]:
@@ -832,7 +889,12 @@ def check_kernels(ops):
                       f"{var['ms'] / var['library_ms']:.3f} of the library's {var['library_ms']:.5f} ms, "
                       f"bound {var['bound_ms']:.5f}")
         log(f"kernel {name}: {ms:.5f} ms over {len(rs)} shape(s), {ratio}")
-    return rows
+
+
+def main_rows(rs):
+    """The rows at batch 1 on the 320x1216 frame, whole (no vmap, no rank):
+    the sums of the kernels line."""
+    return [r for r in rs if not {"batch", "vmap", "ranks", "frame"} & set(r)]
 
 
 def dn_rank_corr_shapes(world: int = None):
@@ -1173,6 +1235,97 @@ def check_batch_kernels(ops, rows, b=EVAL_BATCH):
         plain_ms=time_ms(lambda: ops.correlation_torch_bwd(x, y, g, DN_RADIUS), inner=2),
         library_ms=None,
         bound=bound(4.0 * n * (4 * c + k), 4.0 * n * c * k),
+    ))
+
+
+def check_tool_kernels(ops, rows):
+    """The kernels of phase 14's paths at the tools' 384x1280 frame, each
+    row tagged ``frame``: at batch 1 every kernel of
+    :func:`check_frame_kernels` (K1 and its backward at MADNet's five
+    scales, the image warps on the frame, K6/K7 image on a width with no
+    padding to the tile, the feature warps at K1's last four scales) and
+    DispNet's radius-40 pair at [1,128,96,320]; at batch 8, the offline
+    tool's largest, K1 in fp32 and bf16, K3 and the wide forward in fp32
+    and bf16 at [8,128,96,320], forward only, as the offline tool runs
+    them."""
+    import torch.nn.functional as F
+
+    tags = dict(frame=TOOLS_FRAME)
+    check_frame_kernels(ops, rows, TOOLS_H, TOOLS_W, **tags)
+    shape = (1, 128, TOOLS_H // 4, TOOLS_W // 4)
+    x, y = seeded(shape, 310), seeded(shape, 311)
+    wide_pair(ops, x, y, seeded((1, 2 * DN_RADIUS + 1, *shape[2:]), 312), rows, **tags)
+
+    b, k = OFFLINE_BATCH, 2 * RADIUS + 1
+    tol16 = "one bf16 ulp of each entry, plus 2 (n + 2) 2^-24 of its terms' magnitudes (n terms)"
+    for i, (c, f) in enumerate(CORR_LEVELS):
+        shape = (b, c, TOOLS_H // f, TOOLS_W // f)
+        n = b * shape[2] * shape[3]
+        x, y = seeded(shape, 320 + i), seeded(shape, 330 + i)
+        xb, yb = x.bfloat16(), y.bfloat16()
+        got, want = ops.correlation_cuda(x, y, RADIUS), ops.correlation_torch(x, y, RADIUS)
+        got16, want16 = ops.correlation_cuda(xb, yb, RADIUS), ops.correlation_torch(xb, yb, RADIUS)
+        abs16 = ops.correlation_torch(xb.float().abs(), yb.float().abs(), RADIUS)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **CORR_TOL)
+        rows["corr_fwd"].append(dict(
+            batch=b, shape=list(shape), err=float((got - want).abs().max()), tol=CORR_TOL, **tags,
+            ms=time_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
+            plain_ms=time_ms(lambda: ops.correlation_torch(x, y, RADIUS)),
+            library_ms=None,
+            bound=bound(4.0 * n * (2 * c + k), 2.0 * n * c * k),
+        ))
+        rows["corr_fwd_bf16"].append(dict(
+            batch=b, shape=list(shape), radius=RADIUS, tol=tol16, **tags,
+            err=bf16_err(got16, want16, abs16, c, f"corr_fwd_bf16 {shape}"),
+            ms=time_ms(lambda: ops.correlation_cuda(xb, yb, RADIUS)),
+            fp32_ms=time_ms(lambda: ops.correlation_cuda(x, y, RADIUS)),
+            plain_ms=time_ms(lambda: ops.correlation_torch(xb, yb, RADIUS)),
+            library_ms=None,
+            bound=bound(2.0 * n * (2 * c + k), 2.0 * n * c * k, BF16_FLOPS),
+        ))
+    for i, (c, f) in enumerate(FEAT_LEVELS):
+        shape = (b, c, TOOLS_H // f, TOOLS_W // f)
+        neg = -(-MAX_DISP // f)
+        feats = seeded(shape, 340 + i)
+        dx = seeded((b, 1, *shape[2:]), 350 + i, -neg - 10.0, MAX_POS + 6.0)
+        got = ops.warp_features_cuda(feats, dx, neg, MAX_POS)
+        want = ops.warp_features_clamped(feats, dx, neg, MAX_POS)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **WARP_TOL)
+        grid = grid_for(dx.clamp(-neg, MAX_POS), 1.0)
+        n = b * shape[2] * shape[3]
+        rows["warp_features_fwd"].append(dict(
+            batch=b, shape=list(shape), max_neg=neg, err=float((got - want).abs().max()), tol=WARP_TOL, **tags,
+            ms=time_ms(lambda: ops.warp_features_cuda(feats, dx, neg, MAX_POS)),
+            plain_ms=time_ms(lambda: ops.warp_features_clamped(feats, dx, neg, MAX_POS)),
+            library_ms=time_ms(lambda: F.grid_sample(feats, grid, "bilinear", "zeros", align_corners=True)),
+            bound=bound(4.0 * n * (2 * c + 1), 3.0 * c * n),
+        ))
+    shape, k = (b, 128, TOOLS_H // 4, TOOLS_W // 4), 2 * DN_RADIUS + 1
+    n, c = b * shape[2] * shape[3], shape[1]
+    x, y = seeded(shape, 360), seeded(shape, 361)
+    xb, yb = x.bfloat16(), y.bfloat16()
+    got, want = ops.correlation_cuda(x, y, DN_RADIUS), ops.correlation_torch(x, y, DN_RADIUS)
+    got16, want16 = ops.correlation_cuda(xb, yb, DN_RADIUS), ops.correlation_torch(xb, yb, DN_RADIUS)
+    abs16 = ops.correlation_torch(xb.float().abs(), yb.float().abs(), DN_RADIUS)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **CORR_TOL)
+    rows["corr_fwd_wide"].append(dict(
+        batch=b, shape=list(shape), radius=DN_RADIUS, err=float((got - want).abs().max()), tol=CORR_TOL, **tags,
+        ms=time_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+        plain_ms=time_ms(lambda: ops.correlation_torch(x, y, DN_RADIUS), inner=2),
+        library_ms=None,
+        bound=bound(4.0 * n * (2 * c + k), 2.0 * n * c * k),
+    ))
+    rows["corr_fwd_wide_bf16"].append(dict(
+        batch=b, shape=list(shape), radius=DN_RADIUS, tol=tol16, **tags,
+        err=bf16_err(got16, want16, abs16, c, f"corr_fwd_wide_bf16 {shape}"),
+        ms=time_ms(lambda: ops.correlation_cuda(xb, yb, DN_RADIUS)),
+        fp32_ms=time_ms(lambda: ops.correlation_cuda(x, y, DN_RADIUS)),
+        plain_ms=time_ms(lambda: ops.correlation_torch(xb, yb, DN_RADIUS), inner=2),
+        library_ms=None,
+        bound=bound(2.0 * n * (2 * c + k), 2.0 * n * c * k, BF16_FLOPS),
     ))
 
 
@@ -4744,13 +4897,109 @@ SP_MODE_FRAMES = 3
 # MADNet and 3e-2 for DispNet, against one process in the same mode
 MODE_LOSS_RTOL = 1e-3
 MODE_GRAD_RTOL = {"MADNet": 1e-2, "Dispnet": 3e-2}
-# but a width-sharded MADNet step: on the card cuDNN picks its bf16 and TF32
-# algorithms by shape, so a rank's half-width convolutions round apart from
-# the whole frame's, and each rank rounds its part of a weight's and a
-# bias's gradient to bf16 before the ranks' sum. Measured on an H100 under
-# bf16_act: 6.5e-3 and 2.2e-2 of the largest entry on two sets of frames
-# (0.15 and 0.25 from the highest twin); the bound about twice the larger
+# but a width-sharded MADNet step: a rank's half-width convolutions round
+# apart from the whole frame's, and each rank rounds its part of a weight's
+# and a bias's gradient to bf16 before the ranks' sum. Measured on an H100
+# under bf16_act: 6.5e-3 and 2.2e-2 of the largest entry on two sets of
+# frames (0.15 and 0.25 from the highest twin); the bound about twice the
+# larger. Taken apart (drift_parts): the shapes' part alone 2.2e-2, the
+# rounding's 4.6e-3, deterministic cuDNN on the ranks no change
 SP_MODE_GRAD_RTOL = {"MADNet": 5e-2, "Dispnet": 3e-2}
+
+
+class _ExactWeightGrad(torch.autograd.Function):
+    """A bf16 convolution as ``ops/conv.py`` runs it (bf16 operands, the
+    output rounded to bf16), whose weight gradient is the fp32 sum of the
+    bf16 products, never rounded to bf16; the input gradient cuDNN's, as
+    autograd takes it. Phase 13 (d)'s diagnostic alone."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, rate, groups):
+        wb = weight.to(torch.bfloat16)
+        ctx.save_for_backward(x, wb)
+        ctx.conf = ([stride] * 2, [0, 0], [rate] * 2, False, [0, 0], groups)
+        return torch.nn.functional.conv2d(x, wb, None, stride=stride, dilation=rate, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, wb = ctx.saved_tensors
+        dx = torch.ops.aten.convolution_backward(gy, x, wb, None, *ctx.conf, [True, False, False])[0]
+        dw = torch.ops.aten.convolution_backward(gy.float(), x.float(), wb.float(), None, *ctx.conf,
+                                                 [False, True, False])[1]
+        return dx, dw, None, None, None
+
+
+class _ExactBiasGrad(torch.autograd.Function):
+    """``y + bias`` in ``y``'s dtype (bf16 under bf16_act), the bias's
+    gradient summed in fp32 and not rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, y, bias):
+        return y + bias.to(y.dtype).view(1, -1, 1, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g.float().sum((0, 2, 3))
+
+
+@contextlib.contextmanager
+def exact_grad_sums():
+    """Within the block, the bf16 modes' convolutions (``ops/conv.py::_conv``,
+    MADNet's every conv) keep their forward but sum each weight's and
+    bias's gradient in fp32 without the bf16 rounding: a diagnostic of the
+    width-sharded MADNet step's drift under bf16_act (phase 13 (d))."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv
+
+    original = conv._conv
+
+    def exact_conv(x, weight, bias, stride, rate, activation, padding, groups=1):
+        dt = conv._bf16_epilogue(x)
+        if dt is None:
+            return original(x, weight, bias, stride, rate, activation, padding, groups)
+        x = x.to(torch.bfloat16)
+        if padding == "SAME":
+            x = conv.same_pad(x, weight.shape[2:], stride, rate)
+        y = _ExactWeightGrad.apply(x, weight, stride, rate, groups).to(dt)
+        return activation(y if bias is None else _ExactBiasGrad.apply(y, bias))
+
+    conv._conv = exact_conv
+    try:
+        yield
+    finally:
+        conv._conv = original
+
+
+def drift_parts(r0, g_one, g_one_exact, g_one_tuned, names):
+    """Phase 13 (d)'s diagnostics of the width-sharded MADNet step's drift
+    under bf16_act from one process's gradient: of the gradient's largest
+    entry, the check's total; the same with cuDNN's deterministic
+    algorithms on the ranks; (a) the shapes' part, the ranks' gradient
+    against one process's with every weight's and bias's gradient summed in
+    fp32 and never rounded to bf16 (:func:`exact_grad_sums`), so only the
+    rank's shapes (cuDNN's algorithms by shape, the halos' order) part
+    them; (b) the rounding's part, the ranks' rounding of their partial
+    gradients to bf16 before the fp32 sum (their gradient less their exact
+    one) less one process's rounding of the whole (its gradient less its
+    exact one); and one process on the whole frame with the algorithms
+    cuDNN times and picks (``cudnn.benchmark``) against its usual ones, at
+    the same shapes. Each printed with the parameter of its largest entry."""
+    key = "bf16_act_MADNet_step"
+    g, g_det, g_det_exact = r0[f"{key}_g"], r0[f"{key}_det_g"], r0[f"{key}_det_exact_g"]
+    scale = float(np.abs(g_one).max())
+    at = np.cumsum([size for _, size in names])
+    figures = {}
+    for what, diff in (("the check's total", g - g_one),
+                       ("the total with deterministic cuDNN on the ranks", g_det - g_one),
+                       ("(a) the shapes' part", g_det_exact - g_one_exact),
+                       ("(b) the rounding's part", (g_det - g_det_exact) - (g_one - g_one_exact)),
+                       ("the ranks' own rounding", g_det - g_det_exact),
+                       ("one process's own rounding", g_one - g_one_exact),
+                       ("one process with cuDNN's timed algorithms, the same shapes", g_one_tuned - g_one)):
+        worst = int(np.argmax(np.abs(diff)))
+        figures[what] = float(np.abs(diff).max()) / scale
+        log(f"MODES_SPATIAL_MADNET_STEP_BF16_ACT drift, {what}: {figures[what]:.3g} of the gradient's largest "
+            f"entry, the largest in {names[int(np.searchsorted(at, worst, side='right'))][0]}")
+    return figures
 
 
 def modes_batch():
@@ -4817,6 +5066,21 @@ def modes_rank(workdir: Path, device, mesh) -> dict:
                 del model, step
                 if mode != "bf16_act":
                     continue
+                if name == "MADNet":  # the drift's diagnostics (drift_parts), with cuDNN's deterministic algorithms
+                    deterministic = torch.backends.cudnn.deterministic
+                    torch.backends.cudnn.deterministic = True
+                    try:
+                        for tag, sums in (("det", contextlib.nullcontext), ("det_exact", exact_grad_sums)):
+                            model = get_stereo_net(name, device=device)
+                            model.load_state_dict(states[name])
+                            step = make_spatial_adapt_step(model, mesh, lr=LR)
+                            with sums():
+                                step(pieces[name][0])
+                            out[f"{key}_step_{tag}_g"] = torch.cat([g.reshape(-1) for g in step.grads]).cpu().numpy()
+                            del model, step
+                    finally:
+                        torch.backends.cudnn.deterministic = deterministic
+                    cuda_lib.reset_launches()
                 session = make_session(states[name], "MAD", fused=True, mesh=mesh, model_name=name, **MAD_KW)
                 t0 = time.perf_counter()
                 for i, piece in enumerate(pieces[name]):
@@ -4997,6 +5261,20 @@ def run_modes_ranks(state, launches, ms, ranks):
             with conv_precision(mode):
                 loss = loss_fn(model(f0["left"], f0["right"])["disparities"], f0)
                 one[mode] = (float(loss), flat_grads(torch.autograd.grad(loss, params)))
+        if name == "MADNet":
+            with conv_precision("bf16_act"), exact_grad_sums():
+                loss = loss_fn(model(f0["left"], f0["right"])["disparities"], f0)
+                exact = flat_grads(torch.autograd.grad(loss, params))
+            benchmark = torch.backends.cudnn.benchmark
+            torch.backends.cudnn.benchmark = True  # cuDNN times its algorithms and takes the fastest
+            try:
+                with conv_precision("bf16_act"):
+                    for _ in range(2):  # the first call tunes
+                        loss = loss_fn(model(f0["left"], f0["right"])["disparities"], f0)
+                        tuned = flat_grads(torch.autograd.grad(loss, params))
+            finally:
+                torch.backends.cudnn.benchmark = benchmark
+            drift_parts(r0, one["bf16_act"][1], exact, tuned, [(n, p.numel()) for n, p in model.named_parameters()])
         for mode in ("bf16_act", "default"):
             key = f"{mode}_{name}"
             tag = f"MODES_SPATIAL_{name.upper()}_STEP_{mode.upper()}"
@@ -5062,6 +5340,111 @@ def run_phase13(state, profile_dir):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     log(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
+    return launches, ms
+
+
+# ------------------------------------------------------------------ phase 14
+# the kernels the adaptation tools' paths launch at highest: the fused
+# sessions (and the probe's) on the default warps, with the reprojection
+# loss's image warp and its offset gradient; pretraining's supervised
+# steps, K1's and K5's backward
+TOOL_ADAPT_KERNELS = ("corr_fwd", "corr_bwd", "warp_image_fwd", "warp_image_bwd", "warp_features_fwd",
+                      "warp_features_bwd")
+VALIDATE_MODES = ("highest", "bf16_act")
+
+
+def load_tool(name: str) -> types.ModuleType:
+    """``tools/<name>.py``, a script of the repository, as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launched(want, what):
+    """The launches since the last reset, a full table; raises unless the
+    kernels launched are exactly ``want``'s keys and, where ``want`` gives
+    a count (not None), that many times."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    got = dict(cuda_lib.LAUNCHES)
+    nonzero = {k: v for k, v in got.items() if v}
+    if set(nonzero) != set(want) or any(n is not None and nonzero[k] != n for k, n in want.items()):
+        raise AssertionError(f"{what}: launches {nonzero}, want {want}")
+    cuda_lib.reset_launches()
+    return got
+
+
+def run_tools_phase(state, profile_dir):
+    """Phase 14: the repository's tools on the port, through their own
+    functions. (a) ``tools/torch_validate_adaptation.py`` at its defaults
+    (192x640, 400 pretraining steps, 60 frames of scene B) under highest
+    and bf16_act: MAD and FULL must end below NONE's EPE in both. (b)
+    ``tools/torch_probe_latency.py`` at 384x1280: the wire, then every
+    variant, each disparity checked against the session's own. (c)
+    ``tools/torch_bench_offline.py`` at 384x1280 under bf16_act, MADNet
+    and DispNet-Corr1D at batches 1, 2, 4, 8, each batch's disparities
+    checked against batch 1's, then at highest. Each path's launches
+    counted from 0."""
+    del state, profile_dir
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv_precision, cuda_lib
+
+    t0 = time.perf_counter()
+    launches, ms = {}, {}
+    validate = load_tool("torch_validate_adaptation")
+    probe = load_tool("torch_probe_latency")
+    offline = load_tool("torch_bench_offline")
+
+    for mode in VALIDATE_MODES:
+        tag = f"TOOLS_VALIDATE_{mode.upper()}"
+        t1 = time.perf_counter()
+        cuda_lib.reset_launches()
+        with conv_precision(mode):
+            assert_tf32(mode)
+            rows = validate.validate(log=lambda line, tag=tag: log(f"{tag}: {line}"))
+        launches[tag] = launched(in_precision(dict.fromkeys(TOOL_ADAPT_KERNELS), mode), tag)
+        for r in rows:
+            log(f"{tag} {r['mode']}: EPE first fifth {r['epe_first']!r}, last fifth {r['epe_last']!r}; "
+                f"D1 {r['d1_first']!r} -> {r['d1_last']!r}; loss (last fifth) {r['loss_last']!r}")
+        bad = validate.failures(rows)
+        if bad:
+            raise AssertionError(f"{tag}: {bad}")
+        log(f"{tag}: MAD and FULL end below NONE's EPE; {time.perf_counter() - t1:.1f} s")
+    assert_tf32("highest")
+
+    cuda_lib.reset_launches()
+    recs = probe.probe(TOOLS_H, TOOLS_W, log=lambda line: log(f"TOOLS_PROBE {line}"))
+    launches["TOOLS_PROBE"] = launched(dict.fromkeys(TOOL_ADAPT_KERNELS), "TOOLS_PROBE")
+    got = [r["variant"] for r in recs if not r["variant"].startswith("wire")]
+    if got != list(probe.VARIANTS) or any("skipped" in r for r in recs):
+        raise AssertionError(f"TOOLS_PROBE: variants {got}, some skipped: {recs}")
+    for r in recs:
+        ms[f"TOOLS_PROBE_{r['variant'].upper()}_P50"] = r["p50_ms"]
+        if "enqueue_p50_ms" in r:
+            ms[f"TOOLS_PROBE_{r['variant'].upper()}_ENQUEUE_P50"] = r["enqueue_p50_ms"]
+    log(f"TOOLS_PROBE: every variant handed back the session's own disparities at {TOOLS_FRAME}")
+
+    # the tool's sweep under bf16_act, then a short one at highest, where a
+    # batch must give batch 1's disparities within 1e-4 of the largest
+    for name, per_forward in (("MADNet", {"corr_fwd": 5, "warp_features_fwd": 4}), ("Dispnet", {"corr_fwd_wide": 1})):
+        for mode, iters, passes in (("bf16_act", 32, 3), ("highest", 4, 1)):
+            tag = f"TOOLS_OFFLINE_{name.upper()}_{mode.upper()}"
+            cuda_lib.reset_launches()
+            recs = offline.run(name, offline.BATCHES, iters, passes, TOOLS_H, TOOLS_W, mode,
+                               log=lambda line, tag=tag: log(f"{tag} {line}"))
+            # a batch's forwards: run()'s counted one, its warm ones, its passes
+            forwards = len(offline.BATCHES) * (1 + offline.WARM + iters * passes)
+            launches[tag] = launched({k: v * forwards for k, v in in_precision(per_forward, mode).items()}, tag)
+            for r in recs:
+                ms[f"{tag}_B{r['batch']}_FRAME"] = 1e3 / r["value"]
+            log(f"{tag}: frames/s by batch {[(r['batch'], r['value']) for r in recs]}; each batch's disparities "
+                f"from batch 1's: {[(r['batch'], r['batch_err']) for r in recs]} ({recs[0]['batch_err_kind']}, bound "
+                f"{recs[0]['batch_err_bound']}), the largest difference "
+                f"{max(r['batch_max_rel_err'] for r in recs):.3g} of the largest disparity")
+    assert_tf32("highest")
+    log(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
     return launches, ms
 
 
@@ -5157,6 +5540,9 @@ def main() -> int:
                     help="run the streams' and data-parallel phase (12) alone, without the result lines")
     ap.add_argument("--spatial-only", action="store_true",
                     help="run the batched streams' and width sharding's phase (13) alone, without the result lines")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="check the kernels at the tools' 384x1280 and run the tools' phase (14) alone, "
+                         "without the result lines")
     ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)  # a rank of phase 12 or 13
     ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5246,6 +5632,16 @@ def main() -> int:
         log(card)
         log("batched streams and width sharding checked; no result lines (--spatial-only)")
         return 0
+    if args.tools_only:
+        rows = {name: [] for name in REPLACES}
+        check_tool_kernels(ops, rows)
+        log_kernel_rows(rows)
+        _, frame_ms = run_tools_phase(None, args.profile)
+        for path, ms in frame_ms.items():
+            log(f"session {path} ms {ms!r}")
+        log(card)
+        log("the tools checked; no result lines (--tools-only)")
+        return 0
     if args.fused_only or args.dispnet_only:
         if args.fused_only:
             _, frame_ms = run_fused(params_from_jax(seeded_jax_params(0)), args.profile)
@@ -5267,7 +5663,7 @@ def main() -> int:
     check_steps_against_plain(state)
     check_reset(state)
     for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision, run_cli_phase,
-                  run_train_phase, run_demo_phase, run_parallel, run_phase13):
+                  run_train_phase, run_demo_phase, run_parallel, run_phase13, run_tools_phase):
         phase_launches, phase_ms = phase(state, args.profile)
         launches.update(phase_launches)
         frame_ms.update(phase_ms)
@@ -5275,9 +5671,9 @@ def main() -> int:
     kernels = []
     for name, all_rs in rows.items():
         # batch 1, no vmap, the whole frame: the sums keep their meaning
-        rs = [r for r in all_rs if not {"batch", "vmap", "ranks"} & set(r)]
+        rs = main_rows(all_rs)
         lib_ms = [r["library_ms"] for r in rs]
-        shape_keys = ("ranks", "shape", "radius", "ms", "cold_ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms",
+        shape_keys = ("ranks", "frame", "shape", "radius", "ms", "cold_ms", "call_ms", "fp32_ms", "plain_ms", "bound_ms",
                       "library_ms", "variants", "wide_ms")
         kernels.append({
             "name": name,
@@ -5320,6 +5716,12 @@ def main() -> int:
                 **{k: sum(r[k] for r in rr) for k in ("ms", "plain_ms", "bound_ms")},
                 "library_ms": None,
             } for rr in [[r for r in all_rs if "ranks" in r]] if rr},
+            # at batch 1 on the tools' frame (phase 14): the same sums
+            **{f"frame{TOOLS_FRAME}": {
+                **{k: sum(r[k] for r in fr) for k in ("ms", "plain_ms", "bound_ms")},
+                "library_ms": None if any(r["library_ms"] is None for r in fr)
+                else sum(r["library_ms"] for r in fr),
+            } for fr in [[r for r in all_rs if r.get("frame") == TOOLS_FRAME and "batch" not in r]] if fr},
             "shapes": [{k: r[k] for k in ("batch", *shape_keys) if k in r} for r in all_rs],
         })
     idle = [k["name"] for k in kernels if not any(k["launches_by_path"].values())]

@@ -571,3 +571,41 @@ def test_port_imports_no_jax():
     )
     for p in [*PORT_DIR.rglob("*.py"), PORT_DIR.parent / "chip_smoke.py"]:
         assert not stmt.search(p.read_text()), p
+
+
+def test_exact_grad_sums_keeps_the_forward_and_skips_the_bf16_rounding():
+    """``chip_smoke.exact_grad_sums`` (phase 13 (d)'s diagnostic): under
+    ``bf16_act`` MADNet's forward and loss stay bit for bit; every entry of
+    the usual gradient is a bf16 value (cuDNN's and autograd's bf16 sums,
+    rounded once) and lies within one bf16 ulp of the diagnostic's, whose
+    sums are fp32 and mostly no bf16 value, give or take 1e-5 of the
+    largest entry (the two fp32 sums of many terms in other orders, which
+    shows where they cancel: at 8 of 3.8 million entries, each under 1e-5
+    of the largest, up to 9 ulps of their own); outside the block the
+    usual convolution is back."""
+    from real_time_self_adaptive_deep_stereo_torch.losses import get_reprojection_loss
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import conv, conv_precision
+
+    cs = _chip_smoke()
+    model = get_stereo_net("MADNet", device="cpu")
+    params = list(model.parameters())
+    left = torch.from_numpy((_rng(21).random((1, 64, 128, 3)) * 255).astype(np.float32))
+    frame = {"left": left, "right": torch.roll(left, -3, 2)}
+    loss_fn = get_reprojection_loss("mean_SSIM_l1", reduced=True)
+    before = conv._conv
+    runs = []
+    with conv_precision("bf16_act"):
+        for sums in (cs.contextlib.nullcontext, cs.exact_grad_sums):
+            with sums():
+                out = model(frame["left"], frame["right"])
+                loss = loss_fn(out["disparities"], frame)
+                g = torch.cat([t.reshape(-1) for t in torch.autograd.grad(loss, params)])
+            runs.append((out["full_res_disp"].detach(), loss.detach(), g))
+    assert conv._conv is before
+    (d0, l0, g0), (d1, l1, g1) = runs
+    assert torch.equal(d0, d1) and torch.equal(l0, l1)
+    assert torch.equal(g0.bfloat16().float(), g0)
+    assert float((g1.bfloat16().float() == g1).float().mean()) < 0.5
+    ulp = torch.exp2(torch.floor(torch.log2(g1.abs().clamp(min=2.0**-126))) - 7)
+    assert bool(((g0 - g1).abs() <= ulp + 1e-5 * float(g1.abs().max())).all())
