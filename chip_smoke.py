@@ -107,8 +107,22 @@ Phases, each of which raises on failure (nothing is caught):
    session over the same frames, weights and warp mode, and with the same
    fused session run eagerly (``use_graphs=False``); ``step_chunk`` over
    two chunks of 5 must equal 10 steps, and the ``shared_forward`` session
-   (one graph) must follow the same trajectory. Then 8 frames of PROBABILITY,
-   FULL (5 / 1 + 4 / 5 / 1 + 4 launches a frame) against the host
+   (one graph) must follow the same trajectory. Then the sampled modes,
+   whose block the device picks (a CUDA-graph SWITCH node over the
+   branches' graphs, ``csrc/graph_switch.cu``): PROBABILITY, ARGMAX and
+   RANDOM at one block a frame and PROBABILITY at two, 8 frames each,
+   against the same session run eagerly, both on cuDNN's deterministic
+   algorithms: the first frame captures every branch, the first 3 frames
+   each add, read by the harness after a sync, the drawn blocks' MAD
+   launches and one ``graph_switch``, the last 5 run with every host sync
+   an error; the blocks drawn frame by frame (read by the harness from
+   ``cur_blocks``), the launches after ``finalize`` (the twin's plus one
+   ``graph_switch`` a frame), the trajectory, controller and weights must
+   be the twin's. The same for MADNet under the proxy loss (the continual
+   CLI's), PROBABILITY, against its eager twin. PROBABILITY is timed on
+   cuDNN's default algorithms, and a switched launch against a direct
+   replay of the same branch's graph, in turns, before the process's first
+   profiler window and after it. Then FULL (5 / 1 + 4 / 5 / 1 + 4 launches a frame) against the host
    session, NONE with metrics (1 + 4) and NONE without through ``serve``
    (0 + 4; each served disparity is its own frame's), and the reset on the
    device under a threshold below every loss.
@@ -120,7 +134,9 @@ Phases, each of which raises on failure (nothing is caught):
    (``warp_mode='mxu'``) against the host session, the fused FULL session
    (``mxu``, 8 frames) against the host FULL session on the same frames
    and weights (loss and EPE at phase 6's trajectory bounds, the adapted
-   weights within 1e-2 of the largest move), and fused NONE serving.
+   weights within 1e-2 of the largest move), the fused MAD session under
+   PROBABILITY, its block picked on the device over the six blocks'
+   graphs, against its eager twin as in phase 6, and fused NONE serving.
    Launch counts are asserted frame by frame: one ``corr_fwd_wide`` a
    frame, one ``corr_bwd_wide`` for FULL and for MAD blocks 3 and 4 (conv2
    and conv1, before the correlation) and none for the other blocks, and
@@ -203,7 +219,9 @@ Phases, each of which raises on failure (nothing is caught):
    ``MadNet_full.json`` from ``weights_scene01.npz``, Adam, on 32 frames
    of scenes 2-3: (a) its defaults, 480x640 rescaled and 320x512 cropped,
    MAD, PROBABILITY, the fused session with an fp16 disparity through
-   ``step_pipelined``; (b) the full width (``--imageShape -1 --cropShape
+   ``step_pipelined``, its block switched on the device (one
+   ``graph_switch`` a frame; the branches' launches read once the demo
+   ends); (b) the full width (``--imageShape -1 --cropShape
    320 1216``), SEQUENTIAL, fused and then host: D1 of the written PNGs
    against the fixture's ground truth, against the JAX demo's on the same
    frames (``demo_runs`` of ``torch_cli_reference.json``), each from 8
@@ -232,9 +250,12 @@ Phases, each of which raises on failure (nothing is caught):
    of device time (CUDA events) and wall time a frame-batch and a frame,
    the same frames through N single-stream sessions stepped in turn, and
    peak memory. Then PROBABILITY, N = 4, seeds ``[0, 1, 2, 3]``, 30
-   frame-batches: each stream against the single session with its seed,
-   and the graphs at most 5N ("map") and 5N + 5 ("unroll", which replays
-   map's graphs where the streams' blocks differ). (b) ``parallel.make_dp_train_step``
+   frame-batches, the blocks switched on the device: under "map" and
+   "unroll" alike one parent of N switches, launched once a frame-batch,
+   whatever the streams drew; each frame-batch's launches, read after a sync, the
+   drawn blocks' (read from ``cur_blocks``) and N ``graph_switch``; each
+   stream against the single session with its seed, and the graphs at
+   most 5N. (b) ``parallel.make_dp_train_step``
    on two ranks of a ``gloo`` group on the one card (this script with
    ``--dp-rank``, each with a time limit; the kernels built here first),
    MADNet, 3 steps of a global batch of 4 smooth frames whose ground truth
@@ -320,8 +341,14 @@ Phases, each of which raises on failure (nothing is caught):
    launches counted from 0 and held to the kernels it must run (the
    offline tool's exactly).
 
+Phase 3 also holds the graph switch (``graph_switch``, the counterpart of
+the JAX session's ``lax.switch``) over bodies of one fill each, at 5 blocks
+and 1 and 2 a draw: every ordered draw must run the body the plain lookup
+names and be counted there, ids of no branch run none and raise; its
+launch is timed beside a direct replay of a body and the plain lookup.
+
 Prints the card line, the ms/frame of the host and the fused sessions by
-mode and precision, a JSON line of the sixteen kernels, and as the last line
+mode and precision, a JSON line of the seventeen kernels, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 with no result, when no CUDA device is available or the port is missing.
 """
@@ -553,10 +580,13 @@ REPLACES = {
     "corr_bwd_bf16": f"{_JAX_OPS}/correlation.py:117",
     "corr_fwd_wide_bf16": f"{_JAX_OPS}/correlation.py:53",
     "corr_bwd_wide_bf16": f"{_JAX_OPS}/correlation.py:117",
+    # no Pallas kernel: the JAX fused session's lax.switch over the sampled
+    # block's branches, which the port runs as a CUDA graph's SWITCH node
+    "graph_switch": "real_time_self_adaptive_deep_stereo_tpu/adapt/fused.py:495",
 }
 _CSRC = "real_time_self_adaptive_deep_stereo_torch/csrc"
 SOURCES = {
-    name: f"{_CSRC}/{'correlation' if name.startswith('corr') else 'warp_tile' if 'tile' in name else 'warp'}.cu"
+    name: f"{_CSRC}/{'correlation' if name.startswith('corr') else 'graph_switch' if name == 'graph_switch' else 'warp_tile' if 'tile' in name else 'warp'}.cu"
     for name in REPLACES
 }
 
@@ -694,8 +724,90 @@ def check_kernels(ops):
     check_batch_kernels(ops, rows, DP_BATCH // DP_WORLD)
     for n in VMAP_COUNTS:
         check_vmap_kernels(rows, n)
+    for m in SWITCH_DRAWS:
+        check_switch_kernel(rows, m)
     log_kernel_rows(rows)
     return rows
+
+
+# the graph switch at MADNet's 5 blocks, one and two blocks a frame (phase 6)
+SWITCH_BLOCKS = 5
+SWITCH_DRAWS = (1, 2)
+
+
+def check_switch_kernel(rows, m: int, n: int = SWITCH_BLOCKS):
+    """The graph switch (``csrc/graph_switch.cu``) over ``C(n, m)`` bodies,
+    body k one fill that writes k + 1: every ordered draw of m distinct
+    blocks must run the body that the plain lookup names, once, and be
+    counted there; ids of no branch (repeated, out of range) run none and
+    raise at the next read. Timed: one launch of the parent (CUDA events
+    over back-to-back launches, the host's launch included, as the session
+    launches it) beside one replay of a body's own graph taken the same
+    way (``direct_ms``), and the plain lookup, from a graph (``plain_ms``)
+    and called eagerly (``plain_call_ms``). Its bound: the m ids, one table
+    entry and one count read and written, over the memory rate."""
+    import itertools
+
+    from real_time_self_adaptive_deep_stereo_torch.ops.graph_switch import (
+        GraphSwitch,
+        branch_sets,
+        branch_table,
+        switch_index_torch,
+    )
+
+    table = branch_table(n, m, "cuda")
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ids = torch.zeros(m, dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    bodies = []
+    for k in range(len(branch_sets(n, m))):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g, stream=side):
+            out.fill_(k + 1)
+        bodies.append(g)
+    switch = GraphSwitch([[g.raw_cuda_graph() for g in bodies]], [ids], n, table)
+    draws = list(itertools.permutations(range(n), m))
+    got, want = [], []
+    for draw in draws:
+        ids.copy_(torch.tensor(draw, dtype=torch.int32))
+        out.zero_()
+        switch.launch()
+        got.append(out.clone())
+        want.append(switch_index_torch(ids, table, n) + 1)
+    got, want = torch.cat(got), torch.stack(want)
+    err = int((got - want).abs().max())
+    counts = switch.taken()[0]
+    if err or counts.tolist() != torch.bincount(want.cpu().long() - 1, minlength=len(bodies)).tolist():
+        raise AssertionError(f"graph_switch, {m} of {n}: bodies run {got.tolist()}, want {want.tolist()}; "
+                             f"counts {counts.tolist()}")
+    for bad in ([0] * m, [n] + list(range(m - 1))):
+        if len(set(bad)) == m and max(bad) < n:
+            continue  # m = 1: [0] names a branch
+        ids.copy_(torch.tensor(bad, dtype=torch.int32))
+        out.zero_()
+        switch.launch()
+        try:
+            switch.taken()
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"graph_switch: ids {bad} name no branch, and no error was raised")
+        if int(out[0]):
+            raise AssertionError(f"graph_switch: ids {bad} name no branch, and body {int(out[0]) - 1} ran")
+        switch.status[-1].zero_()
+    ids.copy_(torch.tensor(draws[len(draws) // 2], dtype=torch.int32))
+    bodies[0].replay()  # instantiated by PyTorch at its first replay
+    rows["graph_switch"].append(dict(
+        shape=[m], blocks=n, branches=len(bodies),
+        draws=len(draws), err=err, tol=0,
+        ms=call_ms(switch.launch), direct_ms=call_ms(bodies[0].replay),
+        plain_ms=time_ms(lambda: switch_index_torch(ids, table, n)),
+        plain_call_ms=call_ms(lambda: switch_index_torch(ids, table, n)),
+        library_ms=None,
+        bound=bound(4.0 * (m + 3), 0.0),
+    ))
+    torch.cuda.synchronize()
+    switch.close()
 
 
 def check_frame_kernels(ops, rows, h, w, **tags):
@@ -1927,6 +2039,164 @@ def assert_served(state, frames, disps, what, model_name="MADNet", rtol=MODEL_RT
             raise AssertionError(f"{what}: disparity {i} is not frame {i}'s")
 
 
+N_FRAMES_SAMPLED = 8
+SAMPLED_CHECKED = 3  # frames whose launches the harness reads after each step
+# the sampled runs of phase 6, each against its eager twin: tag -> session keywords
+SAMPLED_RUNS = {
+    "FUSED_MAD_PROBABILITY": dict(sample_mode="PROBABILITY", seed=3),
+    "FUSED_MAD_ARGMAX": dict(sample_mode="ARGMAX", seed=3),
+    "FUSED_MAD_RANDOM": dict(sample_mode="RANDOM", seed=5),
+    "FUSED_MAD_PROBABILITY_2": dict(sample_mode="PROBABILITY", num_blocks=2, seed=3),
+    "FUSED_MAD_PROXY_PROBABILITY": dict(sample_mode="PROBABILITY", seed=3, adaptation="proxy"),
+}
+
+
+def proxy_tile_launches(k: int):
+    """Fused MADNet MAD under the proxy loss on the tiled warps: the proxy
+    loss warps no image, so :func:`mad_tile_launches` less its image warps."""
+    return {"corr_fwd": 5, "warp_tile_features_fwd": 4, "corr_bwd": 1,
+            "warp_tile_features_bwd": 0 if k == 0 else 1}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, for two runs of one trajectory that
+    must agree: its default backward does not add in a fixed order, and a
+    sampled trajectory carries the difference far within a few frames (two
+    eager runs of one session part as a switched run and an eager one do);
+    on the deterministic algorithms the eager and the switched runs agree
+    bit for bit."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def sampled_against_eager(state, frames, tag, per_block=mad_tile_launches, **kw):
+    """A fused MAD session under a sampled mode, its branch picked on the
+    device, against the same session run eagerly (``use_graphs=False``):
+    the eager twin's launches counted frame by frame over ``frames``; then
+    the switched session, whose first frame captures every branch (C(n, m)
+    graphs of the model's n blocks) and launches the switch, the first
+    ``SAMPLED_CHECKED`` frames each adding, once the harness syncs the
+    counters (``sync_launches``), exactly the twin's launches of that frame
+    and one ``graph_switch``, and at one block a frame ``per_block`` of the
+    block it drew (read by the harness from ``cur_blocks``); the rest with
+    every host sync an error, each frame's draw kept as a device copy.
+    ``kw`` goes to :func:`make_session` (``model_name``, ``adaptation``:
+    the proxy loss reads each frame's target as its proxy). ``finalize`` must
+    leave the counters at the twin's launches plus one ``graph_switch`` a
+    frame, and the draws, trajectory, controller and weights must be the
+    twin's (within phase 6's bounds; printed, the largest differences,
+    which cuDNN's deterministic algorithms keep at 0). Returns the
+    session's launches."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    if kw.get("adaptation") == "proxy":
+        frames = [{**f, "proxy": f["target"]} for f in frames]
+    eager = make_session(state, "MAD", warp="mxu", fused=True, ssim_th=1e9, use_graphs=False, **kw)
+    cuda_lib.reset_launches()
+    eager_draws, eager_frames = [], []
+    for f in frames:
+        before = dict(cuda_lib.LAUNCHES)
+        eager.step(f)
+        eager_draws.append(sorted(eager.cur_blocks.tolist()))
+        eager_frames.append({n: v - before[n] for n, v in cuda_lib.LAUNCHES.items() if v != before[n]})
+    eager_launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    eager_stats = eager.finalize()
+
+    session = make_session(state, "MAD", warp="mxu", fused=True, ssim_th=1e9, **kw)
+    if not session._switching:
+        raise AssertionError(f"{tag}: the fused session must switch on the device")
+    cuda_lib.reset_launches()
+    draws = []
+    for i, f in enumerate(frames[:SAMPLED_CHECKED]):
+        before = dict(cuda_lib.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.step(f)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        session.sync_launches()
+        draws.append(session.cur_blocks.clone())
+        ks = sorted(draws[-1].tolist())
+        added = {n: cuda_lib.LAUNCHES[n] - before[n] for n in cuda_lib.LAUNCHES if cuda_lib.LAUNCHES[n] != before[n]}
+        table = {n: v for n, v in per_block(ks[0]).items() if v} if len(ks) == 1 else eager_frames[i]
+        if added.pop("graph_switch", 0) != 1 or added != eager_frames[i] or added != table:
+            raise AssertionError(f"{tag} frame {i}: blocks {ks}, launches {added} and the switch's, want the "
+                                 f"twin's {eager_frames[i]} and {table}")
+        log(f"{tag} frame {i}: blocks {ks}, {ms:.1f} ms{' (every branch captured)' if i == 0 else ''}")
+    if len(session._graphs) != math.comb(len(session.engine.blocks), session.num_blocks):
+        raise AssertionError(f"{tag}: {len(session._graphs)} graphs captured")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames[SAMPLED_CHECKED:]:
+            session.step(f)
+            draws.append(session.cur_blocks.clone())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    stats = session.finalize()
+    launches = dict(cuda_lib.LAUNCHES)
+    draws = [sorted(d.tolist()) for d in draws]
+    want = {**eager_launches, "graph_switch": len(frames)}
+    log(f"{tag}: blocks {draws}, the last {len(frames) - SAMPLED_CHECKED} frames with every host sync an error; "
+        f"launches after finalize {({k: v for k, v in launches.items() if v})}")
+    if draws != eager_draws:
+        raise AssertionError(f"{tag}: blocks {draws}, the eager twin's {eager_draws}")
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"{tag}: launches {launches}, want the eager twin's and a switch a frame: {want}")
+    assert_trajectory(stats, eager_stats, f"{tag} switched against eager")
+    assert_controller(stats, eager_stats, f"{tag} switched against eager")
+    moved = float((eager.arena.flat - eager.arena.flat0).abs().max())
+    err = float((session.arena.flat - eager.arena.flat).abs().max())
+    d_err = float((session.last_disp - eager.last_disp).abs().max()) / float(eager.last_disp.abs().max())
+    loss_err = float(np.max(np.abs(stats["loss"] - eager_stats["loss"])))
+    log(f"{tag} switched against eager: weights differ by {err:.3g} of {moved:.3g} moved, last disparity by "
+        f"{d_err:.3g} of its largest, the loss by {loss_err:.3g}")
+    if not (moved > 0 and err <= 1e-2 * moved and d_err <= TRAJ_EPE_RTOL):
+        raise AssertionError(f"{tag}: the switched trajectory differs from the eager one")
+    return launches
+
+
+def switched_against_direct(session, tag, k: int = 2, launches: int = 20, rounds: int = 3):
+    """One switched launch of a single-block session (its SWITCH node)
+    against one direct replay of the same branch's graph (block ``k``,
+    ``cur_blocks`` set to it), each timed by CUDA events over ``launches``
+    back-to-back launches of the real step, in turns, forward then
+    backward (direct, switched, switched, direct), ``rounds`` times.
+    Returns the medians, in ms a launch, and the overhead: the median of
+    each switched reading less the direct one beside it in time, as the
+    card's clock may move between rounds."""
+    switch = session._switch[0]
+    graph = session._graphs[("mad", (k,))][0]
+    session.cur_blocks.fill_(k)
+    ways = {"direct": graph.replay, "switched": switch.launch}
+    for run in ways.values():
+        run()  # PyTorch instantiates a kept graph at its first replay
+    torch.cuda.synchronize()
+    times = {way: [] for way in ways}
+    for _ in range(rounds):
+        for way in [*ways, *reversed(ways)]:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(launches):
+                ways[way]()
+            end.record()
+            end.synchronize()
+            times[way].append(start.elapsed_time(end) / launches)
+    switch.taken()  # these launches are the measurement's, not a path's
+    med = {way: statistics.median(t) for way, t in times.items()}
+    # reading i of each way is the other's neighbour in time
+    overhead = statistics.median(s - d for s, d in zip(times["switched"], times["direct"]))
+    log(f"{tag}: a switched launch {times['switched']} ms against a direct replay of the same branch's graph "
+        f"{times['direct']} ms (block {k}, {launches} back-to-back launches each, {rounds} rounds in turns): "
+        f"{overhead:+.4f} ms by neighbouring readings, {med['switched'] - med['direct']:+.4f} ms by medians")
+    return {f"{tag}_DIRECT_REPLAY": med["direct"], f"{tag}_SWITCHED_LAUNCH": med["switched"],
+            f"{tag}_SWITCH_OVERHEAD": overhead}
+
+
 def run_fused(state, profile_dir):
     """Phase 6: the fused device session at 320x1216 with the tiled one-hot
     warps in model and loss. Returns (launches by path, ms/frame by path)."""
@@ -2024,9 +2294,32 @@ def run_fused(state, profile_dir):
     log(f"fused MAD steady ms/frame by warp route, two passes each: {by_route}")
     del other
 
+    # --- MAD, the sampled modes: the device picks the block's graph (a
+    # CUDA-graph switch); each against its eager twin on cuDNN's
+    # deterministic algorithms, then, on its default ones, PROBABILITY timed
+    # and a switched launch against a direct replay of the same branch's
+    # graph, before the first profiler window of the process and after it
+    for tag, kw in SAMPLED_RUNS.items():
+        per_block = proxy_tile_launches if kw.get("adaptation") == "proxy" else mad_tile_launches
+        with deterministic_cudnn():
+            launches[tag] = sampled_against_eager(state, frames[:N_FRAMES_SAMPLED], tag, per_block, **kw)
+    sampled = make_session(state, "MAD", warp="mxu", fused=True, ssim_th=1e9, **SAMPLED_RUNS["FUSED_MAD_PROBABILITY"])
+    for f in frames[:SAMPLED_CHECKED]:
+        sampled.step(f)
+    steady = frames[SAMPLED_CHECKED:]
+    dev, frame_ms["FUSED_MAD_PROBABILITY"] = events_ms(lambda i: sampled.step(steady[i]), len(steady), sync_error=True)
+    frame_ms["FUSED_MAD_PROBABILITY_DEVICE"] = dev
+    log(f"fused MAD PROBABILITY steady: {frame_ms['FUSED_MAD_PROBABILITY']:.3f} ms/frame ({dev:.3f} by CUDA events) "
+        f"over {len(steady)} frames with every host sync an error")
+    frame_ms.update(switched_against_direct(sampled, "FUSED_MAD_PROBABILITY"))
+
     # what each block's graph holds: device activities of one replay
     per_graph = [device_activities(session, frames[k]) for k in range(n_blocks)]
     log(f"fused MAD kernels and copies in one replay, by block trained: {per_graph}")
+    # a profiler window leaves a conditional node's bodies slower for the
+    # rest of the process (CUPTI): the same measurement again
+    frame_ms.update(switched_against_direct(sampled, "FUSED_MAD_PROBABILITY_AFTER_PROFILER"))
+    del sampled
 
     # the one-graph alternative: shared forward, block loss selected on the
     # device, full backward, update masked by block ownership
@@ -2057,28 +2350,6 @@ def run_fused(state, profile_dir):
     assert_trajectory(chunked.finalize(), fused, "step_chunk against steps", frames=checked)
     del chunked, eager, host
 
-    # --- MAD, PROBABILITY: the block is read back each frame
-    session = make_session(state, "MAD", warp="mxu", fused=True, sample_mode="PROBABILITY",
-                           ssim_th=1e9, seed=3)
-    cuda_lib.reset_launches()
-    picked = []
-    for i, f in enumerate(frames[:8]):
-        before = dict(cuda_lib.LAUNCHES)
-        session.step(f)
-        (k,) = session._host_blocks
-        added = {n: cuda_lib.LAUNCHES[n] - before[n] for n in cuda_lib.LAUNCHES}
-        if added != {**dict.fromkeys(cuda_lib.LAUNCHES, 0), **mad_tile_launches(k)}:
-            raise AssertionError(f"fused PROBABILITY frame {i}: block {k}, launches {added}")
-        picked.append(k)
-    stats = session.finalize()
-    log(f"fused MAD PROBABILITY: blocks {picked}, fetch counter {stats['fetch_counter'].tolist()}, "
-        f"loss {stats['loss'].tolist()}")
-    if stats["fetch_counter"].tolist() != [picked.count(k) for k in range(n_blocks)] or not np.isfinite(
-        stats["loss"]
-    ).all():
-        raise AssertionError("fused PROBABILITY: the fetch counter does not follow the sampled blocks")
-    launches["FUSED_MAD_PROBABILITY"] = dict(cuda_lib.LAUNCHES)
-    del session
 
     # --- FULL
     full_kw = dict(ssim_th=1e9)
@@ -2282,6 +2553,14 @@ def run_dispnet(profile_dir):
     if profile_dir:
         profile_frames(session, frames[:len(blocks)], Path(profile_dir), "dispnet_fused_mad")
     del session, host
+
+    # the fused MAD session under PROBABILITY, its block picked on the
+    # device (a SWITCH node over the six blocks' graphs: transposed convs
+    # and the radius-40 correlation in the bodies), against its eager twin
+    with deterministic_cudnn():
+        launches["DISPNET_FUSED_MAD_PROBABILITY"] = sampled_against_eager(
+            state, frames[:N_FRAMES_SAMPLED], "DISPNET_FUSED_MAD_PROBABILITY",
+            lambda k: dn_launches("MAD", k, tiled=True), model_name="Dispnet", sample_mode="PROBABILITY", seed=3)
 
     # the fused FULL session, tiled warps in the loss, against the host
     # FULL session on the same frames and weights
@@ -3234,8 +3513,10 @@ def run_demo(tag, argv, n, launches):
         wall = time.perf_counter() - t0
     finally:
         demo.RealTimeStereo = base
-    launches[tag] = dict(cuda_lib.LAUNCHES)
     worker = captured["worker"]
+    if hasattr(worker.session, "sync_launches"):
+        worker.session.sync_launches()  # a switched session's branches, counted on the device
+    launches[tag] = dict(cuda_lib.LAUNCHES)
     out = Path(args.outDir)
     names = sorted(f.name for f in out.iterdir())
     if names != [f"disparity_{i:05d}.png" for i in range(1, n + 1)] or len(worker.frame_times) != n:
@@ -3261,7 +3542,8 @@ def check_demo_launches(tag, worker, n, per_frame, launched):
         raise AssertionError(f"{tag}: launches {counts}, want {want} (blocks fetched {fetched})")
     if fused:
         for branch, got in session.graph_launches.items():
-            if got != {k: v for k, v in per_frame(branch[1][0] if branch[0] == "mad" else None).items() if v}:
+            want = per_frame(branch[1][0] if branch[0] == "mad" else None)
+            if got != {k: v for k, v in want.items() if v and k != "graph_switch"}:
                 raise AssertionError(f"{tag}: graph {branch} holds {got}")
         t = int(session.opt["t"].item())
         if t != n:
@@ -3280,6 +3562,7 @@ def run_demo_phase(state, profile_dir):
     launches, ms = {}, {}
     full = cli_launches("FULL", 0)
     mad = lambda k: cli_launches("MAD", k)  # noqa: E731  (MADNet with the bulkhead, `cuda` warps)
+    switched = lambda k: {**mad(k), "graph_switch": 1}  # noqa: E731  (PROBABILITY: the device picks k)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         lst = write_cli_list(tmp, CLI_SCENES["scene"], DEMO_FRAMES)
@@ -3303,7 +3586,7 @@ def run_demo_phase(state, profile_dir):
             return worker
 
         # (a) the defaults: 480x640 rescaled, 320x512 cropped, MAD, PROBABILITY, fused
-        worker = demo("DEMO_DEFAULTS_MAD_FUSED", [], DEMO_FRAMES, mad)
+        worker = demo("DEMO_DEFAULTS_MAD_FUSED", [], DEMO_FRAMES, switched)
         if worker.session.disp_dtype != torch.float16 or worker.session.compute_metrics:
             raise AssertionError("demo: the fused session must serve fp16 disparities without metrics")
 
@@ -3555,9 +3838,10 @@ def streams_in(state):
             del session
 
     # PROBABILITY at N = 4, seeds [0, 1, 2, 3]: each stream follows the
-    # single session with its seed; the streams' branches differ, and the
-    # graphs stay bounded: "map" one a (stream, block), "unroll" also one a
-    # block all streams take together, where one a tuple of the streams'
+    # single session with its seed; the streams' branches differ, the device
+    # picks each (under "map" and "unroll" alike one parent of N switches:
+    # one launch a frame-batch, N switch kernels), and the graphs stay
+    # bounded, one a (stream, block), where one a tuple of the streams'
     # blocks would grow towards n_blocks ** N
     per = stream_frames(n_max, N_FRAMES_STREAMS_PROB, 500)
     refs = []
@@ -3577,21 +3861,26 @@ def streams_in(state):
         for i, f in enumerate(stacked(per, n)):
             before = dict(cuda_lib.LAUNCHES)
             session.step(f)
-            ks = [st.host_blocks for st in session._streams]
+            session.sync_launches()  # the harness's read, as is the blocks' below
+            ks = [k for (k,) in session.cur_blocks.tolist()]
+            # N switch kernels from one parent of N slots: one launch
             want = dict.fromkeys(cuda_lib.LAUNCHES, 0)
-            for (k,) in ks:
+            want["graph_switch"] = n
+            for k in ks:
                 for c, v in mad_tile_launches(k).items():
                     want[c] += v
             added = {c: cuda_lib.LAUNCHES[c] - before[c] for c in cuda_lib.LAUNCHES}
-            if added != want:
-                raise AssertionError(f"{tag} frame-batch {i}: blocks {ks}, launches {added}")
-            picked.append([k for (k,) in ks])
+            if added != want or session._switch[0].n_slots != n:
+                raise AssertionError(f"{tag} frame-batch {i}: blocks {ks}, launches {added}, a parent of "
+                                     f"{session._switch[0].n_slots} slots")
+            picked.append(ks)
         launches[tag] = dict(cuda_lib.LAUNCHES)
         stats = session.finalize()
         tuples = len({tuple(p) for p in picked})
-        most = n * n_blocks + (n_blocks if impl == "unroll" else 0)
+        most = n * n_blocks
         log(f"{tag}: blocks by frame {picked}; {len(session._graphs)} graphs captured (at most {most}; "
-            f"{tuples} tuples of the streams' blocks seen)")
+            f"{tuples} tuples of the streams' blocks seen); one launch a frame-batch of a parent of "
+            f"{session._switch[0].n_slots} switches")
         if len(session._graphs) > most:
             raise AssertionError(f"{tag}: {len(session._graphs)} graphs, more than {most}")
         for s in range(n):
@@ -5404,7 +5693,7 @@ def run_tools_phase(state, profile_dir):
         with conv_precision(mode):
             assert_tf32(mode)
             rows = validate.validate(log=lambda line, tag=tag: log(f"{tag}: {line}"))
-        launches[tag] = launched(in_precision(dict.fromkeys(TOOL_ADAPT_KERNELS), mode), tag)
+        launches[tag] = launched({**in_precision(dict.fromkeys(TOOL_ADAPT_KERNELS), mode), "graph_switch": None}, tag)
         for r in rows:
             log(f"{tag} {r['mode']}: EPE first fifth {r['epe_first']!r}, last fifth {r['epe_last']!r}; "
                 f"D1 {r['d1_first']!r} -> {r['d1_last']!r}; loss (last fifth) {r['loss_last']!r}")
@@ -5416,7 +5705,7 @@ def run_tools_phase(state, profile_dir):
 
     cuda_lib.reset_launches()
     recs = probe.probe(TOOLS_H, TOOLS_W, log=lambda line: log(f"TOOLS_PROBE {line}"))
-    launches["TOOLS_PROBE"] = launched(dict.fromkeys(TOOL_ADAPT_KERNELS), "TOOLS_PROBE")
+    launches["TOOLS_PROBE"] = launched(dict.fromkeys((*TOOL_ADAPT_KERNELS, "graph_switch")), "TOOLS_PROBE")
     got = [r["variant"] for r in recs if not r["variant"].startswith("wire")]
     if got != list(probe.VARIANTS) or any("skipped" in r for r in recs):
         raise AssertionError(f"TOOLS_PROBE: variants {got}, some skipped: {recs}")

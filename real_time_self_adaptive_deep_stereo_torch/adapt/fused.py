@@ -19,16 +19,24 @@ takes the host out of the frame:
 Where the JAX session compiles one program with a ``lax.switch`` over
 the block branches, this one captures **one CUDA graph per branch**: the
 forward-only step, the FULL step, one MAD step per trained block set,
-and the shared-forward step. PyTorch has no device-side switch node, so
-the host picks the graph. It can do so without reading the device:
-``step % dilation`` and ``step % sample_frequency`` it counts itself,
-and with the FIXED and SEQUENTIAL samplers it knows the block too, so
-the steady state has no host sync at all. With ARGMAX, RANDOM and
-PROBABILITY the block depends on the scores, hence on the previous
-frame's loss: the sample is drawn on the device and the session reads
-the ``[num_blocks]`` ids, one small read per resample. That is the one
-sync a frame this design allows itself; ``shared_forward=True`` needs
-none (its graph selects the block loss by a device index).
+and the shared-forward step. The host picks the graph where it knows the
+branch without reading the device: ``step % dilation`` and ``step %
+sample_frequency`` it counts itself, and with the FIXED and SEQUENTIAL
+samplers it knows the block too. With ARGMAX, RANDOM and PROBABILITY the
+block depends on the scores, hence on the previous frame's loss: the
+sample is drawn on the device, and the device picks the branch too. The
+MAD graphs of every sorted set of ``num_blocks`` of the blocks
+(``C(n, num_blocks)`` branches: 5 for MADNet at one block a frame) are
+the bodies of a conditional SWITCH node in a parent graph
+(:class:`..ops.graph_switch.GraphSwitch`, ``csrc/graph_switch.cu``),
+behind a kernel that reads ``cur_blocks`` and sets the node's value, as
+``lax.switch`` reads ``blocks_now``. A train frame is one launch of the
+parent, and no steady frame reads the device, whatever the sampler;
+``shared_forward=True`` needs no switch (its graph selects the block
+loss by a device index). Without graphs (the CPU, ``use_graphs=False``,
+a ``gloo`` width-sharded session) Python runs the block's code, so the
+host reads the ids each resample and picks the branch through the
+switch's plain lookup (:func:`..ops.graph_switch.switch_index_torch`).
 
 Graphs are captured lazily. The first frame that takes a branch runs it
 eagerly on a side stream (that is the frame's real step; it carries
@@ -36,17 +44,30 @@ cuDNN's first-call set-up of that branch's backward, and it builds and
 loads whatever kernel library the branch launches); the branch is then
 captured, without running, and every later frame of that branch is one
 ``replay``. So the first frame of each branch costs an eager step plus a
-capture, and a MAD session is steady after its first round. All graphs
-of a session share one memory pool, since one replays at a time: the
-disparity a step returns (``last_disp``) lives in that pool and holds
-its values until the next step only. ``fetch_disp`` therefore enqueues
+capture, and a SEQUENTIAL session is steady after its first round. A
+switch needs every body before its first launch, and ARGMAX may never
+visit some blocks: at its first train frame the session snapshots the
+state a step writes, then for each branch runs it eagerly on the side
+stream, restores the snapshot and captures it; the frame itself is the
+parent's first launch. All graphs of a session share one memory pool,
+since one runs at a time: the disparity a step returns (``last_disp``)
+lives in that pool and holds its values until the next step only. (A
+switched branch copies it, inside its graph, into one buffer, since the
+host does not know which branch ran.) ``fetch_disp`` therefore enqueues
 the copy to a pinned host buffer on the same stream right away.
 
 The kernel wrappers count their launches in ``ops.cuda_lib.LAUNCHES``
 when Python calls them, which under capture is once, with nothing
 launched. The session takes a capture's counts back out, keeps them with
-the graph, and adds them at every replay, so the counters go on meaning
-launches.
+the graph, and adds them at every direct replay, so the counters go on
+meaning launches. A switched launch counts its switch kernels
+(``graph_switch``) at once; which branch ran only the device knows, so
+the switch counts the branches it took on the device, and the session
+adds each branch's launches times its count when it syncs anyway
+(:meth:`~FusedOnlineSession.finalize`,
+:meth:`~FusedOnlineSession.block_until_ready`) or when asked
+(:meth:`~FusedOnlineSession.sync_launches`). That read also raises if a
+switch found ids that name no branch, where it ran no step.
 
 On a CPU device (the tests) the same step function runs eagerly; on the
 card ``use_graphs=False`` does the same, for comparisons.
@@ -61,11 +82,12 @@ each with its own branch (its sampled block's partial backward). With
 a frame replays N of them in stream order. With ``"unroll"`` a frame whose
 N streams all take one branch is one replay of a graph that holds the N
 streams' steps in order (so SEQUENTIAL, FIXED, FULL and NONE replay one
-graph a frame); a frame whose streams take different branches (PROBABILITY,
-RANDOM, ARGMAX) replays map's graphs. A graph per tuple of branches would
-be up to ``n_actions ** N`` captures, each an eager step and a capture;
-this way a branch has at most N + 1 graphs. The graphs read their
-stream's row of the arena: the module is
+graph a frame). Under PROBABILITY, RANDOM and ARGMAX, with either, one
+parent holds N switches in stream order, each over its stream's (stream,
+branch) graphs, so a frame is one launch even where the streams draw
+different blocks. A graph per tuple of branches would be up to
+``n_actions ** N`` captures; this way a branch has at most N + 1 graphs.
+The graphs read their stream's row of the arena: the module is
 bound to that row (:meth:`.arena.Arena.bind`) while its step runs eagerly
 and while it is captured. Each stream's disparity is copied, inside its
 graph, into one ``[N, ...]`` buffer, which is ``last_disp``.
@@ -112,20 +134,32 @@ from real_time_self_adaptive_deep_stereo_torch.adapt.engine import (
     metrics_from_sums,
 )
 from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+from real_time_self_adaptive_deep_stereo_torch.ops.graph_switch import (
+    GraphSwitch,
+    branch_sets,
+    branch_table,
+    switch_index_torch,
+)
 from real_time_self_adaptive_deep_stereo_torch.parallel import spatial
 from real_time_self_adaptive_deep_stereo_torch.parallel.sharding import local_slice
 from real_time_self_adaptive_deep_stereo_torch.utils import optim
 
 __all__ = ["FusedOnlineSession"]
 
-Branch = Tuple  # ("none",) | ("full",) | ("shared",) | ("mad", (k, ...))
+Branch = Tuple  # ("none",) | ("full",) | ("shared",) | ("mad", (k, ...)) | ("switch",)
+_SWITCH: Branch = ("switch",)  # the sampled blocks' branch, picked on the device
+_SAMPLED = ("ARGMAX", "RANDOM", "PROBABILITY")
 _FRAME_KEYS = ("left", "right", "target", "proxy")
+_STATE = ("scores", "loss_t1", "loss_t2", "last_mask", "step_count", "reset_count", "fetch_counter",
+          "cur_blocks", "metrics")
 
 
 class _Stream:
     """One stream's state: views of the session's tensors (row ``index``
     of each where the session has a stream axis), its generator, and the
-    blocks its next train step takes, as the host knows them."""
+    blocks its next train step takes where the host picks the branch (the
+    eager path, FIXED, SEQUENTIAL; a switched session leaves them
+    empty)."""
 
     def __init__(self, index: Optional[int], **tensors):
         self.index = index
@@ -319,6 +353,10 @@ class FusedOnlineSession:
                 "CUDA graphs of a width-sharded session under NCCL are not ported: "
                 "ROADMAP.md, queue 1"
             )
+        # the sampled MAD branches picked on the device, by a graph switch
+        self._switching = (
+            self.use_graphs and mode == "MAD" and sample_mode in _SAMPLED and not self.shared_forward
+        )
 
         if params is not None:
             engine.model.load_state_dict(params)
@@ -339,7 +377,12 @@ class FusedOnlineSession:
         self._graphs: Dict[Tuple, Tuple] = {}
         self._vmapped: Dict[str, Callable] = {}  # by branch kind: the vmapped step
         self.graph_launches: Dict[Tuple, Dict[str, int]] = {}
-        self._disp_out: Optional[torch.Tensor] = None  # [N, ...]: the streams' disparities
+        # the switch over the sampled branches (a slot a stream), and the
+        # graph keys of its bodies, [slot][branch]; built at the first
+        # sampled train frame
+        self._switch: Optional[Tuple[GraphSwitch, List[List[Tuple]]]] = None
+        # the streams' disparities ([N, ...]), or a switched session's one
+        self._disp_out: Optional[torch.Tensor] = None
         if on_cuda:
             self._side_stream = _side_stream(self.device)
             self._pool = torch.cuda.graph_pool_handle() if self.use_graphs else None
@@ -399,9 +442,7 @@ class FusedOnlineSession:
                 s if ns else None,
                 params=[row(p, s) for p in self._params],
                 opt={k: row(v, s) if k == "t" else [row(x, s) for x in v] for k, v in self.opt.items()},
-                **{k: row(getattr(self, k), s) for k in (
-                    "scores", "loss_t1", "loss_t2", "last_mask", "step_count", "reset_count",
-                    "fetch_counter", "cur_blocks", "metrics")},
+                **{k: row(getattr(self, k), s) for k in _STATE},
                 generator=torch.Generator(device=dev).manual_seed(int(seeds[s])),
             )
             for s in range(max(ns, 1))
@@ -411,9 +452,7 @@ class FusedOnlineSession:
             None,
             params=self._params,
             opt=self.opt,
-            **{k: getattr(self, k) for k in (
-                "scores", "loss_t1", "loss_t2", "last_mask", "step_count", "reset_count",
-                "fetch_counter", "cur_blocks", "metrics")},
+            **{k: getattr(self, k) for k in _STATE},
         )
         if self.mode == "MAD":
             m = self.num_blocks
@@ -428,6 +467,11 @@ class FusedOnlineSession:
                 self._seq_blocks = [
                     torch.tensor([(base + j) % n for j in range(m)], **i32) for base in range(n)
                 ]
+            else:
+                # the branches of a draw, and the table from the ids'
+                # bitmask to a branch (the switch's, on either path)
+                self._branch_sets = branch_sets(n, m)
+                self._branch_table = branch_table(n, m, dev)
             # owning block of every parameter element (shared-forward update)
             if self.shared_forward:
                 if self.arena is not None:
@@ -464,7 +508,7 @@ class FusedOnlineSession:
 
     def _resample(self, step: int) -> None:
         """Draw this frame's blocks of every stream into ``cur_blocks`` and,
-        where the host must pick a graph by them, into each stream's
+        where the host picks the branch by them, into each stream's
         ``host_blocks``."""
         n = self.n_actions
         if self.sample_mode == "FIXED":
@@ -477,17 +521,25 @@ class FusedOnlineSession:
             return
         for st in self._streams:
             st.cur_blocks.copy_(self._sample(st.scores, st.generator, step))
-        if not self.shared_forward:
-            # the one host read of a frame: the [num_blocks] ids of every
-            # stream, which depend on the scores and so on the previous
-            # frame's loss
-            ids = self.cur_blocks.tolist()
-            for st, row in zip(self._streams, ids if self.num_streams else [ids]):
-                st.host_blocks = tuple(sorted(set(row)))
+        if self.shared_forward or self._switching:
+            return  # the graph selects by the device's ids
+        # the eager path's host read: every stream's branch, by the switch's
+        # plain lookup of its [num_blocks] ids, which depend on the scores
+        # and so on the previous frame's loss
+        index = switch_index_torch(self.cur_blocks, self._branch_table, n).reshape(-1).tolist()
+        for st, k in zip(self._streams, index):
+            if k < 0:
+                raise RuntimeError(f"sampled blocks {st.cur_blocks.tolist()} name no branch")
+            st.host_blocks = self._branch_sets[k]
 
     @property
     def _host_blocks(self) -> Tuple[int, ...]:
-        """The blocks the next train step of the (first) stream takes."""
+        """The blocks the next train step of the (first) stream takes, as
+        the host picked them: meaningful on the eager path only. A session
+        that replays graphs raises (the device's ``cur_blocks`` is the
+        record there: a switched session never reads it)."""
+        if self.use_graphs:
+            raise RuntimeError("a session that replays graphs keeps its sampled blocks in cur_blocks only")
         return self._streams[0].host_blocks
 
     def _pick_branches(self, step: int) -> List[Branch]:
@@ -501,7 +553,11 @@ class FusedOnlineSession:
             self._resample(step)
         if not train:
             return [("none",)] * len(self._streams)
-        return [("shared",) if self.shared_forward else ("mad", st.host_blocks) for st in self._streams]
+        if self.shared_forward:
+            return [("shared",)] * len(self._streams)
+        if self._switching:
+            return [_SWITCH] * len(self._streams)
+        return [("mad", st.host_blocks) for st in self._streams]
 
     # ------------------------------------------------------------ the device step
     def _views(self, st: _Stream, block: Optional[int]):
@@ -802,14 +858,16 @@ class FusedOnlineSession:
 
     def _stream_step(self, st: _Stream, branch: Branch, frame: Dict[str, torch.Tensor]) -> None:
         """Stream ``st``'s step with the module bound to its arena row, its
-        disparity copied into row ``st.index`` of ``_disp_out``."""
-        self.arena.bind(st.index)
-        disp = self._device_step(st, branch, {k: v[st.index] for k, v in frame.items()})
+        disparity copied into row ``st.index`` of ``_disp_out`` (without
+        streams: into ``_disp_out``)."""
+        if st.index is not None:
+            self.arena.bind(st.index)
+            frame = {k: v[st.index] for k, v in frame.items()}
+        disp = self._device_step(st, branch, frame)
         if self._disp_out is None:  # the first (eager) step: never under capture
-            self._disp_out = torch.empty(
-                (self._rows, *disp.shape), dtype=disp.dtype, device=self.device
-            )
-        self._disp_out[st.index].copy_(disp)
+            lead = (self._rows,) if st.index is not None else ()
+            self._disp_out = torch.empty(lead + tuple(disp.shape), dtype=disp.dtype, device=self.device)
+        (self._disp_out if st.index is None else self._disp_out[st.index]).copy_(disp)
 
     # ----------------------------------------------------------- frames, graphs
     def _load_frame(self, frame: Dict) -> Dict[str, torch.Tensor]:
@@ -872,8 +930,14 @@ class FusedOnlineSession:
         current.wait_stream(side)
         if out is not None:
             out.record_stream(current)  # allocated on the side stream, read on this one
+        self._capture(key, run)
+        return out
+
+    def _capture(self, key: Tuple, run: Callable[[], Optional[torch.Tensor]], raw: bool = False) -> None:
+        """Capture ``run`` on the side stream as graph ``key`` (``raw``:
+        keeping its ``cudaGraph_t`` for a switch), with its launches."""
         before = dict(cuda_lib.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True) if raw else torch.cuda.CUDAGraph()
         # A garbage collection during the capture, in this thread or any
         # other, can free the CUDA objects (events, graphs, streams) of dead
         # sessions, and such a call ends the capture
@@ -882,7 +946,7 @@ class FusedOnlineSession:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream):
                 graph_out = run()
         finally:
             if collecting:
@@ -892,7 +956,77 @@ class FusedOnlineSession:
             cuda_lib.LAUNCHES[name] -= n  # a capture launches nothing
         self._graphs[key] = (graph, graph_out)
         self.graph_launches[key] = launches
-        return out
+
+    # ------------------------------------------------------------ the switch
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step writes: the parameters, the optimizer slots,
+        the controller, the metrics ring and the switched disparity."""
+        out = list(self._params)
+        for k, v in self.opt.items():
+            out += [v] if k == "t" else list(v)
+        out += [getattr(self, k) for k in _STATE if getattr(self, k) is not None]
+        return out + ([self._disp_out] if self._disp_out is not None else [])
+
+    def _snapshot(self) -> List[torch.Tensor]:
+        return [t.clone() for t in self._state_tensors()]
+
+    def _restore(self, saved: List[torch.Tensor]) -> None:
+        """Copy a :meth:`_snapshot` back (a disparity buffer made after it
+        keeps its values: the next launch overwrites it)."""
+        with torch.no_grad():
+            for t, v in zip(self._state_tensors(), saved):
+                t.copy_(v)
+
+    def _switch_key(self, st: _Stream, ks: Tuple[int, ...]) -> Tuple:
+        return ("mad", ks) if st.index is None else (st.index, ("mad", ks))
+
+    def _build_switch(self, frame: Dict[str, torch.Tensor]) -> GraphSwitch:
+        """The switch over every stream's sampled branches, at the first
+        train frame: each branch not captured yet is run eagerly on the
+        side stream (cuDNN's first-call set-up, the kernel libraries'
+        loading), the state restored from a snapshot, and captured; the
+        launches of those runs are taken back out."""
+        keys = [[self._switch_key(st, ks) for ks in self._branch_sets] for st in self._streams]
+        jobs = [
+            (self._switch_key(st, ks), lambda st=st, ks=ks: self._stream_step(st, ("mad", ks), frame))
+            for st in self._streams for ks in self._branch_sets if self._switch_key(st, ks) not in self._graphs
+        ]
+        before = dict(cuda_lib.LAUNCHES)
+        current, side = torch.cuda.current_stream(self.device), self._side_stream
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            saved = self._snapshot()
+            for key, run in jobs:
+                run()
+                self._restore(saved)
+                self._capture(key, run, raw=True)
+        current.wait_stream(side)
+        cuda_lib.LAUNCHES.update(before)
+        switch = GraphSwitch(
+            [[self._graphs[key][0].raw_cuda_graph() for key in row] for row in keys],
+            [st.cur_blocks for st in self._streams], self.n_actions, self._branch_table,
+        )
+        self._switch = (switch, keys)
+        return switch
+
+    def _switch_step(self, frame: Dict[str, torch.Tensor]) -> None:
+        """One launch of the switch: each stream's sampled branch, picked on
+        the device, the streams in order."""
+        switch = self._switch[0] if self._switch is not None else self._build_switch(frame)
+        switch.launch()
+
+    def sync_launches(self) -> None:
+        """Add the switched launches' kernel launches to
+        ``ops.cuda_lib.LAUNCHES``: each branch's captured launches times
+        the times the device took it since the last call. Waits for the
+        device (``finalize`` and ``block_until_ready`` call it); raises if
+        a switch found sampled ids that name no branch."""
+        if self._switch is not None:
+            switch, keys = self._switch
+            for row, counts in zip(keys, switch.taken().tolist()):
+                for key, c in zip(row, counts):
+                    for name, n in self.graph_launches[key].items():
+                        cuda_lib.LAUNCHES[name] += c * n
 
     # -------------------------------------------------------------------- api
     def step(self, frame: Dict) -> None:
@@ -913,7 +1047,10 @@ class FusedOnlineSession:
             raise ValueError(f"a frame of a {ns}-stream session carries a leading [{ns}] axis")
         bufs = self._load_frame(frame)
         branches = self._pick_branches(self._host_step)
-        if not ns:
+        if branches[0] == _SWITCH:  # the host counts dilation and sampling alike for all streams
+            self._switch_step(bufs)
+            self.last_disp = self._disp_out
+        elif not ns:
             (branch,) = branches
             st = self._streams[0]
             step = self._sharded_step if self._sharded else self._device_step
@@ -1029,7 +1166,9 @@ class FusedOnlineSession:
         ``steps`` and, with metrics, ``epe``, ``bad3``, ``d1``, ``loss``
         per frame. With streams every array has a leading ``[N]`` axis and
         ``steps`` is the count common to the streams; with streams over a
-        mesh, every rank gathers all N."""
+        mesh, every rank gathers all N. Adds the switched launches' kernel
+        launches to the counters (:meth:`sync_launches`)."""
+        self.sync_launches()
         nsteps = int(self.step_count.max().item())
         host = {
             "scores": self.scores.cpu().numpy(),
@@ -1112,6 +1251,8 @@ class FusedOnlineSession:
         return materialize
 
     def block_until_ready(self) -> None:
-        """Wait until every dispatched step has run."""
+        """Wait until every dispatched step has run, and add the switched
+        launches' kernel launches to the counters (:meth:`sync_launches`)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.sync_launches()

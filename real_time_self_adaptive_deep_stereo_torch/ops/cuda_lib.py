@@ -70,10 +70,20 @@ _SIGNATURES = {
         "warp_tile_image_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
         "warp_tile_features_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     },
+    "graph_switch": {
+        # launches the parent graph, whose switch kernels run on the device
+        "graph_switch": [_P, _P],
+        "graph_switch_build": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+        "graph_switch_destroy": [_P],
+    },
 }
+# entry points that launch no kernel
+_HOST_ENTRIES = ("graph_switch_build", "graph_switch_destroy")
 # Kernel launches since the last reset_launches(), by kernel name. Each
 # wrapper adds one where it launches its kernel, and nowhere else.
-LAUNCHES: Dict[str, int] = {fn: 0 for fns in _SIGNATURES.values() for fn in fns}
+LAUNCHES: Dict[str, int] = {
+    fn: 0 for fns in _SIGNATURES.values() for fn in fns if fn not in _HOST_ENTRIES
+}
 
 # ptxas report (registers, spills) of each library built by this process
 BUILD_LOGS: Dict[str, str] = {}

@@ -723,9 +723,8 @@ def _smooth_frames(n, h, w, seed):
     return out
 
 
-def _fixed_mad_session(use_graphs, warp_mode="auto", optimizer="momentum", **kw):
-    """A fused MAD session on MADNet (bulkhead, seed 0) that trains block 3
-    every frame and never resets."""
+def _mad_session(use_graphs, warp_mode="auto", optimizer="momentum", **kw):
+    """A fused MAD session on MADNet (bulkhead, seed 0) that never resets."""
     from real_time_self_adaptive_deep_stereo_torch.adapt import (
         AdaptationEngine,
         FusedOnlineSession,
@@ -744,9 +743,13 @@ def _fixed_mad_session(use_graphs, warp_mode="auto", optimizer="momentum", **kw)
                 p.fill_(-1.0)
     blocks = make_blocks(load_block_config(default_block_config_path("MADNet")), model)
     eng = AdaptationEngine(model, blocks, lr=1e-4, warp_mode=warp_mode, optimizer=optimizer)
-    return FusedOnlineSession(
-        eng, mode="MAD", sample_mode="FIXED", fixed_id=3, ssim_th=1e9, max_steps=8, use_graphs=use_graphs, **kw
-    )
+    return FusedOnlineSession(eng, mode="MAD", ssim_th=1e9, use_graphs=use_graphs, **{"max_steps": 8, **kw})
+
+
+def _fixed_mad_session(use_graphs, warp_mode="auto", optimizer="momentum", **kw):
+    """A fused MAD session on MADNet (bulkhead, seed 0) that trains block 3
+    every frame and never resets."""
+    return _mad_session(use_graphs, warp_mode, optimizer, sample_mode="FIXED", fixed_id=3, **kw)
 
 
 def test_fused_mad_step_replayed_equals_eager(dev):
@@ -830,6 +833,188 @@ def test_fused_fp16_pipelined_disparity_matches_fp32(dev):
         ulp = np.spacing(np.abs(full).astype(np.float16)).astype(np.float32)
         err = np.abs(half.astype(np.float32) - full) - (0.5 * ulp + 1e-5 * float(np.abs(full).max()))
         assert err.max() <= 0
+
+
+# ------------------------------------------- the on-device block switch
+
+
+def _switch_over_fills(dev, n, m, slots=1):
+    """A GraphSwitch whose branch k of slot s writes k + 1 into ``out[s]``:
+    (switch, out, the slots' ids)."""
+    from real_time_self_adaptive_deep_stereo_torch.ops.graph_switch import GraphSwitch, branch_sets, branch_table
+
+    out = torch.zeros(slots, dtype=torch.int32, device=dev)
+    ids = [torch.zeros(m, dtype=torch.int32, device=dev) for _ in range(slots)]
+    graphs = []
+    stream = torch.cuda.Stream(dev)
+    for s in range(slots):
+        row = []
+        for k in range(len(branch_sets(n, m))):
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(g, stream=stream):
+                out[s : s + 1].fill_(k + 1)
+            row.append(g)
+        graphs.append(row)
+    switch = GraphSwitch([[g.raw_cuda_graph() for g in row] for row in graphs], ids, n, branch_table(n, m, dev))
+    switch._graphs = graphs  # the bodies' memory stays theirs
+    return switch, out, ids
+
+
+@pytest.mark.parametrize("n,m", [(5, 1), (5, 2), (6, 3)])
+def test_graph_switch_takes_the_branch_of_every_block_set(dev, n, m):
+    """Every draw of m distinct blocks of n, in any order, runs the branch
+    the plain lookup names, once, and is counted there; ids that name no
+    branch (repeated, out of range) run none and raise at the next read."""
+    import itertools
+
+    from real_time_self_adaptive_deep_stereo_torch.ops.graph_switch import branch_table, switch_index_torch
+
+    switch, out, (ids,) = _switch_over_fills(dev, n, m)
+    table = branch_table(n, m, dev)
+    before = cuda_lib.LAUNCHES["graph_switch"]
+    want = torch.zeros(len(table[table >= 0]), dtype=torch.int64)
+    draws = list(itertools.permutations(range(n), m))[::3]
+    for draw in draws:
+        ids.copy_(torch.tensor(draw, dtype=torch.int32))
+        out.zero_()
+        switch.launch()
+        k = int(switch_index_torch(ids, table, n))
+        assert int(out[0]) == k + 1, draw
+        want[k] += 1
+    assert cuda_lib.LAUNCHES["graph_switch"] == before + len(draws)
+    assert switch.taken()[0].tolist() == want.tolist()
+    assert switch.taken().sum() == 0  # since the last read
+    for bad in ([0] * m, [n] + list(range(m - 1)), [-1] + list(range(m - 1))):
+        if len(set(bad)) == m and all(0 <= b < n for b in bad):
+            continue  # m = 1: [0] is a branch
+        ids.copy_(torch.tensor(bad, dtype=torch.int32))
+        out.zero_()
+        switch.launch()
+        assert int(out[0]) == 0 and int(switch_index_torch(ids, table, n)) == -1, bad
+        with pytest.raises(RuntimeError, match="name no branch"):
+            switch.taken()
+        switch.status[-1].zero_()
+    switch.close()
+
+
+def test_graph_switch_slots_run_in_order(dev):
+    """A parent of three slots: each slot's switch reads its own ids."""
+    switch, out, ids = _switch_over_fills(dev, 5, 1, slots=3)
+    for draw in ([4, 0, 2], [1, 1, 3]):
+        for t, k in zip(ids, draw):
+            t.fill_(k)
+        switch.launch()
+        assert out.tolist() == [k + 1 for k in draw]
+    assert switch.taken().tolist() == [[0, 1, 0, 0, 1], [1, 1, 0, 0, 0], [0, 0, 1, 1, 0]]
+
+
+def _trail(session, trail):
+    """The blocks drawn for the frame just stepped, a device copy (read at
+    the end, so that a steady frame reads nothing)."""
+    trail.append(session.cur_blocks.clone())
+
+
+@pytest.fixture
+def deterministic():
+    """cuDNN's deterministic algorithms: two runs of one trajectory then
+    agree bit for bit (its default backward does not add in a fixed order,
+    and a two-block trajectory carries the difference far within a few
+    frames, between two eager runs as between a switched and an eager one)."""
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("num_blocks", [1, 2])
+def test_switched_probability_session_follows_its_eager_twin(dev, deterministic, num_blocks):
+    """Fused MAD under PROBABILITY, its branch picked on the device, against
+    the same session run eagerly, both on cuDNN's deterministic algorithms:
+    the same blocks frame by frame and, bit for bit, the same losses, EPE,
+    controller and adapted weights; after the first frame every frame runs
+    with every host sync an error. ``finalize`` adds the switched
+    launches: the eager twin's launches plus one switch kernel a frame."""
+    frames = _smooth_frames(7, 64, 128, 61)
+    kw = dict(warp_mode="mxu", sample_mode="PROBABILITY", num_blocks=num_blocks, seed=4)
+    cuda_lib.reset_launches()
+    eager = _mad_session(False, **kw)
+    eager_trail = []
+    for f in frames:
+        eager.step(f)
+        _trail(eager, eager_trail)
+    eager_stats = eager.finalize()
+    eager_launches = dict(cuda_lib.LAUNCHES)
+    cuda_lib.reset_launches()
+    switched = _mad_session(True, **kw)
+    trail = []
+    switched.step(frames[0])  # every branch's eager run and capture, then the switch's first launch
+    _trail(switched, trail)
+    assert len(switched._graphs) == (5 if num_blocks == 1 else 10) and switched._switch[0].n_slots == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames[1:]:
+            switched.step(f)
+            _trail(switched, trail)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with pytest.raises(RuntimeError, match="cur_blocks"):
+        switched._host_blocks
+    stats = switched.finalize()
+    got = [sorted(t.tolist()) for t in trail]
+    assert got == [sorted(t.tolist()) for t in eager_trail]
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+        **{k: v for k, v in eager_launches.items() if v}, "graph_switch": len(frames)
+    }
+    for key in ("loss", "epe", "scores", "fetch_counter"):
+        np.testing.assert_array_equal(stats[key], eager_stats[key], err_msg=key)
+    assert int(stats["fetch_counter"].sum()) == num_blocks * len(frames)
+    assert torch.equal(switched.arena.flat, eager.arena.flat)
+    assert not torch.equal(eager.arena.flat, eager.arena.flat0)
+    assert torch.equal(switched.last_disp, eager.last_disp) and switched.last_disp is switched._disp_out
+
+
+@pytest.mark.parametrize("impl", ["map", "unroll"])
+def test_switched_streams_follow_their_eager_twin(dev, deterministic, impl):
+    """Two streams under PROBABILITY with their own seeds, the switch on
+    the device: under "map" and "unroll" alike a frame is one launch of
+    one parent of a switch a stream, whatever blocks the streams drew; the
+    blocks, losses and weights are the eager session's, bit for bit (cuDNN
+    deterministic)."""
+    n = 2
+    per = [_smooth_frames(6, 64, 128, 71 + s) for s in range(n)]
+    frames = [{k: np.stack([per[s][i][k] for s in range(n)]) for k in per[0][i]} for i in range(6)]
+    kw = dict(warp_mode="mxu", sample_mode="PROBABILITY", seed=[2, 3], num_streams=n, stream_impl=impl)
+    eager, switched = _mad_session(False, **kw), _mad_session(True, **kw)
+    trails = ([], [])
+    cuda_lib.reset_launches()
+    for f in frames:
+        for sess, trail in zip((eager, switched), trails):
+            sess.step(f)
+            _trail(sess, trail)
+    # one parent of n slots, each launch a switch kernel a slot; its bodies
+    # the only graphs, never replayed on their own
+    assert switched._switch[0].n_slots == n and cuda_lib.LAUNCHES["graph_switch"] == n * len(frames)
+    assert len(switched._graphs) == n * 5
+    assert [t.tolist() for t in trails[0]] == [t.tolist() for t in trails[1]]
+    assert any(t[0, 0] != t[1, 0] for t in trails[1])  # the streams drew different blocks
+    a, b = switched.finalize(), eager.finalize()
+    for key in ("loss", "fetch_counter"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    assert torch.equal(switched.arena.flat, eager.arena.flat)
+
+
+def test_switch_with_ids_of_no_branch_raises_and_runs_no_step(dev):
+    """Ids written between resamples that name no branch: the switch runs
+    no step (the step count stays) and the next sync raises."""
+    frames = _smooth_frames(3, 64, 128, 81)
+    session = _mad_session(True, warp_mode="mxu", sample_mode="ARGMAX", sample_frequency=2)
+    session.step(frames[0])
+    session.block_until_ready()
+    session.cur_blocks.fill_(7)  # frame 1 resamples nothing
+    session.step(frames[1])
+    with pytest.raises(RuntimeError, match="name no branch"):
+        session.block_until_ready()
+    assert int(session.step_count) == 1
 
 
 # ------------------------------------------------ bf16: the precision modes

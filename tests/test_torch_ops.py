@@ -432,8 +432,13 @@ def test_kernel_c_signatures_match_ctypes():
             params = [p.strip() for p in m.group(1).split(",")]
             assert [ctype(p) for p in params] == argtypes, fn
             declared += 1
-    assert set(cuda_lib.LAUNCHES) == {fn for fns in cuda_lib._SIGNATURES.values() for fn in fns}
-    assert declared == 16  # correlation 8 (register and wide, each way, fp32 and bf16), warp 4, warp_tile 4
+    assert set(cuda_lib.LAUNCHES) == {
+        fn for fns in cuda_lib._SIGNATURES.values() for fn in fns if fn not in cuda_lib._HOST_ENTRIES
+    }
+    assert "graph_switch" in cuda_lib.LAUNCHES and len(cuda_lib._HOST_ENTRIES) == 2
+    # correlation 8 (register and wide, each way, fp32 and bf16), warp 4,
+    # warp_tile 4, graph_switch 3 (the launch and two host entries)
+    assert declared == 19
 
 
 def test_warp_grid_checks_follow_the_kernels_grids():

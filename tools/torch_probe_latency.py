@@ -233,6 +233,7 @@ def probe(h: int = H, w: int = W, n: int = N, warmup: int = WARMUP, device=None,
         lats, enq, _ = run_variant(name, sess, frames, n)
         recs.append(report(name, lats, {"bytes": nbytes, "enqueue_p50_ms": float(np.median(enq)),
                                         "checked_frames": n}, log))
+    sess.block_until_ready()  # counts the launches the device switched to
     del sess
     sess, frames = build_session(torch.float16, h, w, n, warmup, device)
     _warm(sess, frames, warmup)
@@ -242,6 +243,7 @@ def probe(h: int = H, w: int = W, n: int = N, warmup: int = WARMUP, device=None,
         if name == "pipelined_f16":
             extra["staleness_frames"] = 1
         recs.append(report(name, lats, extra, log))
+    sess.block_until_ready()
     return recs
 
 
