@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only | --precision-only
                            | --cli-only | --train-only | --demo-only | --parallel-only | --spatial-only
-                           | --tools-only]
+                           | --tools-only | --kitti-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -340,6 +340,25 @@ Phases, each of which raises on failure (nothing is caught):
    batch's must lie within 1e-4 of the largest of batch 1's. Each path's
    launches counted from 0 and held to the kernels it must run (the
    offline tool's exactly).
+15. The papers' KITTI protocol runner, ``tools/torch_kitti_eval.py``
+   (``main``, in-process), over a KITTI raw layout of the fixture scenes at
+   320x1216 (``write_kitti_tree``: sequence ``city``, one drive of 17
+   frames, and ``road``, two drives of 9 under two date directories; one
+   frame of each drive without ground truth, dropped: 16 scored frames a
+   sequence), from ``weights_scene01.npz``: (a) the CVPR table, MADNet
+   NONE, MAD and FULL, SEQUENTIAL, and (b) the TPAMI one (``--proxyRoot``,
+   the ground truth again), MAD SEQUENTIAL, each sequence's D1 within 0.25
+   points of the JAX tool's row (``kitti_runs`` of
+   ``torch_cli_reference.json``), the frames equal, EPE and resets printed
+   beside the JAX row's; (c) the tool's defaults, MAD under PROBABILITY,
+   the block switched on the device; (d) DispNet-Corr1D FULL over
+   ``dispnet_full_6.json``, 8 frames a sequence, seeded weights, its FPS
+   beside MADNet MAD's; (e) ``--listOnly``, and a TF1 checkpoint
+   (``tf1_madnet_tiny``) imported into the tool's cache bit for bit and
+   served, NONE, 2 frames. Every run's launches counted from 0 and summed
+   by the blocks its fetch counter holds; the rows' frames, finite D1 and
+   EPE and ``kitti_table.csv`` checked; FPS and the phase's wall time
+   printed.
 
 Phase 3 also holds the graph switch (``graph_switch``, the counterpart of
 the JAX session's ``lax.switch``) over bodies of one fill each, at 5 blocks
@@ -501,6 +520,27 @@ DEMO_REFERENCE_RUNS = {
     "demo_scene_MAD": ["--imageShape", "-1", "--cropShape", str(H), str(W), "--mode", "MAD",
                        "--sampleMode", "SEQUENTIAL"],
 }
+# phase 15: tools/torch_kitti_eval.py over a KITTI raw layout of the fixture
+# scenes (write_kitti_tree): drive -> (date directory, scenes cycled, frames,
+# the frames without ground truth, which the tool drops)
+KITTI_DRIVES = {
+    "2011_09_26_drive_0001_sync": ("2011_09_26", CLI_SCENES["scene"], 17, (16,)),
+    "2011_09_26_drive_0002_sync": ("2011_09_26", CLI_SCENES["asym"], 9, (4,)),
+    "2011_09_28_drive_0003_sync": ("2011_09_28", CLI_SCENES["asym"], 9, (0,)),
+}
+KITTI_SEQUENCES = {"city": ("2011_09_26_drive_0001_sync",),
+                   "road": ("2011_09_26_drive_0002_sync", "2011_09_28_drive_0003_sync")}
+KITTI_FRAMES = 16  # the frames with ground truth, a sequence
+KITTI_DN_FRAMES = 8
+# the runs held against the JAX tool's rows (the file's "kitti_runs", made by
+# tools/torch_cli_reference.py --kitti): name -> (proxy labels, flags); the
+# tool's defaults otherwise (MADNet, MadNet_full.json, lr 1e-4, SSIMTh 0.5, seed 0)
+KITTI_REFERENCE_RUNS = {
+    "cvpr_NONE": (False, ["--mode", "NONE", "--sampleMode", "SEQUENTIAL"]),
+    "cvpr_MAD": (False, ["--mode", "MAD", "--sampleMode", "SEQUENTIAL"]),
+    "cvpr_FULL": (False, ["--mode", "FULL", "--sampleMode", "SEQUENTIAL"]),
+    "tpami_MAD": (True, ["--mode", "MAD", "--sampleMode", "SEQUENTIAL"]),
+}
 
 
 def write_cli_list(directory, scenes, n: int, proxy: bool = False) -> str:
@@ -515,6 +555,36 @@ def write_cli_list(directory, scenes, n: int, proxy: bool = False) -> str:
         lines.append(",".join(str(FIXTURE_DIR / f"{s}_{part}.png") for part in parts))
     path.write_text("\n".join(lines) + "\n")
     return str(path)
+
+
+def write_kitti_tree(directory) -> dict:
+    """A KITTI raw layout of the fixture scenes under ``directory``:
+    ``raw/<date>/<drive>/image_02/data/0000000NNN.png`` (left, a link to
+    the scene's), ``image_03/...`` (right), ``gt/<drive>/0000000NNN.png``
+    (the 16-bit ground truth) and ``proxy/<drive>/...`` (the ground truth
+    again: the repository holds no proxy maps), by ``KITTI_DRIVES``.
+    Returns the roots and the ``--sequences`` spec of ``KITTI_SEQUENCES``."""
+    root = Path(directory)
+    tree = {k: str(root / k) for k in ("raw", "gt", "proxy")}
+    for drive, (date, scenes, n, no_gt) in KITTI_DRIVES.items():
+        ddir = root / "raw" / date / drive
+        for j in range(n):
+            name = f"{j:010d}.png"
+            links = {ddir / "image_02" / "data": "left", ddir / "image_03" / "data": "right"}
+            if j not in no_gt:
+                links.update({root / "gt" / drive: "gt", root / "proxy" / drive: "gt"})
+            for folder, part in links.items():
+                folder.mkdir(parents=True, exist_ok=True)
+                os.symlink(FIXTURE_DIR / f"{scenes[j % len(scenes)]}_{part}.png", folder / name)
+    tree["sequences"] = ";".join(f"{k}={','.join(v)}" for k, v in KITTI_SEQUENCES.items())
+    return tree
+
+
+def kitti_argv(tree: dict, out: str, proxy: bool, flags, weights=CLI_WEIGHTS) -> list:
+    """``tools/torch_kitti_eval.py``'s (and ``tools/kitti_eval.py``'s) flags
+    over :func:`write_kitti_tree`'s ``tree``."""
+    return ["--kittiRoot", tree["raw"], "--gtRoot", tree["gt"], *(["--proxyRoot", tree["proxy"]] if proxy else []),
+            "--weights", str(weights), "--sequences", tree["sequences"], "--output", out, *flags]
 
 
 def demo_png_metrics(out_dir, list_file, crop=(H, W)):
@@ -5737,6 +5807,182 @@ def run_tools_phase(state, profile_dir):
     return launches, ms
 
 
+# ----------------------------------------------------------------- phase 15
+KITTI_TABLE_HEADER = "sequence,mode,frames,avg_d1,avg_epe,fps,resets"
+
+
+def fetched_blocks(out: Path) -> list:
+    """The fetch counter of a run of the tool's runner: the ``fetch_counter``
+    line of ``cli/adapt.py``'s stats.csv, or the last line of
+    ``cli/adapt_continual.py``'s histogram.csv."""
+    import ast
+
+    stats = out / "stats.csv"
+    if stats.exists():
+        line = next(x for x in stats.read_text().splitlines() if x.startswith("fetch_counter,"))
+        return [int(v) for v in line.split(",")[1:]]
+    return list(ast.literal_eval((out / "histogram.csv").read_text().strip().splitlines()[-1]))
+
+
+def kitti_run(tool, tag, argv, launches, per_frame, sampled, frames=KITTI_FRAMES):
+    """``tools/torch_kitti_eval.py``'s ``main`` on ``argv``, the launch
+    counters set to 0 just before and read just after: they must sum
+    ``per_frame(block)`` over each sequence's frames, the blocks
+    ``0, 1, .., 4, 0, ..`` in turn, or, where ``sampled``, as the run's fetch
+    counter has them (``None`` for NONE and FULL). Each sequence of
+    ``KITTI_SEQUENCES`` must give a row of ``frames`` frames with finite D1
+    and EPE, and the table its header and rows. Returns {sequence: row}."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    args = tool.build_argparser().parse_args(argv)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    rows = tool.main(args)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    want = {}
+    for r in rows:
+        out = Path(args.output) / f"{r['sequence']}__{args.mode.lower()}"
+        got = fetched_blocks(out)
+        if args.mode != "MAD":
+            blocks = [None] * r["frames"]
+        elif sampled:
+            blocks = [k for k, c in enumerate(got) for _ in range(c)]
+        else:
+            blocks = [i % len(got) for i in range(r["frames"])]
+            if got != [blocks.count(k) for k in range(len(got))]:
+                raise AssertionError(f"{tag} {r['sequence']}: fetch counter {got}, SEQUENTIAL wants {blocks}")
+        if len(blocks) != r["frames"]:
+            raise AssertionError(f"{tag} {r['sequence']}: {len(blocks)} blocks fetched over {r['frames']} frames")
+        for k in blocks:
+            for name, v in per_frame(k).items():
+                want[name] = want.get(name, 0) + v
+    want = {k: v for k, v in want.items() if v}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, want {want}")
+    launches[tag] = dict(cuda_lib.LAUNCHES)
+    by_seq = {r["sequence"]: r for r in rows}
+    if list(by_seq) != list(KITTI_SEQUENCES):
+        raise AssertionError(f"{tag}: rows {rows}")
+    for seq, r in by_seq.items():
+        if r["frames"] != frames or r["mode"] != args.mode or not np.isfinite([r["avg_d1"], r["avg_epe"]]).all():
+            raise AssertionError(f"{tag} {seq}: row {r}, want {frames} frames of finite D1 and EPE")
+    table = (Path(args.output) / "kitti_table.csv").read_text().splitlines()
+    if table[0] != KITTI_TABLE_HEADER or len(table) != 1 + len(rows):
+        raise AssertionError(f"{tag}: kitti_table.csv {table}")
+    log(f"{tag}: {[(s, r['frames'], r['avg_d1'], r['avg_epe'], r['fps'], r['resets']) for s, r in by_seq.items()]}"
+        f" (sequence, frames, D1 %, EPE, FPS, resets); wall {wall:.2f} s with set-up; launches {counts}")
+    return by_seq
+
+
+def run_kitti_phase(state, profile_dir):
+    """Phase 15: ``tools/torch_kitti_eval.py``, the papers' per-sequence
+    protocol, through its ``main`` on the card over a KITTI raw layout of
+    the fixture scenes at 320x1216 (:func:`write_kitti_tree`: ``city`` 16
+    scored frames of one drive, ``road`` 16 of two drives under two dates),
+    from ``weights_scene01.npz``. (a) The CVPR table, MADNet NONE, MAD and
+    FULL, SEQUENTIAL, and (b) the TPAMI one, proxy labels, MAD SEQUENTIAL:
+    each sequence's D1 within CLI_D1_BOUND points of the JAX tool's row
+    (``kitti_runs`` of ``torch_cli_reference.json``), the frames equal. (c)
+    The tool's defaults, MAD under PROBABILITY, the block switched on the
+    device; (d) DispNet-Corr1D FULL over ``dispnet_full_6.json``, 8 frames
+    a sequence, seeded weights; (e) ``--listOnly``, then a TF1 checkpoint
+    (``tests/fixtures/tf1_madnet_tiny``) imported into the tool's cache, bit
+    for bit, and served (NONE, 2 frames). Each run's launches counted from
+    0. Returns (launches by run, ms a frame by run and sequence)."""
+    import tempfile
+
+    from real_time_self_adaptive_deep_stereo_torch.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+    from real_time_self_adaptive_deep_stereo_torch.utils.checkpoint import save_params
+
+    del state, profile_dir  # the fixture's trained weights; nothing profiled
+    t0 = time.perf_counter()
+    reference = json.loads(CLI_REFERENCE.read_text())["kitti_runs"]
+    tool = load_tool("torch_kitti_eval")
+    launches, ms, rows = {}, {}, {}
+    mad = lambda k: cli_launches("MAD", k)  # noqa: E731  (MADNet with the bulkhead, `cuda` warps)
+    per_frame = {
+        "cvpr_NONE": lambda k: cli_launches("NONE", 0),
+        "cvpr_MAD": mad,
+        "cvpr_FULL": lambda k: cli_launches("FULL", 0),
+        "tpami_MAD": lambda k: continual_launches("MAD", k),  # the proxy loss warps no image
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tree = write_kitti_tree(tmp / "kitti")
+
+        def run(name, proxy, flags, per, sampled=False, frames=KITTI_FRAMES, weights=CLI_WEIGHTS):
+            tag = f"KITTI_{name.upper()}"
+            argv = kitti_argv(tree, str(tmp / name), proxy, flags, weights)
+            rows[name] = kitti_run(tool, tag, argv, launches, per, sampled, frames)
+            for seq, r in rows[name].items():
+                ms[f"{tag}_{seq.upper()}_FRAME"] = 1e3 / r["fps"]
+            return rows[name]
+
+        # (a), (b): against the JAX tool's rows
+        for name, (proxy, flags) in KITTI_REFERENCE_RUNS.items():
+            got, ref = run(name, proxy, flags, per_frame[name]), reference[name]["rows"]
+            for seq, r in got.items():
+                want = ref[seq]
+                delta = r["avg_d1"] - want["avg_d1"]
+                log(f"KITTI {name} {seq}: D1 {r['avg_d1']:.3f} vs the JAX tool's {want['avg_d1']:.3f} (delta "
+                    f"{delta:+.4f}, bound {CLI_D1_BOUND}); EPE {r['avg_epe']:.3f} vs {want['avg_epe']:.3f}; resets "
+                    f"{r['resets']} vs {want['resets']}; frames {r['frames']} vs {want['frames']}; "
+                    f"{r['fps']:.2f} FPS")
+                if r["frames"] != want["frames"] or not abs(delta) <= CLI_D1_BOUND:
+                    raise AssertionError(f"KITTI {name} {seq}: {r} against the JAX tool's {want}")
+
+        # (c) the papers' default configuration: MAD, PROBABILITY, the block picked on the device
+        run("default_MAD_PROBABILITY", False, ["--mode", "MAD"], lambda k: {**mad(k), "graph_switch": 1},
+            sampled=True)
+
+        # (d) DispNet-Corr1D, FULL, 8 frames a sequence, beside MADNet's MAD
+        dn_weights = tmp / "dispnet_seeded.npz"
+        save_params(str(dn_weights), seeded_dispnet_params(1))
+        run("dispnet_FULL", False, ["--mode", "FULL", "--modelName", "Dispnet", "--blockConfig", DN_BLOCK_CONFIG,
+                                    "--maxFrames", str(KITTI_DN_FRAMES)],
+            lambda k: dn_launches("FULL"), frames=KITTI_DN_FRAMES, weights=dn_weights)
+        for seq in KITTI_SEQUENCES:
+            dn, mn = rows["dispnet_FULL"][seq], rows["cvpr_MAD"][seq]
+            log(f"KITTI {seq}, the CVPR paper's comparison on the card: DispNet-Corr1D FULL {dn['fps']:.2f} "
+                f"FPS (D1 {dn['avg_d1']:.3f}, seeded weights, {dn['frames']} frames) against MADNet MAD "
+                f"{mn['fps']:.2f} FPS (D1 {mn['avg_d1']:.3f}, {mn['frames']} frames)")
+
+        # (e) --listOnly: the lists alone, nothing launched
+        out = tmp / "list_only"
+        cuda_lib.reset_launches()
+        listed = tool.main(tool.build_argparser().parse_args(kitti_argv(tree, str(out), True, ["--listOnly"])))
+        lines = {seq: len((out / f"{seq}.csv").read_text().splitlines()) for seq in KITTI_SEQUENCES}
+        if listed != [] or any(cuda_lib.LAUNCHES.values()) or set(lines.values()) != {KITTI_FRAMES}:
+            raise AssertionError(f"KITTI --listOnly: rows {listed}, lines {lines}, launches {dict(cuda_lib.LAUNCHES)}")
+        log(f"KITTI --listOnly: lists of {lines} frames (left, right, gt, proxy), no run, nothing launched")
+
+        # (e) the TF1 route: the checkpoint imported into the tool's cache, then served
+        got = run("tf1_NONE", False, ["--mode", "NONE", "--maxFrames", "2"], per_frame["cvpr_NONE"], frames=2,
+                  weights=TF1_FIXTURE / "model.ckpt")
+        name_map = get_stereo_net("MADNet", device="cpu").tf_name_map()
+        with np.load(TF1_FIXTURE / "values.npz") as v, np.load(tmp / "tf1_NONE" / "imported_weights.npz") as cache:
+            for name in v.files:
+                if not np.array_equal(cache["/".join(name_map[name])], v[name]):
+                    raise AssertionError(f"KITTI TF1: {name} differs in the tool's cache")
+            log(f"KITTI TF1: {len(v.files)} variables of {TF1_FIXTURE.name} in the tool's cache "
+                f"imported_weights.npz ({len(cache.files)} arrays, the rest the port's seeded init) bit for bit; "
+                f"served {[(s, r['frames'], r['avg_d1']) for s, r in got.items()]}")
+    assert_tf32("highest")
+
+    log("KITTI table on the card (320x1216; run, sequence, frames, D1 %, EPE, FPS, resets | the JAX tool's frames, "
+        "D1, EPE, resets on the CPU):")
+    for name, by_seq in rows.items():
+        for seq, r in by_seq.items():
+            ref = reference.get(name, {}).get("rows", {}).get(seq)
+            tail = f" | {ref['frames']} {ref['avg_d1']:.3f} {ref['avg_epe']:.3f} {ref['resets']}" if ref else ""
+            log(f"KITTI {name:<24} {seq:<5} {r['frames']:>3} {r['avg_d1']:>8.3f} {r['avg_epe']:>7.3f} "
+                f"{r['fps']:>8.2f} {r['resets']:>3}{tail}")
+    log(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
+    return launches, ms
+
+
 def profile_frames(session, frames, out: Path, tag: str):
     """Kernel time by name over a few steady frames (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -5832,6 +6078,8 @@ def main() -> int:
     ap.add_argument("--tools-only", action="store_true",
                     help="check the kernels at the tools' 384x1280 and run the tools' phase (14) alone, "
                          "without the result lines")
+    ap.add_argument("--kitti-only", action="store_true",
+                    help="run the KITTI protocol runner's phase (15) alone, without the result lines")
     ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)  # a rank of phase 12 or 13
     ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5840,6 +6088,7 @@ def main() -> int:
         return 1
     if args.dp_rank is not None:
         return dp_rank_main(args.dp_rank, Path(args.dp_dir))
+    t_script = time.perf_counter()
 
     from real_time_self_adaptive_deep_stereo_torch import ops
     from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
@@ -5885,13 +6134,14 @@ def main() -> int:
         log(card)
         log("precision checked; no result lines (--precision-only)")
         return 0
-    if args.cli_only or args.train_only or args.demo_only:
-        phase = run_cli_phase if args.cli_only else run_train_phase if args.train_only else run_demo_phase
+    if args.cli_only or args.train_only or args.demo_only or args.kitti_only:
+        phase = (run_cli_phase if args.cli_only else run_train_phase if args.train_only
+                 else run_demo_phase if args.demo_only else run_kitti_phase)
         _, frame_ms = phase(None, args.profile)
         for path, ms in frame_ms.items():
             log(f"session {path} ms {ms!r}")
         log(card)
-        log("CLIs checked; no result lines (--cli-only, --train-only, --demo-only)")
+        log("CLIs checked; no result lines (--cli-only, --train-only, --demo-only, --kitti-only)")
         return 0
     if args.parallel_only:
         rows = {name: [] for name in REPLACES}
@@ -5952,7 +6202,7 @@ def main() -> int:
     check_steps_against_plain(state)
     check_reset(state)
     for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision, run_cli_phase,
-                  run_train_phase, run_demo_phase, run_parallel, run_phase13, run_tools_phase):
+                  run_train_phase, run_demo_phase, run_parallel, run_phase13, run_tools_phase, run_kitti_phase):
         phase_launches, phase_ms = phase(state, args.profile)
         launches.update(phase_launches)
         frame_ms.update(phase_ms)
@@ -6018,6 +6268,7 @@ def main() -> int:
         raise AssertionError(f"no main path launched {idle}")
     for mode, ms in frame_ms.items():
         log(f"session {mode} ms/frame {ms!r}")
+    log(f"every phase done in {time.perf_counter() - t_script:.1f} s, the build included")
     log(card)  # name, power limit
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({

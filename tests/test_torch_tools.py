@@ -39,7 +39,7 @@ LR = 1e-4  # run_mode's, the JAX tool's --lr
 PRETRAIN_LR = 3e-4  # pretrain's default in both tools
 PRETRAIN_STEPS = 3
 TRAJ_RTOL = 1e-4
-PORT_TOOLS = ("torch_validate_adaptation", "torch_probe_latency", "torch_bench_offline")
+PORT_TOOLS = ("torch_validate_adaptation", "torch_probe_latency", "torch_bench_offline", "torch_kitti_eval")
 
 
 def _load(name):
@@ -232,9 +232,11 @@ def test_bench_offline_batch_error_by_mode():
     assert (bound, kind) == (0.05, "median relative") and med == pytest.approx(1e-4 / 2, rel=1e-3)
 
 
-def test_the_port_tools_import_without_jax():
+def test_the_port_tools_import_without_jax(tmp_path):
     """Each tool, and the port modules it imports when run, with ``jax``
-    made unimportable; nothing of the JAX package is loaded."""
+    made unimportable; nothing of the JAX package is loaded. The KITTI
+    runner builds its lists over ``chip_smoke.write_kitti_tree`` (--listOnly)
+    and imports the TF1 fixture into its cache."""
     code = "\n".join([
         "import sys, importlib.util",
         "sys.modules['jax'] = None",
@@ -247,6 +249,13 @@ def test_the_port_tools_import_without_jax():
         "mods['torch_validate_adaptation'].pretrain(64, 64, steps=1, device='cpu')",
         "mods['torch_probe_latency'].build_session(None, 64, 64, 1, 0, device='cpu')",
         "mods['torch_bench_offline'].run('MADNet', (1,), 1, 1, 64, 64, device='cpu', log=lambda _: None)",
+        "import chip_smoke",
+        "kitti = mods['torch_kitti_eval']",
+        f"tree = chip_smoke.write_kitti_tree({str(tmp_path / 'kitti')!r})",
+        f"argv = chip_smoke.kitti_argv(tree, {str(tmp_path / 'out')!r}, True, ['--listOnly'])",
+        "assert kitti.main(kitti.build_argparser().parse_args(argv), device='cpu') == []",
+        f"kitti._resolve_weights({str(ROOT / 'tests' / 'fixtures' / 'tf1_madnet_tiny' / 'model.ckpt')!r}, "
+        f"'MADNet', {str(tmp_path)!r})",
         "bad = [m for m in sys.modules if m.startswith(('jax', 'real_time_self_adaptive_deep_stereo_tpu'))",
         "       and sys.modules[m] is not None]",
         "assert not bad, bad",

@@ -32,6 +32,15 @@ most one ulp: ``chip_smoke.perturbed_weights``), and the per-frame EPE and
 D1 of the PNGs it writes (``chip_smoke.demo_png_metrics``; about 7
 minutes).
 
+    JAX_PLATFORMS=cpu python tools/torch_cli_reference.py --kitti
+
+makes the rows of phase 15 instead (``chip_smoke.KITTI_REFERENCE_RUNS``, the
+file's ``kitti_runs``): the JAX tool ``tools/kitti_eval.py`` (its own
+``main``, lists and rows) over ``chip_smoke.write_kitti_tree``, its runner
+``cli/adapt.py`` or ``cli/adapt_continual.py`` given the argv the tool
+builds plus ``--sessionMode host --corrMode jnp``; each sequence's row as
+the tool rounds it, and the runner's unrounded averages (about 5 minutes).
+
     JAX_PLATFORMS=cpu python tools/torch_cli_reference.py --strict
 
 makes the witness rows of the ``evaluate`` runs (``chip_smoke.CLI_WITNESS_RUNS``)
@@ -177,6 +186,69 @@ def run_demo(name: str, workdir: str) -> dict:
             **{k: first[k] for k in ("avg_epe", "avg_d1", "epe", "d1", "wall_s")}, "seeds": seeds}
 
 
+KITTI_RUNNER_FLAGS = ["--sessionMode", "host", "--corrMode", "jnp"]
+KITTI_PLACEHOLDERS = {"raw": "RAW", "gt": "GT", "proxy": "PROXY"}
+
+
+def kitti_tool_argv(name: str, tree: dict, out: str) -> list:
+    """The JAX tool's flags for phase-15 run ``name`` over ``tree``."""
+    proxy, flags = chip_smoke.KITTI_REFERENCE_RUNS[name]
+    return chip_smoke.kitti_argv(tree, out, proxy, flags)
+
+
+def run_kitti(name: str, workdir: str) -> dict:
+    """Phase-15 run ``name`` through the JAX tool's ``main`` over
+    ``chip_smoke.write_kitti_tree``, its runner's argv extended by
+    ``KITTI_RUNNER_FLAGS``: per sequence the tool's row (rounded as the
+    tool rounds it) and the runner's unrounded ``avg_d1`` and ``avg_epe``."""
+    import importlib.util
+
+    from real_time_self_adaptive_deep_stereo_tpu.cli import adapt, adapt_continual
+
+    spec = importlib.util.spec_from_file_location("kitti_eval", ROOT / "tools" / "kitti_eval.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tree = chip_smoke.write_kitti_tree(os.path.join(workdir, f"{name}_tree"))
+    out = os.path.join(workdir, name)
+    runner = adapt_continual if chip_smoke.KITTI_REFERENCE_RUNS[name][0] else adapt
+    results, runner_argv = [], []
+    build, run = runner.build_argparser, runner.main
+
+    def host_parser():
+        parser = build()
+        parse = parser.parse_args
+
+        def parse_args(argv):
+            runner_argv.append(portable([*argv, *KITTI_RUNNER_FLAGS]))
+            return parse([*argv, *KITTI_RUNNER_FLAGS])
+
+        parser.parse_args = parse_args
+        return parser
+
+    def kept(args):
+        results.append(run(args))
+        return results[-1]
+
+    runner.build_argparser, runner.main = host_parser, kept
+    t0 = time.perf_counter()
+    try:
+        rows = tool.main(tool.build_argparser().parse_args(kitti_tool_argv(name, tree, out)))
+    finally:
+        runner.build_argparser, runner.main = build, run
+    wall = time.perf_counter() - t0
+    table = open(os.path.join(out, "kitti_table.csv")).read().splitlines()
+    return {
+        "tool": "tools/kitti_eval.py",
+        "argv": portable(kitti_tool_argv(name, {**KITTI_PLACEHOLDERS, "sequences": tree["sequences"]}, "OUT")),
+        "runner_flags": KITTI_RUNNER_FLAGS,
+        "table_header": table[0],
+        "rows": {r["sequence"]: {**r, "avg_d1_unrounded": res["avg_d1"], "avg_epe_unrounded": res["avg_epe"],
+                                 "runner_argv": [a.replace(out, "OUT").replace(tree["raw"], "RAW") for a in argv]}
+                 for r, res, argv in zip(rows, results, runner_argv)},
+        "wall_s": wall,
+    }
+
+
 def portable(argv: list) -> list:
     """``argv`` as recorded: paths in the checkout relative to its root."""
     return [a[len(str(ROOT)) + 1:] if a.startswith(str(ROOT) + os.sep) else a for a in argv]
@@ -251,7 +323,11 @@ def main() -> int:
     ap.add_argument("--json", default=str(chip_smoke.CLI_REFERENCE))
     ap.add_argument("--strict", action="store_true",
                     help="make the witness rows of the evaluate runs instead (see above)")
+    ap.add_argument("--kitti", action="store_true",
+                    help="make the rows of phase 15, chip_smoke.KITTI_REFERENCE_RUNS, instead (see above)")
     args = ap.parse_args()
+    if args.kitti:
+        return main_kitti(Path(args.json))
     if args.strict:  # before JAX starts: XLA reads its flags once
         os.environ["XLA_FLAGS"] = f"{os.environ.get('XLA_FLAGS', '')} {STRICT_FLAG}".strip()
         names = list(chip_smoke.CLI_WITNESS_RUNS)
@@ -305,6 +381,27 @@ def main() -> int:
     doc.setdefault("runs", {}).update(rows)
     doc.setdefault("phase10_runs", {}).update(phase10_rows)
     doc.setdefault("demo_runs", {}).update(demo_rows)
+    path.write_text(json.dumps(doc, indent=1) + "\n")
+    print(f"wrote {path}")
+    return 0
+
+
+def main_kitti(path: Path) -> int:
+    """The file's ``kitti_runs``: every run of chip_smoke.KITTI_REFERENCE_RUNS."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in chip_smoke.KITTI_REFERENCE_RUNS:
+            runs[name] = run_kitti(name, tmp)
+            print(name, {s: (r["frames"], r["avg_d1"], r["avg_epe"]) for s, r in runs[name]["rows"].items()},
+                  f"{runs[name]['wall_s']:.1f} s", flush=True)
+    doc = json.loads(path.read_text()) if path.exists() else {}
+    doc["kitti_command"] = f"{COMMAND} --kitti"
+    doc["kitti_about"] = ("kitti_runs: the JAX tool tools/kitti_eval.py (main, its lists and rows) over "
+                          "chip_smoke.write_kitti_tree on the CPU, its runner (cli/adapt.py, or "
+                          "cli/adapt_continual.py with --proxyRoot) given the argv the tool builds plus "
+                          "runner_flags; rows as the tool rounds them, with the runner's unrounded averages. "
+                          "wall_s: the tool's main, one run after another in one process.")
+    doc["kitti_runs"] = runs
     path.write_text(json.dumps(doc, indent=1) + "\n")
     print(f"wrote {path}")
     return 0
