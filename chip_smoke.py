@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR] [--kernels-only | --fused-only | --dispnet-only | --precision-only
                            | --cli-only | --train-only | --demo-only | --parallel-only | --spatial-only
-                           | --tools-only | --kitti-only]
+                           | --tools-only | --kitti-only | --parity-only]
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -359,6 +359,28 @@ Phases, each of which raises on failure (nothing is caught):
    by the blocks its fetch counter holds; the rows' frames, finite D1 and
    EPE and ``kitti_table.csv`` checked; FPS and the phase's wall time
    printed.
+16. The accuracy-parity and precision-drift tools,
+   ``tools/torch_parity_results.py`` and ``tools/torch_realworld_parity.py``
+   (their ``main_parity``, ``main_realworld`` and ``main_drift``, in-process),
+   MADNet's host session (``adapt/runner.py``), SEQUENTIAL, lr 1e-4, SSIMTh
+   0.5: (a) the synthetic domain-shift sequence at 96x320, 50 frames, and (b)
+   the fixture's scenes 2-3 and their photometrically asymmetric twins at
+   320x1216, 16 frames, each from ``weights_scene01.npz``, NONE, MAD and FULL
+   exact (gather warps, the plain correlation, ``highest``): each mode's
+   mean D1 within 0.25 points of the JAX loop's on the same frames and
+   weights (``tests/fixtures/torch_parity_reference.json``, made on the CPU
+   by ``tools/torch_cli_reference.py --parity``), the resets equal, the
+   largest per-frame D1 and EPE deltas and the north star's 0.5 verdict
+   printed; (c) ``--drift`` at 96x320 and 384x1280, 50 frames, from MADNet
+   pretrained for 200 steps at the run's size: each mode exact, then fast
+   on the ``auto`` warps in ``default``, ``bf16`` and ``bf16_act``, at
+   384x1280 also ``bf16_act`` on ``mxu`` (K6/K7); the tables in
+   ``PARITY_RESULTS.md``'s form, each drift against the 0.1-point promotion
+   bound, printed as a reading and not checked; every row finite. Every
+   run's launches counted from 0: none in an exact run, in a fast one the
+   sum of its frames' (the bf16 correlation instances under ``bf16_act``),
+   and the TF32 flags those of the run's mode at every frame and off
+   before and after each run.
 
 Phase 3 also holds the graph switch (``graph_switch``, the counterpart of
 the JAX session's ``lax.switch``) over bodies of one fill each, at 5 blocks
@@ -540,6 +562,18 @@ KITTI_REFERENCE_RUNS = {
     "cvpr_MAD": (False, ["--mode", "MAD", "--sampleMode", "SEQUENTIAL"]),
     "cvpr_FULL": (False, ["--mode", "FULL", "--sampleMode", "SEQUENTIAL"]),
     "tpami_MAD": (True, ["--mode", "MAD", "--sampleMode", "SEQUENTIAL"]),
+}
+# phase 16: the JAX loop's rows (tools/parity_results.py::run_our_loop, exact,
+# NONE, MAD and FULL) that the parity tools are held to, made on a CPU by
+# tools/torch_cli_reference.py --parity: name -> (sequence kind, height,
+# width, frames, fixture scenes, weights; None: the JAX MADNet's PRNGKey(0)
+# init, the CPU tests' set)
+PARITY_REFERENCE = ROOT / "tests" / "fixtures" / "torch_parity_reference.json"
+PARITY_SETS = {
+    "synthetic": ("synthetic", 96, 320, 50, None, CLI_WEIGHTS),
+    "realworld_scene": ("realworld", H, W, 16, CLI_SCENES["scene"], CLI_WEIGHTS),
+    "realworld_asym": ("realworld", H, W, 16, CLI_SCENES["asym"], CLI_WEIGHTS),
+    "small": ("synthetic", 64, 128, 4, None, None),
 }
 
 
@@ -5983,6 +6017,138 @@ def run_kitti_phase(state, profile_dir):
     return launches, ms
 
 
+# ----------------------------------------------------------------- phase 16
+DRIFT_SIZES = ((96, 320), (TOOLS_H, TOOLS_W))
+DRIFT_FRAMES = 50
+DRIFT_PRETRAIN_STEPS = 200
+DRIFT_MXU = ("bf16_act", "mxu")  # the fused serving path's warps (K6/K7), at the bench's frame
+
+
+def parity_launches(mode: str, i: int, warp_mode: str):
+    """What frame ``i`` of a fast run of ``run_our_loop`` (MADNet's host
+    session, the bulkhead for MAD, SEQUENTIAL) must launch at fp32: K2-K5 on
+    the ``auto`` (cuda) warps, K6/K7 on ``mxu``."""
+    if warp_mode != "mxu":
+        return cli_launches(mode, i)
+    if mode == "MAD":
+        return mad_tile_launches(i % 5)
+    return TILE_FULL if mode == "FULL" else {"corr_fwd": 5, "warp_tile_image_fwd": 1, "warp_tile_features_fwd": 4}
+
+
+def counted_parity_loop(tool, prefix: str, launches, ms):
+    """``tool.run_our_loop`` for the parity tools' ``loop``: the launch
+    counters set to 0 just before each run and read just after, none for an
+    exact run, for a fast one the sum of :func:`parity_launches` over its
+    frames in its precision's correlation instances; the TF32 flags those of
+    the run's mode at every frame (``highest``'s for an exact run, after
+    whatever ran before it) and ``highest``'s before and after; every row
+    finite. Records the launches and ms a frame (the host's metrics
+    included) under ``<prefix>_<mode>_<EXACT | precision[_warp]>``."""
+    from real_time_self_adaptive_deep_stereo_torch.ops import cuda_lib
+
+    def loop(mode, seq, params, fast=False, precision="default", warp_mode="auto", device=None):
+        run = precision.upper() + ("" if warp_mode == "auto" else f"_{warp_mode.upper()}") if fast else "EXACT"
+        tag = f"{prefix}_{mode}_{run}"
+        seq = list(seq)
+
+        def checked():
+            for frame in seq:
+                assert_tf32(precision if fast else "highest")
+                yield frame
+
+        assert_tf32("highest")
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        rows, resets = tool.run_our_loop(mode, checked(), params, fast=fast, precision=precision,
+                                         warp_mode=warp_mode, device=device)
+        wall = time.perf_counter() - t0
+        want = {}
+        for i in range(len(seq) if fast else 0):
+            for k, v in in_precision(parity_launches(mode, i, warp_mode), precision).items():
+                want[k] = want.get(k, 0) + v
+        launches[tag] = launched({k: v for k, v in want.items() if v}, tag)
+        assert_tf32("highest")
+        if rows.shape != (len(seq), 3) or not np.isfinite(rows).all():
+            raise AssertionError(f"{tag}: rows of shape {rows.shape}, finite {np.isfinite(rows).all()}")
+        ms[f"{tag}_FRAME"] = 1e3 * wall / len(seq)
+        log(f"{tag}: {len(seq)} frames, {ms[f'{tag}_FRAME']:.2f} ms a frame with the host's metrics, resets "
+            f"{resets}; launches {({k: v for k, v in launches[tag].items() if v}) or 'none'}")
+        return rows, resets
+
+    return loop
+
+
+def check_parity(name: str, results, north_star: float):
+    """Phase 16 (a), (b): each mode's mean D1 within CLI_D1_BOUND points of
+    the JAX loop's, the resets equal; the largest per-frame deltas and the
+    north star's verdict printed."""
+    for mode, r in results.items():
+        ours, ref = r["rows"].mean(axis=0), r["ref_rows"].mean(axis=0)
+        delta = ours[2] - ref[2]
+        log(f"PARITY {name} {mode}: D1 {ours[2]:.4f} vs the JAX loop's {ref[2]:.4f} (delta {delta:+.4f}, bound "
+            f"{CLI_D1_BOUND}; north star < {north_star}: {'PASS' if abs(delta) < north_star else 'FAIL'}); EPE "
+            f"{ours[0]:.4f} vs {ref[0]:.4f}; largest per-frame |delta| D1 {r['max_frame_d1']:.4f}, EPE "
+            f"{r['max_frame_epe']:.4f}; resets {r['resets']} vs {r['ref_resets']}")
+        if not abs(delta) <= CLI_D1_BOUND or r["resets"] != r["ref_resets"]:
+            raise AssertionError(f"PARITY {name} {mode}: D1 delta {delta}, resets {r['resets']} vs {r['ref_resets']}")
+
+
+def run_parity_phase(state, profile_dir):
+    """Phase 16: the accuracy-parity and precision-drift tools through their
+    functions, each run of ``run_our_loop`` counted (:func:`counted_parity_loop`).
+    (a) ``tools/torch_parity_results.py``, the synthetic sequence at 96x320,
+    50 frames, and (b) ``tools/torch_realworld_parity.py``, the fixture's
+    scenes 2-3 and their asym twins at 320x1216, 16 frames, each from
+    ``weights_scene01.npz``, NONE, MAD and FULL exact, held to the JAX loop's
+    rows (``PARITY_REFERENCE``, :func:`check_parity`). (c) ``--drift`` at
+    96x320 and 384x1280, 50 frames, from MADNet pretrained for 200 steps at
+    the run's size: each mode exact, then fast on the ``auto`` warps in
+    ``default``, ``bf16`` and ``bf16_act``, at 384x1280 also ``bf16_act`` on
+    ``mxu``; the drift is printed against the 0.1-point promotion bound, a
+    reading and not a check. Returns (launches by run, ms a frame by run)."""
+    del state, profile_dir  # the fixture's weights, or pretrained ones; nothing profiled
+    t0 = time.perf_counter()
+    parity = load_tool("torch_parity_results")
+    realworld = load_tool("torch_realworld_parity")
+    launches, ms = {}, {}
+
+    # (a), (b): exact, against the JAX loop's rows
+    for name, (kind, h, w, frames, scenes, weights) in PARITY_SETS.items():
+        if weights is None:  # the CPU tests' set
+            continue
+        tool = parity if kind == "synthetic" else realworld
+        argv = ["--height", str(h), "--width", str(w), "--frames", str(frames), "--paramsNpz", str(weights),
+                "--reference", str(PARITY_REFERENCE)]
+        argv += ["--scenes", ",".join(scenes), "--full"] if scenes else []
+        t1 = time.perf_counter()
+        run = tool.main_parity if kind == "synthetic" else tool.main_realworld
+        section, results = run(tool.build_argparser().parse_args(argv),
+                               loop=counted_parity_loop(parity, f"PARITY_{name.upper()}", launches, ms))
+        log(section)
+        check_parity(name, results, parity.NORTH_STAR)
+        log(f"PARITY {name}: {time.perf_counter() - t1:.1f} s")
+
+    # (c) the drift of the fast path, a reading of the precision modes
+    for h, w in DRIFT_SIZES:
+        t1 = time.perf_counter()
+        runs = parity.DRIFT_RUNS + ((DRIFT_MXU,) if (h, w) == (TOOLS_H, TOOLS_W) else ())
+        args = parity.build_argparser().parse_args(
+            ["--drift", "--height", str(h), "--width", str(w), "--frames", str(DRIFT_FRAMES),
+             "--pretrainSteps", str(DRIFT_PRETRAIN_STEPS)])
+        section, results = parity.main_drift(args, runs=runs,
+                                             loop=counted_parity_loop(parity, f"DRIFT_{h}X{w}", launches, ms))
+        log(section)
+        for mode, r in results.items():
+            for label, d in r["drift"].items():
+                log(f"DRIFT {h}x{w} {label} {mode}: D1 {d[2]:+.4f} points, EPE {d[0]:+.5f} (promotion bound "
+                    f"{parity.PROMOTION_BOUND}: {'within' if abs(d[2]) <= parity.PROMOTION_BOUND else 'beyond'}; "
+                    "a reading of the precision mode, not a check: the phase does not fail on it)")
+        log(f"DRIFT {h}x{w}: {time.perf_counter() - t1:.1f} s, pretraining included")
+    assert_tf32("highest")
+    log(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
+    return launches, ms
+
+
 def profile_frames(session, frames, out: Path, tag: str):
     """Kernel time by name over a few steady frames (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -6080,6 +6246,8 @@ def main() -> int:
                          "without the result lines")
     ap.add_argument("--kitti-only", action="store_true",
                     help="run the KITTI protocol runner's phase (15) alone, without the result lines")
+    ap.add_argument("--parity-only", action="store_true",
+                    help="run the parity and drift tools' phase (16) alone, without the result lines")
     ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)  # a rank of phase 12 or 13
     ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6134,14 +6302,15 @@ def main() -> int:
         log(card)
         log("precision checked; no result lines (--precision-only)")
         return 0
-    if args.cli_only or args.train_only or args.demo_only or args.kitti_only:
+    if args.cli_only or args.train_only or args.demo_only or args.kitti_only or args.parity_only:
         phase = (run_cli_phase if args.cli_only else run_train_phase if args.train_only
-                 else run_demo_phase if args.demo_only else run_kitti_phase)
+                 else run_demo_phase if args.demo_only else run_kitti_phase if args.kitti_only
+                 else run_parity_phase)
         _, frame_ms = phase(None, args.profile)
         for path, ms in frame_ms.items():
             log(f"session {path} ms {ms!r}")
         log(card)
-        log("CLIs checked; no result lines (--cli-only, --train-only, --demo-only, --kitti-only)")
+        log("CLIs checked; no result lines (--cli-only, --train-only, --demo-only, --kitti-only, --parity-only)")
         return 0
     if args.parallel_only:
         rows = {name: [] for name in REPLACES}
@@ -6202,7 +6371,8 @@ def main() -> int:
     check_steps_against_plain(state)
     check_reset(state)
     for phase in (run_fused, lambda _, profile: run_dispnet(profile), run_precision, run_cli_phase,
-                  run_train_phase, run_demo_phase, run_parallel, run_phase13, run_tools_phase, run_kitti_phase):
+                  run_train_phase, run_demo_phase, run_parallel, run_phase13, run_tools_phase, run_kitti_phase,
+                  run_parity_phase):
         phase_launches, phase_ms = phase(state, args.profile)
         launches.update(phase_launches)
         frame_ms.update(phase_ms)

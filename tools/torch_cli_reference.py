@@ -41,6 +41,20 @@ file's ``kitti_runs``): the JAX tool ``tools/kitti_eval.py`` (its own
 builds plus ``--sessionMode host --corrMode jnp``; each sequence's row as
 the tool rounds it, and the runner's unrounded averages (about 5 minutes).
 
+    JAX_PLATFORMS=cpu python tools/torch_cli_reference.py --parity [--sets NAME,...]
+
+makes the rows of phase 16 instead (``chip_smoke.PARITY_SETS``), into
+``tests/fixtures/torch_parity_reference.json``: the JAX tool
+``tools/parity_results.py``'s own ``run_our_loop`` (exact: gather warps,
+``corr_mode="jnp"``, ``highest``) in NONE, MAD and FULL, per set its
+per-frame (EPE, bad3, D1) rows and resets. The synthetic sets' frames are
+the port's ``make_sequence`` output (``tools/torch_validate_adaptation.py``,
+seed 7, planes at 8 and 20 px), so that both loops see the same bytes; the
+real-imagery sets' are the JAX tool ``tools/realworld_parity.py``'s
+``load_fixture_sequence``. The weights are ``weights_scene01.npz``, or for
+the CPU tests' ``small`` set the JAX MADNet's ``PRNGKey(0)`` init (about 4
+minutes for the four sets; ``--sets`` remakes some and keeps the others).
+
     JAX_PLATFORMS=cpu python tools/torch_cli_reference.py --strict
 
 makes the witness rows of the ``evaluate`` runs (``chip_smoke.CLI_WITNESS_RUNS``)
@@ -325,9 +339,16 @@ def main() -> int:
                     help="make the witness rows of the evaluate runs instead (see above)")
     ap.add_argument("--kitti", action="store_true",
                     help="make the rows of phase 15, chip_smoke.KITTI_REFERENCE_RUNS, instead (see above)")
+    ap.add_argument("--parity", action="store_true",
+                    help="make the rows of phase 16, chip_smoke.PARITY_SETS, into chip_smoke.PARITY_REFERENCE "
+                         "instead (see above)")
+    ap.add_argument("--sets", default=",".join(chip_smoke.PARITY_SETS),
+                    help="with --parity, comma-separated names from chip_smoke.PARITY_SETS")
     args = ap.parse_args()
     if args.kitti:
         return main_kitti(Path(args.json))
+    if args.parity:
+        return main_parity([n for n in args.sets.split(",") if n])
     if args.strict:  # before JAX starts: XLA reads its flags once
         os.environ["XLA_FLAGS"] = f"{os.environ.get('XLA_FLAGS', '')} {STRICT_FLAG}".strip()
         names = list(chip_smoke.CLI_WITNESS_RUNS)
@@ -402,6 +423,62 @@ def main_kitti(path: Path) -> int:
                           "runner_flags; rows as the tool rounds them, with the runner's unrounded averages. "
                           "wall_s: the tool's main, one run after another in one process.")
     doc["kitti_runs"] = runs
+    path.write_text(json.dumps(doc, indent=1) + "\n")
+    print(f"wrote {path}")
+    return 0
+
+
+def run_parity_set(name: str) -> dict:
+    """Set ``name`` of ``chip_smoke.PARITY_SETS`` through the JAX tool's
+    ``run_our_loop`` (exact) in NONE, MAD and FULL."""
+    import jax
+
+    from real_time_self_adaptive_deep_stereo_tpu.models import get_stereo_net
+    from real_time_self_adaptive_deep_stereo_tpu.utils.checkpoint import load_params
+
+    kind, h, w, frames, scenes, weights = chip_smoke.PARITY_SETS[name]
+    jtool = chip_smoke.load_tool("parity_results")
+    if weights is None:
+        params = get_stereo_net("MADNet").init(jax.random.PRNGKey(0))
+    else:
+        params = load_params(str(weights))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    if kind == "synthetic":
+        make_sequence = chip_smoke.load_tool("torch_validate_adaptation").make_sequence
+        seq = make_sequence(h, w, frames, seed=7, d_bg=8.0, d_fg=20.0)
+        sequence = (f"make_sequence({h}, {w}, {frames}, seed=7, d_bg=8.0, d_fg=20.0) of "
+                    "tools/torch_validate_adaptation.py")
+    else:
+        seq = chip_smoke.load_tool("realworld_parity").load_fixture_sequence(frames, h, w, set(scenes))
+        sequence = f"load_fixture_sequence({frames}, {h}, {w}, set({list(scenes)})) of tools/realworld_parity.py"
+    modes = {}
+    for mode in ("NONE", "MAD", "FULL"):
+        t0 = time.perf_counter()
+        rows, resets = jtool.run_our_loop(mode, seq, params)
+        modes[mode] = {"rows": rows.tolist(), "resets": int(resets), "wall_s": time.perf_counter() - t0}
+        print(f"{name} {mode}: mean (EPE, bad3, D1) {rows.mean(axis=0).tolist()}, resets {resets}, "
+              f"{modes[mode]['wall_s']:.1f} s", flush=True)
+    return {"kind": kind, "height": h, "width": w, "frames": frames, "scenes": list(scenes) if scenes else None,
+            "weights": portable([str(weights)])[0] if weights else "the JAX MADNet's init from PRNGKey(0)",
+            "sequence": sequence, "modes": modes}
+
+
+def main_parity(names) -> int:
+    """``chip_smoke.PARITY_REFERENCE``'s sets ``names``, the others kept."""
+    unknown = set(names) - set(chip_smoke.PARITY_SETS)
+    if unknown:
+        raise SystemExit(f"unknown sets {sorted(unknown)}")
+    path = chip_smoke.PARITY_REFERENCE
+    doc = json.loads(path.read_text()) if path.exists() else {}
+    doc["command"] = f"{COMMAND} --parity"
+    doc["about"] = ("The JAX tool tools/parity_results.py's run_our_loop on the CPU, exact (gather warps, "
+                    "corr_mode jnp, highest), SEQUENTIAL, lr 1e-4, SSIMTh 0.5, seed 0: per set and mode the "
+                    "per-frame [EPE, bad3, D1] rows (bad3 a fraction, D1 in percent) and the reset count. "
+                    "wall_s: each loop, one after another in one process.")
+    doc.setdefault("sets", {})
+    for name in names:
+        doc["sets"][name] = run_parity_set(name)
+    doc["sets"] = {n: doc["sets"][n] for n in chip_smoke.PARITY_SETS if n in doc["sets"]}
     path.write_text(json.dumps(doc, indent=1) + "\n")
     print(f"wrote {path}")
     return 0
