@@ -115,10 +115,24 @@ every rank takes the same update. Under ``gloo`` the exchanges go through
 host memory and the step runs eagerly. With a mesh and streams the
 stream axis is sharded instead: rank r runs streams ``local_slice(N, R,
 r)`` under ``vmap``, with no collective a frame.
+
+While the process's tracer (:data:`..utils.profiling.tracer`) is on, a
+step call records the spans ``fused.step`` (the frame id: the session's
+step count) ⊃ ``fused.load_frame`` (⊃ ``fused.stage_wait``), ``fused.pick``
+(the branch pick, with the sampler's device ops), ``fused.launch`` (the
+replay or the switch's launch; at a branch's first use its eager step and
+``fused.capture``); ``fetch_disp`` records ``fused.fetch_disp`` and its
+materializer ``fused.materialize``, each under the id of its own frame.
+On the card it also records the call's device range: timing events at the
+tracer's marks (before and after the upload, after the pick's device ops,
+after the launch, after the disparity's copy) and under MAD a device copy
+of the ids the launch reads. Off, a site reads the tracer's ``on`` and
+nothing more.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import threading
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
@@ -143,6 +157,7 @@ from real_time_self_adaptive_deep_stereo_torch.ops.graph_switch import (
 from real_time_self_adaptive_deep_stereo_torch.parallel import spatial
 from real_time_self_adaptive_deep_stereo_torch.parallel.sharding import local_slice
 from real_time_self_adaptive_deep_stereo_torch.utils import optim
+from real_time_self_adaptive_deep_stereo_torch.utils.profiling import tracer as _TRACER
 
 __all__ = ["FusedOnlineSession"]
 
@@ -391,6 +406,7 @@ class FusedOnlineSession:
         self._stage_events: List[Optional[torch.cuda.Event]] = [None, None]
         self._disp_host: List[Optional[torch.Tensor]] = [None, None]
         self._fetches = 0
+        self._range: Optional[int] = None  # the tracer's device range of the last step call
 
     # ------------------------------------------------------------------ state
     def _init_state(self, seed) -> None:
@@ -874,13 +890,21 @@ class FusedOnlineSession:
         """The frame on the device. On a CUDA device the tensors are the
         session's static buffers (a graph reads fixed addresses), filled
         through one of two pinned staging buffers by an asynchronous
-        copy; a frame already on the device is copied there directly."""
+        copy; a frame already on the device is copied there directly.
+        Every key is staged on the host before the first copy is enqueued,
+        so the device's copies run back to back."""
         keys = [k for k in _FRAME_KEYS if k in frame]
         if self.device.type != "cuda":
             return self.engine._to_device({k: frame[k] for k in keys})
+        tr = _TRACER if _TRACER.on else None
         slot = self._host_step % 2
         if self._stage_events[slot] is not None:
-            self._stage_events[slot].synchronize()  # its last upload has been read
+            if tr is None:
+                self._stage_events[slot].synchronize()  # its last upload has been read
+            else:
+                with tr.span("fused.stage_wait", self._host_step):
+                    self._stage_events[slot].synchronize()
+        copies = []
         for k in keys:
             v = frame[k]
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
@@ -894,32 +918,46 @@ class FusedOnlineSession:
                     f"frame[{k!r}] has shape {tuple(t.shape)}; this session's graphs "
                     f"were built for {tuple(buf.shape)}"
                 )
-            if t.device.type == "cuda":
-                buf.copy_(t)
-                continue
-            stage = self._stage[slot].get(k)
-            if stage is None:
-                stage = self._stage[slot][k] = torch.empty(
-                    tuple(t.shape), dtype=torch.float32, pin_memory=True
-                )
-            stage.copy_(t)
-            buf.copy_(stage, non_blocking=True)
+            if t.device.type != "cuda":
+                stage = self._stage[slot].get(k)
+                if stage is None:
+                    stage = self._stage[slot][k] = torch.empty(
+                        tuple(t.shape), dtype=torch.float32, pin_memory=True
+                    )
+                stage.copy_(t)
+                t = stage
+                if tr is not None:
+                    tr.count("staged_bytes", stage.nbytes)
+            copies.append((buf, t))
+        if tr is not None:
+            tr.mark(self._range, 0)  # MARKS: upload
+        for buf, t in copies:
+            buf.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         self._stage_events[slot] = event
+        if tr is not None:
+            tr.mark(self._range, 1)  # uploaded
         return {k: self._frame_bufs[k] for k in keys}
 
     def _dispatch(self, key: Tuple, run: Callable[[], Optional[torch.Tensor]]) -> Optional[torch.Tensor]:
         """Run ``run`` (the device work of graph ``key``): eagerly without
         graphs, else as a replay of its graph, captured at first use."""
+        tr = _TRACER if _TRACER.on else None
         if not self.use_graphs:
+            if tr is not None:
+                tr.count("eager_steps")
             return run()
         if key in self._graphs:
             graph, out = self._graphs[key]
             graph.replay()
             for name, n in self.graph_launches[key].items():
                 cuda_lib.LAUNCHES[name] += n
+            if tr is not None:
+                tr.count("replays")
             return out
+        if tr is not None:
+            tr.count("eager_steps")
         # first use: the frame's real step, eagerly, on the stream the
         # capture will use; then the capture, which runs nothing
         current = torch.cuda.current_stream(self.device)
@@ -936,26 +974,30 @@ class FusedOnlineSession:
     def _capture(self, key: Tuple, run: Callable[[], Optional[torch.Tensor]], raw: bool = False) -> None:
         """Capture ``run`` on the side stream as graph ``key`` (``raw``:
         keeping its ``cudaGraph_t`` for a switch), with its launches."""
-        before = dict(cuda_lib.LAUNCHES)
-        graph = torch.cuda.CUDAGraph(keep_graph=True) if raw else torch.cuda.CUDAGraph()
-        # A garbage collection during the capture, in this thread or any
-        # other, can free the CUDA objects (events, graphs, streams) of dead
-        # sessions, and such a call ends the capture
-        # (cudaErrorStreamCaptureInvalidated). gc.disable stops collections
-        # in every thread of the process until the capture is done.
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream):
-                graph_out = run()
-        finally:
-            if collecting:
-                gc.enable()
-        launches = {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items() if v != before[k]}
-        for name, n in launches.items():
-            cuda_lib.LAUNCHES[name] -= n  # a capture launches nothing
-        self._graphs[key] = (graph, graph_out)
-        self.graph_launches[key] = launches
+        tr = _TRACER if _TRACER.on else None
+        with tr.span("fused.capture", self._host_step) if tr is not None else contextlib.nullcontext():
+            before = dict(cuda_lib.LAUNCHES)
+            graph = torch.cuda.CUDAGraph(keep_graph=True) if raw else torch.cuda.CUDAGraph()
+            # A garbage collection during the capture, in this thread or any
+            # other, can free the CUDA objects (events, graphs, streams) of dead
+            # sessions, and such a call ends the capture
+            # (cudaErrorStreamCaptureInvalidated). gc.disable stops collections
+            # in every thread of the process until the capture is done.
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool, stream=self._side_stream):
+                    graph_out = run()
+            finally:
+                if collecting:
+                    gc.enable()
+            launches = {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items() if v != before[k]}
+            for name, n in launches.items():
+                cuda_lib.LAUNCHES[name] -= n  # a capture launches nothing
+            self._graphs[key] = (graph, graph_out)
+            self.graph_launches[key] = launches
+        if tr is not None:
+            tr.count("captures")
 
     # ------------------------------------------------------------ the switch
     def _state_tensors(self) -> List[torch.Tensor]:
@@ -991,6 +1033,9 @@ class FusedOnlineSession:
             (self._switch_key(st, ks), lambda st=st, ks=ks: self._stream_step(st, ("mad", ks), frame))
             for st in self._streams for ks in self._branch_sets if self._switch_key(st, ks) not in self._graphs
         ]
+        tr = _TRACER if _TRACER.on else None
+        if tr is not None:
+            tr.count("eager_steps", len(jobs))
         before = dict(cuda_lib.LAUNCHES)
         current, side = torch.cuda.current_stream(self.device), self._side_stream
         side.wait_stream(current)
@@ -1014,6 +1059,9 @@ class FusedOnlineSession:
         the device, the streams in order."""
         switch = self._switch[0] if self._switch is not None else self._build_switch(frame)
         switch.launch()
+        tr = _TRACER if _TRACER.on else None
+        if tr is not None:
+            tr.count("replays")
 
     def sync_launches(self) -> None:
         """Add the switched launches' kernel launches to
@@ -1045,8 +1093,33 @@ class FusedOnlineSession:
         ns = self._rows
         if ns and any(len(frame[k]) != ns for k in _FRAME_KEYS if k in frame):
             raise ValueError(f"a frame of a {ns}-stream session carries a leading [{ns}] axis")
-        bufs = self._load_frame(frame)
-        branches = self._pick_branches(self._host_step)
+        tr = _TRACER if _TRACER.on else None
+        if tr is None:
+            bufs = self._load_frame(frame)
+            self._launch(self._pick_branches(self._host_step), bufs)
+        else:  # the spans, the count and on the card the device range of the module's docstring
+            fid = self._host_step
+            with tr.span("fused.step", fid):
+                self._range = tr.open_range(fid, self.device)
+                with tr.span("fused.load_frame", fid):
+                    bufs = self._load_frame(frame)
+                with tr.span("fused.pick", fid):
+                    branches = self._pick_branches(fid)
+                    if self.mode == "MAD" and branches[0][0] != "none":
+                        tr.tag(self._range, self.cur_blocks)  # the ids this frame's launch reads
+                    tr.mark(self._range, 2)  # picked
+                with tr.span("fused.launch", fid):
+                    self._launch(branches, bufs)
+                    tr.mark(self._range, 3)  # launched
+                tr.count("steps")
+        if ns:
+            self.arena.bind(0)  # between steps the module shows stream 0
+        self._host_step += 1
+
+    def _launch(self, branches: List[Branch], bufs: Dict[str, torch.Tensor]) -> None:
+        """The frame's device work, each stream's branch: the switch's
+        launch, or a replay (an eager run) a graph, and ``last_disp``."""
+        ns = self._rows
         if branches[0] == _SWITCH:  # the host counts dilation and sampling alike for all streams
             self._switch_step(bufs)
             self.last_disp = self._disp_out
@@ -1068,9 +1141,6 @@ class FusedOnlineSession:
             for st, branch in zip(self._streams, branches):
                 self._dispatch((st.index, branch), lambda: self._stream_step(st, branch, bufs))
             self.last_disp = self._disp_out
-        if ns:
-            self.arena.bind(0)  # between steps the module shows stream 0
-        self._host_step += 1
 
     def fetch_disp(self) -> Callable[[], np.ndarray]:
         """Start the device-to-host copy of ``last_disp`` without blocking
@@ -1082,6 +1152,22 @@ class FusedOnlineSession:
         after this one reuses the buffer. numpy has no bfloat16: a bf16
         disparity (DispNet under ``bf16_act``) arrives widened to float32,
         losslessly."""
+        tr = _TRACER if _TRACER.on else None
+        if tr is None:
+            return self._fetch_disp()
+        fid = self._host_step - 1
+        with tr.span("fused.fetch_disp", fid):
+            fetch = self._fetch_disp()
+
+        def materialize() -> np.ndarray:
+            if not tr.on:
+                return fetch()
+            with tr.span("fused.materialize", fid):
+                return fetch()
+
+        return materialize
+
+    def _fetch_disp(self) -> Callable[[], np.ndarray]:
         d = self.last_disp
         if d is None:
             raise RuntimeError("fetch_disp before the first step")
@@ -1096,6 +1182,10 @@ class FusedOnlineSession:
                 tuple(d.shape), dtype=d.dtype, pin_memory=True
             )
         host.copy_(d, non_blocking=True)
+        tr = _TRACER if _TRACER.on else None
+        if tr is not None:
+            tr.mark(self._range, 4)  # fetched
+            tr.count("fetched_bytes", host.nbytes)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
 

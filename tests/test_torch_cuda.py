@@ -1003,6 +1003,74 @@ def test_switched_streams_follow_their_eager_twin(dev, deterministic, impl):
     assert torch.equal(switched.arena.flat, eager.arena.flat)
 
 
+@pytest.mark.parametrize("streams,slots", [(0, 1024), (2, 1024), (0, 4)], ids=["one", "two-streams", "ring-of-4"])
+def test_traced_switched_session_follows_its_untraced_twin_and_times_its_ranges(dev, deterministic, streams, slots,
+                                                                               monkeypatch):
+    """A switched MAD session under the tracer against its untraced twin,
+    bit for bit (cuDNN deterministic): the trajectory is the same; the
+    first frame counts each branch's eager run and capture, every frame
+    one switch launch; each step call has a device range whose five marks
+    run in order, none before the host enqueued it (within the clock's
+    uncertainty), tagged with the blocks its launch read; with a pool of
+    4 slots the older ranges are read back as the ring turns. With the
+    pool larger than the frames, the steady traced frames run with every
+    host sync an error."""
+    from real_time_self_adaptive_deep_stereo_torch.utils import profiling
+    from real_time_self_adaptive_deep_stereo_torch.utils.profiling import tracer
+
+    monkeypatch.setattr(profiling, "RANGES", slots)
+    n, h, w = 6, 64, 128
+    if streams:
+        per = [_smooth_frames(n, h, w, 81 + s) for s in range(streams)]
+        frames = [{k: np.stack([per[s][i][k] for s in range(streams)]) for k in per[0][i]} for i in range(n)]
+    else:
+        frames = _smooth_frames(n, h, w, 81)
+    kw = dict(warp_mode="mxu", sample_mode="PROBABILITY", seed=[2, 3] if streams else 4, num_streams=streams)
+    plain = _mad_session(True, **kw)
+    want = []
+    for f in frames:
+        plain.step(f)
+        want.append(plain.last_disp.clone())
+    sess, trail, got = _mad_session(True, **kw), [], []
+    tracer.start(dev)
+    try:
+        for i, f in enumerate(frames):
+            if i == 1 and slots > n:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            sess.step(f)
+            _trail(sess, trail)
+            got.append(sess.last_disp.clone())
+            sess.fetch_disp()  # its copy and mark; the device clones are compared
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        rec = tracer.stop()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(sess.arena.flat, plain.arena.flat)
+    a, b = sess.finalize(), plain.finalize()
+    for key in ("loss", "scores", "fetch_counter"):
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+    k = max(streams, 1)
+    frame_bytes = sum(v.nbytes for v in frames[0].values())
+    assert rec["counters"] == {"steps": n, "replays": n, "eager_steps": 5 * k, "captures": 5 * k,
+                               "staged_bytes": n * frame_bytes,
+                               "fetched_bytes": n * want[0].numel() * want[0].element_size()}
+    names = [(s[0], s[1]) for s in rec["spans"]]
+    assert names.count(("fused.capture", 0)) == 5 * k and sum(1 for m, _ in names if m == "fused.capture") == 5 * k
+    assert {f for m, f in names if m == "fused.stage_wait"} == set(range(2, n))
+    assert rec["device"] == torch.cuda.get_device_name(dev)
+    u = rec["clock"]["uncertainty_ns"]
+    assert 0 < u < 1e6 and abs(rec["clock"]["drift_ppm"]) < 1e3
+    assert [r["frame"] for r in rec["ranges"]] == list(range(n))
+    for r, ids in zip(rec["ranges"], trail):
+        d, e = r["device"], r["enqueued"]
+        assert None not in d and d == sorted(d) and e == sorted(e)
+        assert all(dk >= ek - 2 * u for dk, ek in zip(d, e)), (d, e)
+        assert r["tags"] == ids.reshape(-1).tolist()
+
+
 def test_switch_with_ids_of_no_branch_raises_and_runs_no_step(dev):
     """Ids written between resamples that name no branch: the switch runs
     no step (the step count stays) and the next sync raises."""

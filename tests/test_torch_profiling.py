@@ -13,6 +13,10 @@ the CPU, against the JAX package's ``summarize_trace``.
   checked against counts worked out by hand.
 * ``trace`` on a CPU-only profile: one trace file, whose host track holds
   the ops run inside the block, and whose device tracks are empty.
+* ``Tracer`` on its own: spans nest, with their parents and frame ids;
+  counters count; an idle tracer holds nothing and refuses ``stop``; it
+  starts and stops again and again, each record its own. The fused
+  session's spans under it, and under ``trace``: ``test_torch_tracing.py``.
 """
 
 import gzip
@@ -172,3 +176,75 @@ def test_trace_writes_its_file_when_the_block_raises(tmp_path):
             torch.ones(3).sum()
             raise KeyError("inside")
     assert len(os.listdir(logdir)) == 1
+
+
+def test_tracer_spans_nest_with_their_parents_and_frame_ids():
+    tr = tprof.Tracer()
+    tr.start("cpu")
+    for frame in (7, 8):
+        with tr.span("fused.step", frame):
+            with tr.span("fused.load_frame", frame):
+                with tr.span("fused.stage_wait", frame):
+                    pass
+            with tr.span("fused.launch", frame):
+                pass
+    with tr.span("fused.materialize", 8):
+        pass
+    rec = tr.stop()
+    rows = [(name, frame, parent) for name, frame, parent, _, _ in rec["spans"]]
+    assert rows == [
+        ("fused.step", 7, -1), ("fused.load_frame", 7, 0), ("fused.stage_wait", 7, 1), ("fused.launch", 7, 0),
+        ("fused.step", 8, -1), ("fused.load_frame", 8, 4), ("fused.stage_wait", 8, 5), ("fused.launch", 8, 4),
+        ("fused.materialize", 8, -1),
+    ]
+    for name, frame, parent, t0, t1 in rec["spans"]:
+        assert rec["start_ns"] <= t0 <= t1 <= rec["stop_ns"]
+        if parent >= 0:
+            assert rec["spans"][parent][3] <= t0 and t1 <= rec["spans"][parent][4]
+    assert rec["marks"] == list(tprof.MARKS) and rec["ranges"] == [] and rec["clock"] is None
+
+
+def test_tracer_counters_count():
+    tr = tprof.Tracer()
+    tr.start("cpu")
+    for _ in range(3):
+        tr.count("steps")
+        tr.count("staged_bytes", 1024)
+    tr.count("replays", 2)
+    rec = tr.stop()
+    assert rec["counters"] == {"steps": 3, "replays": 2, "eager_steps": 0, "captures": 0,
+                               "staged_bytes": 3072, "fetched_bytes": 0}
+    tr.start("cpu")
+    with pytest.raises(KeyError):
+        tr.count("no such counter")
+    tr.stop()
+
+
+def test_an_idle_tracer_holds_nothing():
+    tr = tprof.Tracer()
+    assert not tr.on and tprof.tracer.on is False
+    with pytest.raises(RuntimeError, match="not on"):
+        tr.stop()
+    assert tr._spans == [] and tr._ranges == {} and tr._events == [] and tr._tags is None
+    # no device on the CPU: no range, nothing allocated for one
+    tr.start("cpu")
+    assert tr.open_range(0, torch.device("cpu")) is None
+    tr.mark(None, 0)
+    tr.stop()
+    assert tr._events == [] and tr._tags is None
+
+
+def test_tracer_starts_and_stops_again_each_record_its_own():
+    tr = tprof.Tracer()
+    records = []
+    for k in range(3):
+        tr.start("cpu")
+        with pytest.raises(RuntimeError, match="already on"):
+            tr.start("cpu")
+        with tr.span("fused.step", k):
+            tr.count("steps")
+        records.append(tr.stop())
+        assert not tr.on
+    assert [[(s[0], s[1], s[2]) for s in r["spans"]] for r in records] == [[("fused.step", k, -1)] for k in range(3)]
+    assert [r["counters"]["steps"] for r in records] == [1, 1, 1]
+    assert records[0]["stop_ns"] <= records[1]["start_ns"]
